@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the ROLL Flash reproduction.
+
+A second package beside the JAX package ``repro``, which stays the
+reference.  It imports ``torch``, numpy and the standard library, and
+nothing of ``repro``.  Slice 1 serves a dense decoder (Qwen3-4B at full
+width) through ``LLMProxy`` and ``PagedDecodeEngine``, with decode
+attention in a hand-written CUDA kernel for Hopper (``csrc/``).
+"""

@@ -1,0 +1,44 @@
+"""Carry the JAX package's parameters across to the port.
+
+``params_from_jax`` takes the JAX param tree as nested dicts of numpy
+arrays (the caller does the ``np.asarray`` on the JAX side, so this module
+imports no JAX) in ``transformer.init_lm``'s layout: ``embed``, ``blocks``
+stacked on a leading layer axis, ``final_norm``, ``lm_head``.  It returns
+the port's layout — the same dicts with ``blocks`` as a list of per-layer
+dicts — as tensors on ``device``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a)   # a writable copy: JAX's host buffers are read-only
+    if a.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own (JAX hands out ml_dtypes'): move the
+        # raw 16-bit patterns and reinterpret them.
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def params_from_jax(tree, device) -> dict:
+    """JAX dense-LM param tree (numpy leaves) -> the port's params."""
+    device = torch.device(device)
+    out = {k: _convert(v, device) for k, v in tree.items() if k != "blocks"}
+    n = len(np.asarray(tree["blocks"]["ln1"]["scale"]))
+    out["blocks"] = [_convert(_layer(tree["blocks"], i), device)
+                     for i in range(n)]
+    return out

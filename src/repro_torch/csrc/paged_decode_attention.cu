@@ -1,0 +1,264 @@
+// Paged decode attention for Hopper (sm_90a), with a plain C interface for
+// ctypes.
+//
+// Replaces the Pallas TPU kernel `_paged_kernel` /
+// `paged_decode_attention` in src/repro/kernels/paged_decode_attention.py:
+// one query token per sequence, GQA, against a shared page pool addressed
+// through per-sequence block tables.
+//
+//   q            (B, H, D)            fp32 or bf16, contiguous
+//   k/v pages    (N, page, KV, D)     same dtype, read in place by strides
+//   block_tables (B, P) int32         physical page ids, -1 = unassigned
+//   lengths      (B,)   int32         tokens written so far
+//   out          (B, H, D)            q's dtype
+//
+// Semantics are those of the TPU kernel: every one of the P table entries is
+// visited (a -1 entry reads page 0 and is masked), scores are fp32 with the
+// 1/sqrt(D) scale applied to q, an optional tanh softcap, masked scores are
+// -1e30 (a fully masked row averages V uniformly), the online softmax starts
+// from m = -1e30, l = 0, and the output is acc / max(l, 1e-30).
+//
+// Design.  The TPU grid (B, KV, P) ran its page axis in order and carried
+// the softmax state in scratch; here one thread block owns one
+// (sequence, KV head) and loops over the pages itself.  Per page, the whole
+// block loads that page's (page, D) K and V tiles for its KV head into
+// shared memory with 16-byte loads, once for all G query heads of the group
+// (the GQA saving).  Each warp then runs the online-softmax update for one
+// query head (or several, when G exceeds the warps): each lane holds D/32
+// elements of q and of the fp32 accumulator, and dot products are reduced
+// with warp shuffles.
+//
+// Bound.  Decode attention does ~2 flops per byte read: it is bound by the
+// bytes of K/V it reads from device memory.  This first version keeps one
+// page in flight per block and loops over all P entries; splitting the
+// pages of a long sequence over several blocks, double-buffering the tiles
+// with cp.async/TMA, and stopping at ceil(length / page) are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kMaxWarps = 8;
+constexpr int kMinWarps = 4;
+constexpr int kMaxHeadsPerWarp = 4;
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float x, float* dst) { *dst = x; }
+__device__ __forceinline__ void store(float x, __nv_bfloat16* dst) { *dst = __float2bfloat16(x); }
+
+// One 16-byte vector of T, widened to floats.
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* src, float* dst) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    dst[0] = x.x;
+    dst[1] = x.y;
+    dst[2] = x.z;
+    dst[3] = x.w;
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* src, float* dst) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      dst[2 * i] = f.x;
+      dst[2 * i + 1] = f.y;
+    }
+  }
+};
+
+template <typename T, int D>
+__global__ void paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                                    const T* __restrict__ v_pages,
+                                    const int* __restrict__ block_tables,
+                                    const int* __restrict__ lengths, T* __restrict__ out,
+                                    int num_heads, int num_kv, int pages_per_seq, int page_size,
+                                    long long stride_page, long long stride_slot,
+                                    long long stride_head, float scale, float softcap) {
+  constexpr int EPL = D / 32;          // head_dim elements per lane
+  constexpr int VN = Vec16<T>::N;      // elements per 16-byte load
+  constexpr int VPR = D / VN;          // 16-byte loads per (slot, head) row
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int group = num_heads / num_kv;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+
+  extern __shared__ float smem[];
+  float* k_tile = smem;                           // (page_size, D)
+  float* v_tile = k_tile + page_size * D;         // (page_size, D)
+  float* my_scores = v_tile + page_size * D + warp * page_size;
+
+  // Per query head of this warp: q (pre-scaled), running max, sum, acc.
+  float qr[kMaxHeadsPerWarp][EPL];
+  float acc[kMaxHeadsPerWarp][EPL];
+  float m[kMaxHeadsPerWarp];
+  float l[kMaxHeadsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kMaxHeadsPerWarp; ++i) {
+    const int g = warp + i * nwarps;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      acc[i][e] = 0.f;
+      qr[i][e] = g < group
+                     ? to_float(q[((long long)b * num_heads + kvh * group + g) * D + lane + 32 * e]) *
+                           scale
+                     : 0.f;
+    }
+  }
+
+  const int length = lengths[b];
+  const int* row = block_tables + (long long)b * pages_per_seq;
+  for (int j = 0; j < pages_per_seq; ++j) {
+    const int entry = row[j];
+    const bool assigned = entry >= 0;
+    const long long base = (long long)(assigned ? entry : 0) * stride_page +
+                           (long long)kvh * stride_head;
+    __syncthreads();  // every warp is done with the previous page's tiles
+    for (int i = threadIdx.x; i < page_size * VPR; i += blockDim.x) {
+      const int t = i / VPR;
+      const int c = (i - t * VPR) * VN;
+      const long long off = base + t * stride_slot + c;
+      Vec16<T>::load(k_pages + off, k_tile + t * D + c);
+      Vec16<T>::load(v_pages + off, v_tile + t * D + c);
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < kMaxHeadsPerWarp; ++i) {
+      if (warp + i * nwarps >= group) break;  // uniform across the warp
+      float m_page = kNegInf;
+      for (int t = 0; t < page_size; ++t) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) part += qr[i][e] * k_tile[t * D + lane + 32 * e];
+        float s = warp_sum(part);
+        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+        if (!(assigned && j * page_size + t < length)) s = kNegInf;
+        if (lane == 0) my_scores[t] = s;
+        m_page = fmaxf(m_page, s);
+      }
+      __syncwarp();
+      const float m_new = fmaxf(m[i], m_page);
+      const float alpha = expf(m[i] - m_new);
+      float p_sum = 0.f;
+      float pv[EPL];
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) pv[e] = 0.f;
+      for (int t = 0; t < page_size; ++t) {
+        const float p = expf(my_scores[t] - m_new);
+        p_sum += p;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) pv[e] += p * v_tile[t * D + lane + 32 * e];
+      }
+      l[i] = l[i] * alpha + p_sum;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[i][e] = acc[i][e] * alpha + pv[e];
+      m[i] = m_new;
+      __syncwarp();  // my_scores is rewritten for the next head
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kMaxHeadsPerWarp; ++i) {
+    const int g = warp + i * nwarps;
+    if (g >= group) break;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* o = out + ((long long)b * num_heads + kvh * group + g) * D;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) store(acc[i][e] / denom, o + lane + 32 * e);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
+           const void* lengths, void* out, int batch, int num_heads, int num_kv,
+           int pages_per_seq, int page_size, long long stride_page, long long stride_slot,
+           long long stride_head, float scale, float softcap, cudaStream_t stream) {
+  const int group = num_heads / num_kv;
+  int nwarps = group < kMinWarps ? kMinWarps : group;
+  if (nwarps > kMaxWarps) nwarps = kMaxWarps;
+  if (group > nwarps * kMaxHeadsPerWarp) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)2 * page_size * D + (size_t)nwarps * page_size);
+  auto kernel = paged_decode_kernel<T, D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<dim3(batch, num_kv), nwarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+      static_cast<const int*>(block_tables), static_cast<const int*>(lengths),
+      static_cast<T*>(out), num_heads, num_kv, pages_per_seq, page_size, stride_page,
+      stride_slot, stride_head, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_head_dim(int head_dim, const void* q, const void* k_pages, const void* v_pages,
+                      const void* block_tables, const void* lengths, void* out, int batch,
+                      int num_heads, int num_kv, int pages_per_seq, int page_size,
+                      long long stride_page, long long stride_slot, long long stride_head,
+                      float scale, float softcap, cudaStream_t stream) {
+#define PAGED_DECODE_CASE(DIM)                                                                  \
+  case DIM:                                                                                     \
+    return launch<T, DIM>(q, k_pages, v_pages, block_tables, lengths, out, batch, num_heads,   \
+                          num_kv, pages_per_seq, page_size, stride_page, stride_slot,          \
+                          stride_head, scale, softcap, stream);
+  switch (head_dim) {
+    PAGED_DECODE_CASE(32)
+    PAGED_DECODE_CASE(64)
+    PAGED_DECODE_CASE(128)
+    PAGED_DECODE_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PAGED_DECODE_CASE
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
+// (head_dim) stride of the pools must be 1.  softcap <= 0 means none.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int paged_decode_attention(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* block_tables, const void* lengths, void* out,
+                                      int dtype, int batch, int num_heads, int num_kv,
+                                      int head_dim, int pages_per_seq, int page_size,
+                                      long long stride_page, long long stride_slot,
+                                      long long stride_head, float scale, float softcap,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_head_dim<float>(head_dim, q, k_pages, v_pages, block_tables, lengths, out,
+                                    batch, num_heads, num_kv, pages_per_seq, page_size,
+                                    stride_page, stride_slot, stride_head, scale, softcap, s);
+  if (dtype == 1)
+    return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k_pages, v_pages, block_tables,
+                                            lengths, out, batch, num_heads, num_kv,
+                                            pages_per_seq, page_size, stride_page, stride_slot,
+                                            stride_head, scale, softcap, s);
+  return (int)cudaErrorInvalidValue;
+}

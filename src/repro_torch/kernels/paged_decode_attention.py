@@ -1,0 +1,117 @@
+"""Paged decode attention: one query token per sequence against a paged KV
+pool, through per-sequence block tables.
+
+Replaces the Pallas TPU kernel ``_paged_kernel`` behind
+``repro.kernels.paged_decode_attention.paged_decode_attention`` (the fp/bf16
+variant; the int8-KV variant is a later slice).  The CUDA kernel is
+``src/repro_torch/csrc/paged_decode_attention.cu``, built for ``sm_90a`` at
+first use (``kernels/build.py``) and called through ``ctypes``.
+
+What bounds it on an H100: decode attention does about two flops per byte
+of K/V it reads, so it is bound by device-memory bandwidth.  The design
+reads the pool in its native ``(N, page, KV, D)`` layout in place, by
+strides (the Pallas wrapper transposed the whole pool on every call), and
+each thread block loads a page's K/V tile for its KV head once for all G
+query heads of the group.  It keeps one page in flight per block; splitting
+long sequences across blocks and double-buffering the loads are later work.
+
+On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
+tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import paged_decode_attention_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128, 256)
+_MAX_GROUP = 32          # 8 warps x 4 query heads per warp
+_MAX_SMEM = 232_448      # bytes of shared memory a block may use on Hopper
+_MAX_WARPS = 8
+_MIN_WARPS = 4
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.paged_decode_attention
+    if fn.argtypes is None:
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, f, f, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_pages, v_pages, block_tables, lengths):
+    b, h, d = q.shape
+    n, page_size, kv, dk = k_pages.shape
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged_decode_attention: dtype {q.dtype} not supported "
+                        "(float32, bfloat16)")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError("paged_decode_attention: q and the pools must share a dtype")
+    if d not in _HEAD_DIMS or dk != d or v_pages.shape != k_pages.shape:
+        raise ValueError(f"paged_decode_attention: head_dim {d} with pools "
+                         f"{tuple(k_pages.shape)} not supported (head_dim in "
+                         f"{_HEAD_DIMS}, k and v pools of one shape)")
+    if h % kv or h // kv > _MAX_GROUP:
+        raise ValueError(f"paged_decode_attention: {h} heads over {kv} KV heads "
+                         f"not supported (group <= {_MAX_GROUP})")
+    if k_pages.stride() != v_pages.stride() or k_pages.stride(3) != 1:
+        raise ValueError("paged_decode_attention: k and v pools need equal "
+                         "strides and a contiguous head_dim")
+    vec = 16 // q.element_size()
+    if (any(s % vec for s in k_pages.stride()[:3])
+            or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16):
+        raise ValueError("paged_decode_attention: pool rows must be 16-byte "
+                         "aligned")
+    nwarps = min(max(h // kv, _MIN_WARPS), _MAX_WARPS)
+    smem = 4 * (2 * page_size * d + nwarps * page_size)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"paged_decode_attention: page_size {page_size} needs "
+                         f"{smem} bytes of shared memory (max {_MAX_SMEM})")
+    devices = {t.device for t in (q, k_pages, v_pages, block_tables, lengths)}
+    if len(devices) != 1:
+        raise ValueError(f"paged_decode_attention: tensors on {devices}")
+    if block_tables.shape[0] != b or lengths.shape != (b,):
+        raise ValueError("paged_decode_attention: block_tables (B, P) and "
+                         "lengths (B,) must match q's batch")
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                           softcap=None):
+    """q: (B, H, D); k_pages/v_pages: (N, page_size, KV, D);
+    block_tables: (B, P) int physical page ids (-1 = unassigned);
+    lengths: (B,) int tokens written so far.  Returns (B, H, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                          lengths, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: device {q.device} not supported")
+    _check(q, k_pages, v_pages, block_tables, lengths)
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"paged_decode_attention: softcap {softcap} must be > 0")
+    b, h, d = q.shape
+    page_size, kv = k_pages.shape[1], k_pages.shape[2]
+    q = q.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    fn = _bind(build.library("paged_decode_attention"))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], b, h, kv, d, tables.shape[1], page_size,
+                k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+                d ** -0.5, 0.0 if softcap is None else float(softcap), stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention: CUDA launch failed "
+                           f"(cudaError {rc})")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -1,0 +1,66 @@
+"""Uniform model API, dense family (the port's counterpart of the JAX
+package's ``models/api.py``).
+
+    api = get_api(cfg, device=)            # the card unless device= says otherwise
+    params = api.init(seed)
+    logits, aux = api.apply(params, batch)
+    cache = api.init_paged_cache(num_pages, page_size)
+    logits, cache = api.prefill_chunk(params, tokens, valid, start, block_row, cache)
+    logits, cache = api.decode_paged(params, token, pos, cache, block_tables, attn_impl=)
+
+The slot engine's dense-cache views (``prefill``, ``decode_step``,
+``init_cache``) and the other families are later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import paged, transformer
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable[..., Any]              # (seed) -> params on device
+    apply: Callable[..., Any]             # (params, batch, return_features=) -> (logits, aux)
+    init_paged_cache: Callable[..., Any]  # (num_pages, page_size, kv_quant=) -> PagedKVCache
+    prefill_chunk: Callable[..., Any]     # (params, tokens, valid, start, block_row, cache) -> (logits, cache)
+    decode_paged: Callable[..., Any]      # (params, token, pos, cache, block_tables, attn_impl=) -> (logits, cache)
+    cache_view: Callable[..., Any]        # (layer_pages, block_row) -> (k, v, valid)
+
+
+def get_api(cfg: ModelConfig, *, device=None) -> ModelAPI:
+    if not paged.supports_paged(cfg):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+    device = resolve_device(device)
+
+    def init(seed: int = 0):
+        return transformer.init_lm(cfg, seed, device=device)
+
+    def apply(params, batch, *, return_features=False):
+        return transformer.lm_apply(params, cfg, batch["tokens"],
+                                    return_features=return_features)
+
+    def init_paged_cache(num_pages, page_size, kv_quant="off"):
+        return paged.init_paged_cache(cfg, num_pages, page_size,
+                                      kv_quant=kv_quant, device=device)
+
+    def prefill_chunk(params, tokens, valid, start, block_row, cache):
+        return paged.paged_prefill_chunk(params, cfg, tokens, valid, start,
+                                         block_row, cache)
+
+    def decode_paged(params, token, pos, cache, block_tables, *,
+                     attn_impl="kernel"):
+        return paged.paged_decode_step(params, cfg, token, pos, cache,
+                                       block_tables, attn_impl=attn_impl)
+
+    return ModelAPI(cfg, device, init, apply, init_paged_cache=init_paged_cache,
+                    prefill_chunk=prefill_chunk, decode_paged=decode_paged,
+                    cache_view=paged.gather_request_view)

@@ -1,0 +1,164 @@
+"""GQA attention: projections and the plain-torch ``attend``.
+
+* GQA is expressed by reshaping queries to (B, S, n_kv, group, head_dim);
+  KV heads are never repeated in memory.
+* Up to ``_DIRECT_PATH_MAX_SEQ`` keys the score tensor is materialised
+  directly; beyond it an online-softmax loop over KV blocks (flash-style in
+  plain torch) keeps peak scores at (B, H, q_chunk, block_k).
+* Masked scores take a ``-1e30`` fill, not ``-inf``: a fully masked row
+  averages V uniformly, exactly as in the reference package.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import torch_dtype
+from repro_torch.models import module
+from repro_torch.models.config import ModelConfig
+
+_DIRECT_PATH_MAX_SEQ = 2048  # below this, materialise scores directly
+_KV_BLOCK = 1024
+_Q_CHUNK = 2048
+_NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device):
+    dt = torch_dtype(cfg.dtype)
+    hd = cfg.resolved_head_dim
+    p = {
+        "wq": module.dense_init(gen, cfg.d_model, cfg.q_dim, dt, device),
+        "wk": module.dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device),
+        "wv": module.dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device),
+        "wo": module.dense_init(gen, cfg.q_dim, cfg.d_model, dt, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# core attend
+# ---------------------------------------------------------------------------
+
+def _soft_cap(logits, cap):
+    if cap is None:
+        return logits
+    return cap * torch.tanh(logits / cap)
+
+
+def _mask(q_pos, kv_pos, kv_valid, window):
+    """(B, 1, 1, Sq, Skv) bool: valid, causal and (optionally) windowed."""
+    mask = (kv_valid[:, None, None, None, :]
+            & (kv_pos[:, None, None, None, :] <= q_pos[:, None, None, :, None]))
+    if window is not None:
+        mask = mask & ((q_pos[:, None, None, :, None]
+                        - kv_pos[:, None, None, None, :]) < window)
+    return mask
+
+
+def _attend_direct(q, k, v, q_pos, kv_pos, kv_valid, *, window, softcap):
+    """q: (B,Sq,KV,G,hd); k/v: (B,Skv,KV,hd).  Materialises the scores.
+
+    Probabilities are cast to ``v.dtype`` before the PV product, as in the
+    reference: in bf16 they round to bf16."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqkgd,btkd->bkgqt", q.float() * scale, k.float())
+    logits = _soft_cap(logits, softcap)
+    logits = torch.where(_mask(q_pos, kv_pos, kv_valid, window), logits,
+                         _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgqt,btkd->bqkgd", probs.to(v.dtype), v)
+
+
+def _attend_kv_scan(q, k, v, q_pos, kv_pos, kv_valid, *, window, softcap,
+                    block=_KV_BLOCK):
+    """Online-softmax loop over KV blocks. Same field order as _attend_direct."""
+    b, sq, nkv, g, hd = q.shape
+    pad = -k.shape[1] % block
+    if pad:
+        # padded keys are invalid (-1e30): in a fully masked row they still
+        # count in the uniform average, as in the reference.
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+        kv_valid = F.pad(kv_valid, (0, pad), value=False)
+    skv = k.shape[1]
+    qf = q.float() * hd ** -0.5
+    m = torch.full((b, nkv, g, sq), -torch.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, nkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, nkv, g, sq, hd), dtype=torch.float32, device=q.device)
+    for lo in range(0, skv, block):
+        kj, vj = k[:, lo:lo + block], v[:, lo:lo + block]
+        logits = torch.einsum("bqkgd,btkd->bkgqt", qf, kj.float())
+        logits = _soft_cap(logits, softcap)
+        mask = _mask(q_pos, kv_pos[:, lo:lo + block],
+                     kv_valid[:, lo:lo + block], window)
+        logits = torch.where(mask, logits, _NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqt,btkd->bkgqd", p,
+                                                    vj.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B,Sq,KV,G,hd)
+
+
+def _attend_blockwise(q, k, v, q_pos, kv_pos, kv_valid, **kwargs):
+    """Query chunks of ``_Q_CHUNK``, each an online-softmax loop over KV
+    blocks: peak live scores are (B, H, q_chunk, block_k)."""
+    sq = q.shape[1]
+    outs = [_attend_kv_scan(q[:, lo:lo + _Q_CHUNK], k, v,
+                            q_pos[:, lo:lo + _Q_CHUNK], kv_pos, kv_valid,
+                            **kwargs)
+            for lo in range(0, sq, _Q_CHUNK)]
+    return torch.cat(outs, dim=1)
+
+
+def attend(q, k, v, q_pos, kv_pos, kv_valid, *, window=None, softcap=None):
+    if k.shape[1] <= _DIRECT_PATH_MAX_SEQ:
+        return _attend_direct(q, k, v, q_pos, kv_pos, kv_valid, window=window,
+                              softcap=softcap)
+    return _attend_blockwise(q, k, v, q_pos, kv_pos, kv_valid, window=window,
+                             softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# layer-level entry points
+# ---------------------------------------------------------------------------
+
+def _project_q(p, cfg: ModelConfig, x, positions):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    if cfg.qk_norm and "q_norm" in p:
+        q = module.rmsnorm_head(p["q_norm"], q, cfg.norm_eps)
+    q = module.apply_rope(q, positions, cfg.rope_theta)
+    return q.reshape(b, s, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                     hd)
+
+
+def _project_kv(p, cfg: ModelConfig, x, positions):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    if cfg.qk_norm and "k_norm" in p:
+        k = module.rmsnorm_head(p["k_norm"], k, cfg.norm_eps)
+    k = module.apply_rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def self_attention(p, cfg: ModelConfig, x, positions):
+    """Full-sequence causal self-attention. x: (B,S,D); positions: (B,S) int."""
+    b, s, _ = x.shape
+    q = _project_q(p, cfg, x, positions)
+    k, v = _project_kv(p, cfg, x, positions)
+    kv_valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
+    out = attend(q, k, v, positions, positions, kv_valid,
+                 window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"]

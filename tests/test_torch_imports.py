@@ -1,0 +1,110 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points never fall back to the CPU silently."""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from conftest import tiny
+from repro_torch.models.config import ModelConfig
+
+# tiny shapes: one torch thread, so the suite's parallel workers keep their
+# cores (torch's pool would otherwise spin on all of them)
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    # a subprocess: this test process already imported jax via conftest
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert len(names) >= 20, names\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_port_source_has_no_jax_or_repro_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def _cfg():
+    return ModelConfig(**dataclasses.asdict(tiny("qwen3-4b", dtype="float32")))
+
+
+def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
+    from repro_torch.models import get_api
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.rollout import PagedDecodeEngine
+
+    cfg = _cfg()
+    api = get_api(cfg, device="cpu")
+    params = api.init(0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_api(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_lm(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedDecodeEngine(api, params, num_slots=2, max_total_len=32,
+                          page_size=8, prefill_chunk=8)
+    # explicit CPU works, and the engine refuses a device unlike the API's
+    PagedDecodeEngine(api, params, num_slots=2, max_total_len=32, page_size=8,
+                      prefill_chunk=8, device="cpu")
+    with pytest.raises(ValueError, match="differs"):
+        PagedDecodeEngine(api, params, num_slots=2, max_total_len=32,
+                          page_size=8, prefill_chunk=8, device="meta")
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(quant_mode="int8"), NotImplementedError),
+    (dict(kv_quant="int8"), NotImplementedError),
+    (dict(quant_mode="int4"), ValueError),
+    (dict(attn_impl="kernel_interpret"), ValueError),
+])
+def test_engine_refuses_modes_not_ported(kw, exc):
+    from repro_torch.models import get_api
+    from repro_torch.rollout import PagedDecodeEngine
+
+    api = get_api(_cfg(), device="cpu")
+    with pytest.raises(exc):
+        PagedDecodeEngine(api, api.init(0), num_slots=2, max_total_len=32,
+                          page_size=8, prefill_chunk=8, device="cpu", **kw)
+
+
+def test_other_families_are_not_ported_yet():
+    from repro_torch.models import get_api
+    cfg = ModelConfig(**dataclasses.asdict(tiny("rwkv6-3b")))
+    with pytest.raises(NotImplementedError):
+        get_api(cfg, device="cpu")
