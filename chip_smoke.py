@@ -11,16 +11,26 @@ no result):
 2. ``build``: ``nvcc`` builds every kernel in ``src/repro_torch/csrc``.
 3. ``kernels``: each kernel against its plain-torch version on the card, at
    the shapes the serving path gives it, plus a softcap case and a small odd
-   shape; times of the kernel, the plain version, the bound and one PyTorch
-   library call.
+   shape, for fp/bf16 pools and for int8 pools with scales (made by the
+   port's ``quantize_kv``; a fully masked row and a length-0 row); times of
+   the kernel, the plain version, the bound and one PyTorch library call.
 4. ``model``: full-width Qwen3-4B in fp32, the same requests through two
-   engines sharing one set of weights, ``attn_impl="kernel"`` and ``"ref"``:
-   greedy tokens must match.
+   engines sharing one set of weights, ``attn_impl="kernel"`` and ``"ref"``,
+   with a full-precision and with an int8 KV pool: greedy tokens must
+   match.  Then quantize-on-sync: an engine with ``quant_mode`` int8 / fp8
+   must decode exactly the tokens of an unquantized engine given the
+   weights quantized and dequantized up front.
 5. ``serve``: the main path — full-width Qwen3-4B in bf16 behind
    ``LLMProxy`` over ``PagedDecodeEngine`` (prefix cache on, 16 slots),
    serving a seeded mix of rollout tasks.  Every callback must fire, the
    page audit must be clean, and the decode kernel must have launched
-   num_layers times per decode step.
+   num_layers times per decode step.  Then a profiled decode window.
+6. ``serve_quant``: the same tasks and settings with ``quant_mode="int8",
+   kv_quant="int8"``, and a weight sync (suspend, update_weights with a new
+   bf16 tree, resume) once half the callbacks have fired.  The int8 kernel
+   must have launched num_layers times per decode step; the held weights'
+   and the KV pool's bytes are measured against bf16; then a profiled
+   decode window and the device time of one forward's dequantization.
 
 Then one line with every kernel's numbers, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, drawn from a seed
@@ -90,9 +100,13 @@ def phase_build() -> None:
 # kernels
 # ---------------------------------------------------------------------------
 
-def _paged_inputs(gen, b, h, kv, d, page_size, p, dtype):
-    """Pool, ragged block tables (-1 tails) and lengths; row 0 fully masked."""
+def _paged_inputs(gen, b, h, kv, d, page_size, p, dtype, int8=False):
+    """Pool, ragged block tables (-1 tails) and lengths; row 0 fully masked.
+    ``int8``: the pools are int8 codes made by the port's ``quantize_kv``
+    from the same draws, with their scales, and row 1 has length 0.
+    Returns (q, k_pages, v_pages, tables, lengths, scales dict)."""
     torch = _torch()
+    from repro_torch.models.paged import quantize_kv
     n = 1 + b * p
     q = torch.randn(b, h, d, generator=gen, device=DEVICE).to(dtype)
     kp = torch.randn(n, page_size, kv, d, generator=gen, device=DEVICE).to(dtype)
@@ -104,16 +118,22 @@ def _paged_inputs(gen, b, h, kv, d, page_size, p, dtype):
     for i, length in enumerate(lengths.tolist()):
         tables[i, -(-length // page_size):] = -1
     tables[0] = -1
-    return q, kp, vp, tables, lengths
+    scales = {}
+    if int8:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        scales = {"k_scales": ks, "v_scales": vs}
+        lengths[1] = 0
+    return q, kp, vp, tables, lengths, scales
 
 
-def _paged_bound(q, kp, tables, lengths):
+def _paged_bound(q, kp, tables, lengths, quantized=False):
     """(bound_ms, bound_by) from what these inputs need: each K/V tile the
     softmax can weigh is read once (a fully masked row averages V over its
-    clamped entries), q read and the output written once."""
+    clamped entries), with its fp32 scales for an int8 pool, q read and the
+    output written once."""
     b, h, d = q.shape
     page_size, kv = kp.shape[1], kp.shape[2]
-    tile = page_size * kv * d * kp.element_size()
+    tile = page_size * kv * d * kp.element_size() + (4 * page_size * kv if quantized else 0)
     k_pages, v_pages = set(), set()
     positions = 0
     for row, length in zip(tables.tolist(), lengths.tolist()):
@@ -153,9 +173,54 @@ def _time_ms(fn, iters=30) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def phase_kernels() -> dict:
+def _kernel_row(name, main, page_size, variant):
+    """Time the kernel, its plain version and SDPA (on a bf16 dense view
+    gathered, and dequantized for an int8 pool, beforehand: preparation not
+    timed) at the slice shape; the bound from these inputs."""
     torch = _torch()
     import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    q, kp, vp, tables, lengths, scales, err = main
+    b, h, d = q.shape
+    kv = kp.shape[2]
+    s = tables.shape[1] * page_size
+    kernel_ms = _time_ms(lambda: paged_decode_attention(q, kp, vp, tables, lengths,
+                                                        **scales))
+    plain_ms = _time_ms(lambda: paged_decode_attention_ref(q, kp, vp, tables, lengths,
+                                                           **scales))
+    # yardstick only (the port never calls it)
+    idx = tables.long().clamp(min=0)
+    kd, vd = kp[idx].reshape(b, s, kv, d), vp[idx].reshape(b, s, kv, d)
+    if scales:
+        kd = kd.float() * scales["k_scales"][idx].reshape(b, s, kv)[..., None]
+        vd = vd.float() * scales["v_scales"][idx].reshape(b, s, kv)[..., None]
+    kd = kd.to(q.dtype).transpose(1, 2).contiguous()
+    vd = vd.to(q.dtype).transpose(1, 2).contiguous()
+    pos = torch.arange(s, device=DEVICE)[None, :]
+    mask = ((pos < lengths[:, None])
+            & torch.repeat_interleave(tables >= 0, page_size, dim=1))[:, None, None, :]
+    qd = q[:, :, None, :]
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    bound_ms, bound_by = _paged_bound(q, kp, tables, lengths, quantized=bool(scales))
+    pool = "int8 pool + fp32 scales" if scales else "bf16 pool"
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/paged_decode_attention.py:146",
+            "variant": variant,
+            "launches": None, "max_abs_err": err, "ms": kernel_ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_call": "F.scaled_dot_product_attention(enable_gqa=True) on a bf16 "
+                            "dense view gathered (and dequantized) beforehand, not timed",
+            "shape": f"B={b} H={h} KV={kv} D={d} page={page_size} "
+                     f"P={tables.shape[1]} bf16 q, {pool}"}
+
+
+def phase_kernels() -> list:
+    torch = _torch()
     from repro_torch.kernels.paged_decode_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_decode_attention_ref
 
@@ -163,56 +228,46 @@ def phase_kernels() -> dict:
     h, kv, d = 32, 8, 128                                  # Qwen3-4B
     page_size = SERVE["page_size"]
     p = SERVE["max_total_len"] // page_size
-    cases = [  # (label, b, h, kv, d, page, P, dtype, softcap)
-        ("slice_bf16", SERVE["num_slots"], h, kv, d, page_size, p, torch.bfloat16, None),
-        ("slice_fp32", SERVE["num_slots"], h, kv, d, page_size, p, torch.float32, None),
-        ("softcap_fp32", SERVE["num_slots"], h, kv, d, page_size, p, torch.float32, 30.0),
-        ("odd_bf16", 3, 12, 3, 64, 8, 5, torch.bfloat16, None),
-        ("odd_fp32", 3, 12, 3, 64, 8, 5, torch.float32, None),
+    bf16, fp32 = torch.bfloat16, torch.float32
+    b = SERVE["num_slots"]
+    cases = [  # (label, b, h, kv, d, page, P, q dtype, softcap, int8 pool)
+        ("slice_bf16", b, h, kv, d, page_size, p, bf16, None, False),
+        ("slice_fp32", b, h, kv, d, page_size, p, fp32, None, False),
+        ("softcap_fp32", b, h, kv, d, page_size, p, fp32, 30.0, False),
+        ("odd_bf16", 3, 12, 3, 64, 8, 5, bf16, None, False),
+        ("odd_fp32", 3, 12, 3, 64, 8, 5, fp32, None, False),
+        ("slice_int8_bf16q", b, h, kv, d, page_size, p, bf16, None, True),
+        ("slice_int8_fp32q", b, h, kv, d, page_size, p, fp32, None, True),
+        ("softcap_int8_fp32q", b, h, kv, d, page_size, p, fp32, 30.0, True),
+        ("odd_int8_bf16q", 3, 12, 3, 64, 8, 5, bf16, None, True),
     ]
-    main = None
-    for label, b, hh, kvv, dd, ps, pp, dtype, softcap in cases:
-        q, kp, vp, tables, lengths = _paged_inputs(gen, b, hh, kvv, dd, ps, pp, dtype)
-        out = paged_decode_attention(q, kp, vp, tables, lengths, softcap=softcap)
+    main = {}
+    for label, bb, hh, kvv, dd, ps, pp, dtype, softcap, int8 in cases:
+        q, kp, vp, tables, lengths, scales = _paged_inputs(gen, bb, hh, kvv, dd, ps, pp,
+                                                           dtype, int8=int8)
+        out = paged_decode_attention(q, kp, vp, tables, lengths, softcap=softcap, **scales)
         torch.cuda.synchronize()
-        ref = paged_decode_attention_ref(q, kp, vp, tables, lengths, softcap=softcap)
+        ref = paged_decode_attention_ref(q, kp, vp, tables, lengths, softcap=softcap,
+                                         **scales)
         tol = TOL[str(dtype).split(".")[-1]]
         err = (out.float() - ref.float()).abs().max().item()
         ok = torch.allclose(out.float(), ref.float(), **tol)
-        emit("kernels", case=label, shape=[b, hh, kvv, dd, ps, pp],
-             dtype=str(dtype), softcap=softcap, max_abs_err=err, tol=tol, ok=ok)
+        emit("kernels", case=label, shape=[bb, hh, kvv, dd, ps, pp], dtype=str(dtype),
+             pool="int8" if int8 else str(dtype), softcap=softcap, max_abs_err=err,
+             tol=tol, ok=ok)
         if not ok:
             raise AssertionError(f"paged_decode_attention {label}: max abs err {err}")
-        if label == "slice_bf16":
-            main = (q, kp, vp, tables, lengths, err)
+        if label in ("slice_bf16", "slice_int8_bf16q"):
+            main[label] = (q, kp, vp, tables, lengths, scales, err)
 
-    q, kp, vp, tables, lengths, err = main
-    b, s = q.shape[0], tables.shape[1] * page_size
-    kernel_ms = _time_ms(lambda: paged_decode_attention(q, kp, vp, tables, lengths))
-    plain_ms = _time_ms(lambda: paged_decode_attention_ref(q, kp, vp, tables, lengths))
-    # yardstick only (the port never calls it): SDPA over a dense view
-    # gathered beforehand, the gather not timed
-    idx = tables.long().clamp(min=0)
-    kd = kp[idx].reshape(b, s, kv, d).transpose(1, 2).contiguous()
-    vd = vp[idx].reshape(b, s, kv, d).transpose(1, 2).contiguous()
-    pos = torch.arange(s, device=DEVICE)[None, :]
-    mask = ((pos < lengths[:, None])
-            & torch.repeat_interleave(tables >= 0, page_size, dim=1))[:, None, None, :]
-    qd = q[:, :, None, :]
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True))
-    bound_ms, bound_by = _paged_bound(q, kp, tables, lengths)
-    row = {"name": "paged_decode_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/paged_decode_attention.cu",
-           "replaces": "src/repro/kernels/paged_decode_attention.py:146",
-           "launches": None, "max_abs_err": err, "ms": kernel_ms,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms,
-           "library_call": "F.scaled_dot_product_attention(enable_gqa=True) "
-                           "on a dense view gathered beforehand (gather not timed)",
-           "shape": "B=16 H=32 KV=8 D=128 page=16 P=64 bf16"}
-    emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
-    return row
+    rows = [_kernel_row("paged_decode_attention", main.pop("slice_bf16"), page_size,
+                        "fp32/bf16 pool"),
+            _kernel_row("paged_decode_attention_int8", main.pop("slice_int8_bf16q"),
+                        page_size, "int8 pool, k_scales/v_scales (:31-36, :51-53, "
+                                   ":123-129)")]
+    for row in rows:
+        emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -240,25 +295,15 @@ def _top2_gap(api, params, tokens) -> float:
     return float(top[0] - top[1])
 
 
-def phase_model() -> None:
-    import dataclasses
-    import numpy as np
+def _kernel_vs_ref(api, params, prompts, kv_quant: str, max_new: int) -> dict:
+    """Kernel vs plain decode attention at full width: the first decode
+    step's logits on one shared pool, then greedy tokens through two
+    engines.  A divergence is tolerated only at a near-tie of the top two
+    logits (dense plain forward)."""
     torch = _torch()
-    from repro_torch.configs import get_config
-    from repro_torch.models import get_api
-    from repro_torch.rollout import PagedDecodeEngine
 
-    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
-    api = get_api(cfg, device=DEVICE)
-    params = api.init(SEED)
-    rng = np.random.default_rng(SEED + 1)
-    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
-               for n in (40, 100, 180, 250)]
-    max_new = 16
-
-    # the first decode step's logits, kernel vs ref, on one shared pool
     ps, pp = 16, 32
-    cache = api.init_paged_cache(1 + len(prompts) * pp, ps)
+    cache = api.init_paged_cache(1 + len(prompts) * pp, ps, kv_quant=kv_quant)
     tables = torch.arange(1, 1 + len(prompts) * pp, dtype=torch.int32,
                           device=DEVICE).view(len(prompts), pp)
     first = []
@@ -279,14 +324,8 @@ def phase_model() -> None:
 
     results = {}
     for impl in ("kernel", "ref"):
-        eng = PagedDecodeEngine(api, params, num_slots=len(prompts), max_total_len=512,
-                                page_size=ps, prefill_chunk=128, temperature=0.0,
-                                eos_id=-1, attn_impl=impl, device=DEVICE)
-        for rid, prompt in enumerate(prompts):
-            eng.add_request(rid, prompt, max_new)
-        with torch.no_grad():
-            results[impl] = _drain(eng, len(prompts))
-        del eng
+        results[impl] = _greedy(api, params, prompts, max_new, attn_impl=impl,
+                                kv_quant=kv_quant)
     divergences = []
     for rid, prompt in enumerate(prompts):
         a, b = results["kernel"][rid][0], results["ref"][rid][0]
@@ -294,13 +333,67 @@ def phase_model() -> None:
             step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
             gap = _top2_gap(api, params, list(prompt) + a[:step])
             divergences.append({"request": rid, "step": step, "top2_gap": gap})
-    emit("model", arch=ARCH, dtype="float32", layers=cfg.num_layers,
-         d_model=cfg.d_model, first_decode_logits_max_abs_diff=logit_diff,
-         requests=len(prompts), max_new_tokens=max_new,
-         tokens_identical=not divergences, divergences=divergences)
+    emit("model", arch=ARCH, dtype="float32", kv_quant=kv_quant, check="kernel_vs_ref",
+         layers=api.cfg.num_layers, d_model=api.cfg.d_model,
+         first_decode_logits_max_abs_diff=logit_diff, requests=len(prompts),
+         max_new_tokens=max_new, tokens_identical=not divergences,
+         divergences=divergences)
     bad = [dv for dv in divergences if not dv["top2_gap"] < 1e-4]
     if bad:
-        raise AssertionError(f"kernel and ref greedy tokens diverge: {bad}")
+        raise AssertionError(f"kv_quant={kv_quant}: kernel and ref greedy tokens "
+                             f"diverge: {bad}")
+    return results
+
+
+def _greedy(api, params, prompts, max_new, **engine_kw) -> dict:
+    torch = _torch()
+    from repro_torch.rollout import PagedDecodeEngine
+    eng = PagedDecodeEngine(api, params, num_slots=len(prompts), max_total_len=512,
+                            page_size=16, prefill_chunk=128, temperature=0.0,
+                            eos_id=-1, device=DEVICE, **engine_kw)
+    for rid, prompt in enumerate(prompts):
+        eng.add_request(rid, prompt, max_new)
+    with torch.no_grad():
+        out = _drain(eng, len(prompts))
+    del eng
+    return out
+
+
+def phase_model() -> None:
+    import dataclasses
+    import numpy as np
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api
+    from repro_torch.quant import dequantize_params, quantize_params
+
+    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
+    api = get_api(cfg, device=DEVICE)
+    params = api.init(SEED)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 100, 180, 250)]
+    max_new = 16
+    for kv_quant in ("off", "int8"):
+        _kernel_vs_ref(api, params, prompts, kv_quant, max_new)
+        torch.cuda.empty_cache()
+
+    # quantize-on-sync: the engine's per-layer dequantization must give
+    # exactly the tokens of the off engine on weights quantized and
+    # dequantized up front (the same fp32 products, the same matmuls)
+    for mode in ("int8", "fp8"):
+        quantized = _greedy(api, params, prompts, max_new, quant_mode=mode)
+        fake = dequantize_params(quantize_params(params, mode))
+        offline = _greedy(api, fake, prompts, max_new)
+        del fake
+        torch.cuda.empty_cache()
+        same = quantized == offline
+        emit("model", arch=ARCH, dtype="float32", check="quantize_on_sync",
+             quant_mode=mode, requests=len(prompts), max_new_tokens=max_new,
+             tokens_identical=same)
+        if not same:
+            raise AssertionError(f"quant_mode={mode}: engine tokens differ from the "
+                                 "off engine on fake-quantized weights")
     del params
     torch.cuda.empty_cache()
 
@@ -327,34 +420,25 @@ def _serve_tasks(vocab: int):
     return tasks
 
 
-def phase_serve(kernel_row: dict) -> None:
+def _serve_run(eng, tasks, vocab: int, sync=None) -> dict:
+    """Serve ``tasks`` behind ``LLMProxy``; with ``sync``, once half the
+    callbacks have fired: ``proxy.suspend()``, ``sync(proxy)``,
+    ``proxy.resume()``.  Checks every result and the page audit; returns
+    the run's numbers (kernel launches read right after the run)."""
     import numpy as np
-    torch = _torch()
-    from repro_torch.configs import get_config
     from repro_torch.core.llm_proxy import LLMProxy
     from repro_torch.kernels.paged_decode_attention import paged_decode_attention
-    from repro_torch.models import get_api
-    from repro_torch.rollout import PagedDecodeEngine
 
-    cfg = get_config(ARCH)
-    api = get_api(cfg, device=DEVICE)
-    params = api.init(SEED)
-    eng = PagedDecodeEngine(api, params, prefix_cache=True, temperature=1.0,
-                            eos_id=-1, seed=SEED, device=DEVICE, **SERVE)
-    # warm-up outside the measured run: cuBLAS handles, the kernel's load
-    warm = np.arange(3, 35, dtype=np.int32)
-    eng.add_request(-1, warm, 4)
-    _drain(eng, 1)
-
-    tasks = _serve_tasks(cfg.vocab_size)
     want = sum(int(t.meta.get("num_return_sequences", 1)) for t in tasks)
     lock = threading.Lock()
-    done = threading.Event()
+    done, half = threading.Event(), threading.Event()
     results, first_token_at, submitted_at = [], {}, {}
 
     def callback(res):
         with lock:
             results.append(res)
+            if 2 * len(results) >= want:
+                half.set()
             if len(results) == want:
                 done.set()
 
@@ -363,10 +447,11 @@ def phase_serve(kernel_row: dict) -> None:
             first_token_at.setdefault(rid, time.perf_counter())
         return cb
 
-    steps0, decode0 = 0, eng.total_decode_steps
-    tokens0 = eng.total_tokens_decoded
+    decode0, tokens0 = eng.total_decode_steps, eng.total_tokens_decoded
     paged_decode_attention.launches = 0
+    paged_decode_attention.launches_int8 = 0
     proxy = LLMProxy(eng, name="chip_smoke_proxy")
+    sync_s = 0.0
     t0 = time.perf_counter()
     proxy.start()
     try:
@@ -375,12 +460,21 @@ def phase_serve(kernel_row: dict) -> None:
             grouped = "num_return_sequences" in t.meta
             proxy.generate(t, version=0, callback=callback,
                            stream_cb=None if grouped else stream_cb_for(t.task_id))
+        if sync is not None:
+            if not half.wait(timeout=300):
+                raise AssertionError(f"serve: {len(results)}/{want} callbacks fired "
+                                     "before the weight sync")
+            s0 = time.perf_counter()
+            proxy.suspend()
+            sync(proxy)
+            proxy.resume()
+            sync_s = time.perf_counter() - s0
         finished = done.wait(timeout=300)
         wall = time.perf_counter() - t0
     finally:
         proxy.stop()
     launches = paged_decode_attention.launches
-    kernel_row["launches"] = launches
+    launches_int8 = paged_decode_attention.launches_int8
     if not finished:
         raise AssertionError(f"serve: {len(results)}/{want} callbacks fired")
     eng.audit_pages()
@@ -388,25 +482,137 @@ def phase_serve(kernel_row: dict) -> None:
     for res in results:
         toks, lps = np.asarray(res.tokens), np.asarray(res.logprobs)
         if res.aborted or toks.shape != (MAX_NEW,) or not np.isfinite(lps).all() \
-                or (lps > 0).any() or (toks < 0).any() or (toks >= cfg.vocab_size).any():
+                or (lps > 0).any() or (toks < 0).any() or (toks >= vocab).any():
             raise AssertionError(f"serve: bad result for request {res.request_id}")
-    if launches == 0 or launches != cfg.num_layers * decode_steps:
-        raise AssertionError(f"serve: {launches} kernel launches for {decode_steps} "
-                             f"decode steps x {cfg.num_layers} layers")
     ttft = sorted(first_token_at[r] - submitted_at[r] for r in first_token_at)
     decoded = eng.total_tokens_decoded - tokens0
-    emit("serve", arch=ARCH, dtype=cfg.dtype, requests=want, callbacks=len(results),
-         prompt_tokens=int(sum(len(t.prompt_tokens) for t in tasks)),
-         prefill_tokens=eng.total_prefill_tokens, cache_hit_tokens=eng.cache_hit_tokens,
-         groups_forked=eng.total_groups_forked, peak_pages_in_use=eng.peak_pages_in_use,
-         wall_s=wall, engine_steps=proxy.steps_executed - steps0,
-         decode_steps=decode_steps, decoded_tokens=decoded,
-         decode_tokens_per_s=decoded / wall,
-         mean_step_ms=1e3 * wall / max(1, proxy.steps_executed - steps0),
-         ttft_s_median=ttft[len(ttft) // 2], ttft_s_max=ttft[-1],
-         kernel_launches=launches, kernel_launches_per_decode_step=launches / decode_steps,
-         audit_pages="clean")
+    steps = proxy.steps_executed
+    return dict(
+        requests=want, callbacks=len(results), results=results,
+        prompt_tokens=int(sum(len(t.prompt_tokens) for t in tasks)),
+        prefill_tokens=eng.total_prefill_tokens, cache_hit_tokens=eng.cache_hit_tokens,
+        groups_forked=eng.total_groups_forked, peak_pages_in_use=eng.peak_pages_in_use,
+        wall_s=wall, sync_s=sync_s, engine_steps=steps, decode_steps=decode_steps,
+        decoded_tokens=decoded, decode_tokens_per_s=decoded / (wall - sync_s),
+        mean_step_ms=1e3 * (wall - sync_s) / max(1, steps),
+        ttft_s_median=ttft[len(ttft) // 2], ttft_s_max=ttft[-1],
+        kernel_launches=launches, kernel_launches_int8=launches_int8,
+        kernel_launches_per_decode_step=launches / decode_steps, audit_pages="clean")
+
+
+def _warm(eng) -> None:
+    """Warm-up outside the measured run: cuBLAS handles, the kernel's load."""
+    import numpy as np
+    eng.add_request(-1, np.arange(3, 35, dtype=np.int32), 4)
+    _drain(eng, 1)
+
+
+def phase_serve(kernel_row: dict) -> dict:
+    """The slice-1 main path, bf16.  Returns {api, params, bf16 tree bytes
+    measured as the allocation delta of ``api.init``} for ``serve_quant``
+    (a dict, so that the next phase can drop the last reference)."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api
+    from repro_torch.rollout import PagedDecodeEngine
+
+    cfg = get_config(ARCH)
+    api = get_api(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    params = api.init(SEED)
+    torch.cuda.synchronize()
+    bf16_bytes = torch.cuda.memory_allocated() - m0
+    eng = PagedDecodeEngine(api, params, prefix_cache=True, temperature=1.0,
+                            eos_id=-1, seed=SEED, device=DEVICE, **SERVE)
+    _warm(eng)
+    run = _serve_run(eng, _serve_tasks(cfg.vocab_size), cfg.vocab_size)
+    run.pop("results")
+    kernel_row["launches"] = run["kernel_launches"]
+    if run["kernel_launches_int8"] or run["kernel_launches"] != cfg.num_layers * run[
+            "decode_steps"] or not run["kernel_launches"]:
+        raise AssertionError(f"serve: {run['kernel_launches']} kernel launches "
+                             f"({run['kernel_launches_int8']} int8) for "
+                             f"{run['decode_steps']} decode steps x {cfg.num_layers} layers")
+    emit("serve", arch=ARCH, dtype=cfg.dtype, **run)
     _profile_decode(eng)
+    del eng
+    torch.cuda.empty_cache()
+    return {"api": api, "params": params, "bf16_bytes": bf16_bytes}
+
+
+def phase_serve_quant(kernel_row: dict, shared: dict) -> None:
+    """Quantized rollouts on the main path: int8 weights quantized at every
+    sync, an int8 KV pool, a weight sync mid-run."""
+    torch = _torch()
+    from repro_torch.quant import dequantize_params, quantize_params
+    from repro_torch.rollout import PagedDecodeEngine
+
+    api, bf16_bytes = shared["api"], shared["bf16_bytes"]
+    params = shared.pop("params")
+    cfg = api.cfg
+    # held weights: the quantized tree keeps the fp islands (embed,
+    # lm_head, norms) as the same tensors; freeing the bf16 originals of
+    # the quantized leaves leaves islands + codes + scales
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    qparams = quantize_params(params, "int8")
+    del params
+    torch.cuda.empty_cache()
+    held_bytes = bf16_bytes + torch.cuda.memory_allocated() - m0
+    m1 = torch.cuda.memory_allocated()
+    eng = PagedDecodeEngine(api, qparams, quant_mode="int8", kv_quant="int8",
+                            prefix_cache=True, temperature=1.0, eos_id=-1, seed=SEED,
+                            device=DEVICE, **SERVE)
+    pool_bytes = torch.cuda.memory_allocated() - m1
+    del qparams
+    pool_tokens = eng.num_pages * eng.page_size
+    bf16_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    _warm(eng)
+
+    def sync(proxy):
+        new = api.init(SEED + 1)          # the trainer's next policy, bf16
+        proxy.update_weights(new)
+
+    syncs0 = eng.total_weight_syncs_quantized
+    run = _serve_run(eng, _serve_tasks(cfg.vocab_size), cfg.vocab_size, sync=sync)
+    torch.cuda.empty_cache()
+    results = run.pop("results")
+    kernel_row["launches"] = run["kernel_launches_int8"]
+    syncs = eng.total_weight_syncs_quantized - syncs0
+    if syncs != 1:
+        raise AssertionError(f"serve_quant: {syncs} quantized weight syncs, expected 1")
+    if not run["kernel_launches_int8"] or run["kernel_launches"] != run[
+            "kernel_launches_int8"] or run["kernel_launches_int8"] != (
+            cfg.num_layers * run["decode_steps"]):
+        raise AssertionError(f"serve_quant: {run['kernel_launches_int8']} int8 kernel "
+                             f"launches ({run['kernel_launches']} in all) for "
+                             f"{run['decode_steps']} decode steps x {cfg.num_layers} layers")
+    stamps = {(r.task.meta.get("quant_mode"), r.task.meta.get("kv_quant")) for r in results}
+    if stamps != {("int8", "int8")}:
+        raise AssertionError(f"serve_quant: meta stamps {stamps}")
+    emit("serve_quant", arch=ARCH, dtype=cfg.dtype, quant_mode="int8", kv_quant="int8",
+         weight_syncs_quantized=syncs, meta_stamps="int8/int8", **run,
+         held_weight_bytes=held_bytes, bf16_weight_bytes=bf16_bytes,
+         weight_bytes_ratio=held_bytes / bf16_bytes, kv_pool_bytes=pool_bytes,
+         kv_bytes_per_token=pool_bytes / pool_tokens, kv_bytes_per_token_bf16=bf16_token,
+         kv_bytes_ratio=pool_bytes / pool_tokens / bf16_token)
+    busy_ms = _profile_decode(eng, phase="profile_quant")
+    # the device time of one forward's per-layer dequantization
+    blocks = eng.params["blocks"]
+
+    def dequantize_all():
+        for lp in blocks:             # one layer alive at a time, as in the forwards
+            dequantize_params(lp)
+
+    dequantize_all()
+    dequant_ms, _, dequant_launches, _ = _device_busy(dequantize_all, 3)
+    emit("profile_quant", dequant_device_ms_per_forward=dequant_ms,
+         dequant_launches_per_forward=dequant_launches,
+         dequant_share_of_device_busy=dequant_ms / busy_ms,
+         note="decode-only steps run one forward each; device time from torch.profiler")
+    del eng, blocks
+    torch.cuda.empty_cache()
 
 
 def _device_us(evt) -> float:
@@ -416,14 +622,34 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile_decode(eng, steps: int = 8) -> None:
+def _device_busy(fn, iters: int):
+    """Per call of ``fn`` (run ``iters`` times under ``torch.profiler``):
+    (device busy ms, paged decode kernel ms, launches, host wall ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        _torch().cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / iters
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / iters
+    paged_ms = sum(_device_us(e) for e in kernels
+                   if "paged_decode_kernel" in e.name) / 1e3 / iters
+    launches = sum(1 for e in events
+                   if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    return busy_ms, paged_ms, launches / iters, wall_ms
+
+
+def _profile_decode(eng, steps: int = 8, phase: str = "profile") -> float:
     """Where a decode step's time goes, on the serve engine after the run:
     16 slots decoding, host wall per step (unprofiled, synchronised) against
     the device's busy time per step (``torch.profiler``, same steps)."""
     import numpy as np
     torch = _torch()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(SEED + 3)
     for rid in range(eng.num_slots):
@@ -431,29 +657,18 @@ def _profile_decode(eng, steps: int = 8) -> None:
     while any(st.phase != "decode" for st in eng.slots.values()):
         eng.step()
 
-    def run():
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / steps
-
-    wall_ms = run()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_wall_ms = run()
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
-    paged_ms = sum(_device_us(e) for e in kernels
-                   if "paged_decode_kernel" in e.name) / 1e3 / steps
-    launches = sum(1 for e in events
-                   if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
-    emit("profile", window="decode-only steps, 16 slots", steps=steps,
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    busy_ms, paged_ms, launches, profiled_wall_ms = _device_busy(eng.step, steps)
+    emit(phase, window="decode-only steps, 16 slots", steps=steps,
          host_wall_ms_per_step=wall_ms, profiled_wall_ms_per_step=profiled_wall_ms,
          device_busy_ms_per_step=busy_ms,
          device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-         paged_decode_ms_per_step=paged_ms,
-         launches_per_step=launches / steps)
+         paged_decode_ms_per_step=paged_ms, launches_per_step=launches)
+    return busy_ms
 
 
 def main() -> int:
@@ -474,13 +689,13 @@ def main() -> int:
     try:
         phase_env()
         phase_build()
-        row = phase_kernels()
+        rows = phase_kernels()
         phase_model()
-        phase_serve(row)
+        phase_serve_quant(rows[1], phase_serve(rows[0]))
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

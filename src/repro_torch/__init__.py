@@ -2,7 +2,9 @@
 
 A second package beside the JAX package ``repro``, which stays the
 reference.  It imports ``torch``, numpy and the standard library, and
-nothing of ``repro``.  Slice 1 serves a dense decoder (Qwen3-4B at full
-width) through ``LLMProxy`` and ``PagedDecodeEngine``, with decode
-attention in a hand-written CUDA kernel for Hopper (``csrc/``).
+nothing of ``repro``.  It serves a dense decoder (Qwen3-4B at full width)
+through ``LLMProxy`` and ``PagedDecodeEngine``, in full precision or as
+quantized rollouts (int8/fp8 weights quantized at every sync, an int8 KV
+pool), with decode attention in a hand-written CUDA kernel for Hopper
+(``csrc/``).
 """

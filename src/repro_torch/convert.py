@@ -5,12 +5,16 @@ arrays (the caller does the ``np.asarray`` on the JAX side, so this module
 imports no JAX) in ``transformer.init_lm``'s layout: ``embed``, ``blocks``
 stacked on a leading layer axis, ``final_norm``, ``lm_head``.  It returns
 the port's layout — the same dicts with ``blocks`` as a list of per-layer
-dicts — as tensors on ``device``.
+dicts — as tensors on ``device``.  ``cache_from_jax`` carries a paged KV
+pool across the same way, int8 codes and their scales included, so both
+packages can start from one pool.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.models.paged import PagedKVCache
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -42,3 +46,12 @@ def params_from_jax(tree, device) -> dict:
     out["blocks"] = [_convert(_layer(tree["blocks"], i), device)
                      for i in range(n)]
     return out
+
+
+def cache_from_jax(cache, device) -> PagedKVCache:
+    """A JAX ``PagedKVCache`` with numpy leaves (``k_pages``, ``v_pages``,
+    and ``k_scales``/``v_scales`` or None) -> the port's ``PagedKVCache``."""
+    device = torch.device(device)
+    return PagedKVCache(*(None if a is None else _tensor(a, device)
+                          for a in (cache.k_pages, cache.v_pages,
+                                    cache.k_scales, cache.v_scales)))

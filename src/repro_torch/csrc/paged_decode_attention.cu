@@ -2,15 +2,24 @@
 // ctypes.
 //
 // Replaces the Pallas TPU kernel `_paged_kernel` /
-// `paged_decode_attention` in src/repro/kernels/paged_decode_attention.py:
-// one query token per sequence, GQA, against a shared page pool addressed
-// through per-sequence block tables.
+// `paged_decode_attention` in src/repro/kernels/paged_decode_attention.py,
+// both variants: one query token per sequence, GQA, against a shared page
+// pool addressed through per-sequence block tables.
 //
 //   q            (B, H, D)            fp32 or bf16, contiguous
-//   k/v pages    (N, page, KV, D)     same dtype, read in place by strides
+//   k/v pages    (N, page, KV, D)     q's dtype, or int8 codes; read in
+//                                     place by strides
+//   k/v scales   (N, page, KV) fp32   int8 pools only: per-(slot, kv-head)
+//                                     scales, read in place by strides
 //   block_tables (B, P) int32         physical page ids, -1 = unassigned
 //   lengths      (B,)   int32         tokens written so far
 //   out          (B, H, D)            q's dtype
+//
+// int8 pools (the TPU kernel's `quantized=True`): each code row is widened
+// to fp32 and multiplied by its (slot, kv-head) scale as it lands in the
+// shared-memory tile, so QK^T and PV see k * k_scale and v * v_scale in
+// fp32, exactly as the reference dequantizes; a -1 table entry reads page
+// 0's codes AND scales, like the TPU kernel's `scale_map`.
 //
 // Semantics are those of the TPU kernel: every one of the P table entries is
 // visited (a -1 entry reads page 0 and is masked), scores are fp32 with the
@@ -29,13 +38,15 @@
 // with warp shuffles.
 //
 // Bound.  Decode attention does ~2 flops per byte read: it is bound by the
-// bytes of K/V it reads from device memory.  This first version keeps one
+// bytes of K/V it reads from device memory (an int8 pool: D + 4 bytes per
+// (slot, kv-head) row instead of 2D for bf16).  This first version keeps one
 // page in flight per block and loops over all P entries; splitting the
 // pages of a long sequence over several blocks, double-buffering the tiles
 // with cp.async/TMA, and stopping at ceil(length / page) are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -54,8 +65,12 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void store(float x, __nv_bfloat16* dst) { *dst = __float2bfloat16(x); }
+// Four floats into shared memory as one 16-byte store (dst 16-byte aligned).
+__device__ __forceinline__ void store4(const float* x, float* dst) {
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+}
 
-// One 16-byte vector of T, widened to floats.
+// One 16-byte vector of T, widened to floats (into registers).
 template <typename T>
 struct Vec16;
 
@@ -86,16 +101,36 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-template <typename T, int D>
-__global__ void paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                                    const T* __restrict__ v_pages,
+template <>
+struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* src, float* dst) {
+    const int4 raw = *reinterpret_cast<const int4*>(src);
+    const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dst[4 * w + j] = static_cast<float>(static_cast<int8_t>(words[w] >> (8 * j)));
+    }
+  }
+};
+
+// Tq: q and out; Tpool: the pages; QUANT: int8 pages with fp32 scales.
+template <typename Tq, typename Tpool, bool QUANT, int D>
+__global__ void paged_decode_kernel(const Tq* __restrict__ q, const Tpool* __restrict__ k_pages,
+                                    const Tpool* __restrict__ v_pages,
+                                    const float* __restrict__ k_scales,
+                                    const float* __restrict__ v_scales,
                                     const int* __restrict__ block_tables,
-                                    const int* __restrict__ lengths, T* __restrict__ out,
+                                    const int* __restrict__ lengths, Tq* __restrict__ out,
                                     int num_heads, int num_kv, int pages_per_seq, int page_size,
                                     long long stride_page, long long stride_slot,
-                                    long long stride_head, float scale, float softcap) {
+                                    long long stride_head, long long scale_stride_page,
+                                    long long scale_stride_slot, long long scale_stride_head,
+                                    float scale, float softcap) {
   constexpr int EPL = D / 32;          // head_dim elements per lane
-  constexpr int VN = Vec16<T>::N;      // elements per 16-byte load
+  constexpr int VN = Vec16<Tpool>::N;  // pool elements per 16-byte load
   constexpr int VPR = D / VN;          // 16-byte loads per (slot, head) row
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -134,15 +169,33 @@ __global__ void paged_decode_kernel(const T* __restrict__ q, const T* __restrict
   for (int j = 0; j < pages_per_seq; ++j) {
     const int entry = row[j];
     const bool assigned = entry >= 0;
-    const long long base = (long long)(assigned ? entry : 0) * stride_page +
-                           (long long)kvh * stride_head;
+    const int phys = assigned ? entry : 0;  // -1 reads page 0 (codes and scales)
+    const long long base = (long long)phys * stride_page + (long long)kvh * stride_head;
+    const long long scale_base =
+        (long long)phys * scale_stride_page + (long long)kvh * scale_stride_head;
     __syncthreads();  // every warp is done with the previous page's tiles
     for (int i = threadIdx.x; i < page_size * VPR; i += blockDim.x) {
       const int t = i / VPR;
       const int c = (i - t * VPR) * VN;
       const long long off = base + t * stride_slot + c;
-      Vec16<T>::load(k_pages + off, k_tile + t * D + c);
-      Vec16<T>::load(v_pages + off, v_tile + t * D + c);
+      float kr[VN], vr[VN];
+      Vec16<Tpool>::load(k_pages + off, kr);
+      Vec16<Tpool>::load(v_pages + off, vr);
+      if constexpr (QUANT) {
+        const long long soff = scale_base + t * scale_stride_slot;
+        const float ks = k_scales[soff];
+        const float vs = v_scales[soff];
+#pragma unroll
+        for (int e = 0; e < VN; ++e) {
+          kr[e] *= ks;
+          vr[e] *= vs;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < VN; e += 4) {
+        store4(kr + e, k_tile + t * D + c + e);
+        store4(vr + e, v_tile + t * D + c + e);
+      }
     }
     __syncthreads();
 
@@ -186,79 +239,92 @@ __global__ void paged_decode_kernel(const T* __restrict__ q, const T* __restrict
     const int g = warp + i * nwarps;
     if (g >= group) break;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((long long)b * num_heads + kvh * group + g) * D;
+    Tq* o = out + ((long long)b * num_heads + kvh * group + g) * D;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) store(acc[i][e] / denom, o + lane + 32 * e);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
-           const void* lengths, void* out, int batch, int num_heads, int num_kv,
-           int pages_per_seq, int page_size, long long stride_page, long long stride_slot,
-           long long stride_head, float scale, float softcap, cudaStream_t stream) {
-  const int group = num_heads / num_kv;
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const void* k_scales;
+  const void* v_scales;
+  const void* block_tables;
+  const void* lengths;
+  void* out;
+  int batch, num_heads, num_kv, pages_per_seq, page_size;
+  long long stride_page, stride_slot, stride_head;
+  long long scale_stride_page, scale_stride_slot, scale_stride_head;
+  float scale, softcap;
+  cudaStream_t stream;
+};
+
+template <typename Tq, typename Tpool, bool QUANT, int D>
+int launch(const Args& a) {
+  const int group = a.num_heads / a.num_kv;
   int nwarps = group < kMinWarps ? kMinWarps : group;
   if (nwarps > kMaxWarps) nwarps = kMaxWarps;
   if (group > nwarps * kMaxHeadsPerWarp) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)2 * page_size * D + (size_t)nwarps * page_size);
-  auto kernel = paged_decode_kernel<T, D>;
+  const size_t smem =
+      sizeof(float) * ((size_t)2 * a.page_size * D + (size_t)nwarps * a.page_size);
+  auto kernel = paged_decode_kernel<Tq, Tpool, QUANT, D>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<dim3(batch, num_kv), nwarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
-      static_cast<const int*>(block_tables), static_cast<const int*>(lengths),
-      static_cast<T*>(out), num_heads, num_kv, pages_per_seq, page_size, stride_page,
-      stride_slot, stride_head, scale, softcap);
+  kernel<<<dim3(a.batch, a.num_kv), nwarps * 32, smem, a.stream>>>(
+      static_cast<const Tq*>(a.q), static_cast<const Tpool*>(a.k_pages),
+      static_cast<const Tpool*>(a.v_pages), static_cast<const float*>(a.k_scales),
+      static_cast<const float*>(a.v_scales), static_cast<const int*>(a.block_tables),
+      static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), a.num_heads, a.num_kv,
+      a.pages_per_seq, a.page_size, a.stride_page, a.stride_slot, a.stride_head,
+      a.scale_stride_page, a.scale_stride_slot, a.scale_stride_head, a.scale, a.softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_head_dim(int head_dim, const void* q, const void* k_pages, const void* v_pages,
-                      const void* block_tables, const void* lengths, void* out, int batch,
-                      int num_heads, int num_kv, int pages_per_seq, int page_size,
-                      long long stride_page, long long stride_slot, long long stride_head,
-                      float scale, float softcap, cudaStream_t stream) {
-#define PAGED_DECODE_CASE(DIM)                                                                  \
-  case DIM:                                                                                     \
-    return launch<T, DIM>(q, k_pages, v_pages, block_tables, lengths, out, batch, num_heads,   \
-                          num_kv, pages_per_seq, page_size, stride_page, stride_slot,          \
-                          stride_head, scale, softcap, stream);
+template <typename Tq, typename Tpool, bool QUANT>
+int dispatch_head_dim(int head_dim, const Args& a) {
   switch (head_dim) {
-    PAGED_DECODE_CASE(32)
-    PAGED_DECODE_CASE(64)
-    PAGED_DECODE_CASE(128)
-    PAGED_DECODE_CASE(256)
+    case 32:
+      return launch<Tq, Tpool, QUANT, 32>(a);
+    case 64:
+      return launch<Tq, Tpool, QUANT, 64>(a);
+    case 128:
+      return launch<Tq, Tpool, QUANT, 128>(a);
+    case 256:
+      return launch<Tq, Tpool, QUANT, 256>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef PAGED_DECODE_CASE
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
-// (head_dim) stride of the pools must be 1.  softcap <= 0 means none.
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int paged_decode_attention(const void* q, const void* k_pages, const void* v_pages,
-                                      const void* block_tables, const void* lengths, void* out,
-                                      int dtype, int batch, int num_heads, int num_kv,
-                                      int head_dim, int pages_per_seq, int page_size,
-                                      long long stride_page, long long stride_slot,
-                                      long long stride_head, float scale, float softcap,
-                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_head_dim<float>(head_dim, q, k_pages, v_pages, block_tables, lengths, out,
-                                    batch, num_heads, num_kv, pages_per_seq, page_size,
-                                    stride_page, stride_slot, stride_head, scale, softcap, s);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k_pages, v_pages, block_tables,
-                                            lengths, out, batch, num_heads, num_kv,
-                                            pages_per_seq, page_size, stride_page, stride_slot,
-                                            stride_head, scale, softcap, s);
+// q_dtype: 0 = float32, 1 = bfloat16.  pool_dtype: q_dtype (k/v scales
+// unused, may be null), or 2 = int8 codes with fp32 k/v scales.  Strides
+// are in elements; the last (head_dim) stride of the pools must be 1.
+// softcap <= 0 means none.  Returns cudaGetLastError() after the launch
+// (0 = launched).
+extern "C" int paged_decode_attention(
+    const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+    const void* v_scales, const void* block_tables, const void* lengths, void* out,
+    int q_dtype, int pool_dtype, int batch, int num_heads, int num_kv, int head_dim,
+    int pages_per_seq, int page_size, long long stride_page, long long stride_slot,
+    long long stride_head, long long scale_stride_page, long long scale_stride_slot,
+    long long scale_stride_head, float scale, float softcap, void* stream) {
+  const Args a{q,           k_pages,     v_pages,     k_scales,          v_scales,
+               block_tables, lengths,     out,         batch,             num_heads,
+               num_kv,      pages_per_seq, page_size, stride_page,       stride_slot,
+               stride_head, scale_stride_page, scale_stride_slot, scale_stride_head, scale,
+               softcap,     static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0 && pool_dtype == 0) return dispatch_head_dim<float, float, false>(head_dim, a);
+  if (q_dtype == 1 && pool_dtype == 1)
+    return dispatch_head_dim<__nv_bfloat16, __nv_bfloat16, false>(head_dim, a);
+  if (q_dtype == 0 && pool_dtype == 2) return dispatch_head_dim<float, int8_t, true>(head_dim, a);
+  if (q_dtype == 1 && pool_dtype == 2)
+    return dispatch_head_dim<__nv_bfloat16, int8_t, true>(head_dim, a);
   return (int)cudaErrorInvalidValue;
 }

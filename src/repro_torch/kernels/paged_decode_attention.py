@@ -2,18 +2,22 @@
 pool, through per-sequence block tables.
 
 Replaces the Pallas TPU kernel ``_paged_kernel`` behind
-``repro.kernels.paged_decode_attention.paged_decode_attention`` (the fp/bf16
-variant; the int8-KV variant is a later slice).  The CUDA kernel is
-``src/repro_torch/csrc/paged_decode_attention.cu``, built for ``sm_90a`` at
-first use (``kernels/build.py``) and called through ``ctypes``.
+``repro.kernels.paged_decode_attention.paged_decode_attention``, both its
+variants: fp32/bf16 pools, and int8 pools dequantized in-kernel by
+per-(slot, kv-head) fp32 scales (``k_scales``/``v_scales``).  The CUDA
+kernel is ``src/repro_torch/csrc/paged_decode_attention.cu``, one template
+for both, built for ``sm_90a`` at first use (``kernels/build.py``) and
+called through ``ctypes``.
 
 What bounds it on an H100: decode attention does about two flops per byte
 of K/V it reads, so it is bound by device-memory bandwidth.  The design
 reads the pool in its native ``(N, page, KV, D)`` layout in place, by
 strides (the Pallas wrapper transposed the whole pool on every call), and
 each thread block loads a page's K/V tile for its KV head once for all G
-query heads of the group.  It keeps one page in flight per block; splitting
-long sequences across blocks and double-buffering the loads are later work.
+query heads of the group (int8 codes are dequantized as they land in
+shared memory, so an int8 pool reads about half the bytes of a bf16 one).
+It keeps one page in flight per block; splitting long sequences across
+blocks and double-buffering the loads are later work.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.
@@ -28,6 +32,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_INT8 = 2
 _HEAD_DIMS = (32, 64, 128, 256)
 _MAX_GROUP = 32          # 8 warps x 4 query heads per warp
 _MAX_SMEM = 232_448      # bytes of shared memory a block may use on Hopper
@@ -39,19 +44,47 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.paged_decode_attention
     if fn.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, f, f, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       ll, ll, ll, ll, ll, ll, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k_pages, v_pages, block_tables, lengths):
+def _check_scales(k_pages, k_scales, v_scales):
+    """int8 pools come with both scale tensors, (N, page, KV) fp32 on the
+    pool's device; fp pools with neither."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("paged_decode_attention: give both k_scales and "
+                         "v_scales, or neither")
+    if k_scales is None:
+        return
+    if k_pages.dtype != torch.int8:
+        raise TypeError("paged_decode_attention: scales go with int8 pools")
+    for s in (k_scales, v_scales):
+        if s.dtype != torch.float32 or s.shape != k_pages.shape[:3]:
+            raise ValueError(f"paged_decode_attention: scales must be fp32 "
+                             f"{tuple(k_pages.shape[:3])}, got {s.dtype} "
+                             f"{tuple(s.shape)}")
+        if s.device != k_pages.device:
+            raise ValueError(f"paged_decode_attention: scales on {s.device}, "
+                             f"pools on {k_pages.device}")
+    if k_scales.stride() != v_scales.stride():
+        raise ValueError("paged_decode_attention: k and v scales need equal "
+                         "strides")
+
+
+def _check(q, k_pages, v_pages, block_tables, lengths, k_scales=None,
+           v_scales=None):
     b, h, d = q.shape
     n, page_size, kv, dk = k_pages.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged_decode_attention: dtype {q.dtype} not supported "
                         "(float32, bfloat16)")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("paged_decode_attention: q and the pools must share a dtype")
+    _check_scales(k_pages, k_scales, v_scales)
+    pool_dtype = torch.int8 if k_scales is not None else q.dtype
+    if k_pages.dtype != pool_dtype or v_pages.dtype != pool_dtype:
+        raise TypeError("paged_decode_attention: the pools must share q's "
+                        "dtype, or be int8 with scales")
     if d not in _HEAD_DIMS or dk != d or v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_decode_attention: head_dim {d} with pools "
                          f"{tuple(k_pages.shape)} not supported (head_dim in "
@@ -62,7 +95,7 @@ def _check(q, k_pages, v_pages, block_tables, lengths):
     if k_pages.stride() != v_pages.stride() or k_pages.stride(3) != 1:
         raise ValueError("paged_decode_attention: k and v pools need equal "
                          "strides and a contiguous head_dim")
-    vec = 16 // q.element_size()
+    vec = 16 // k_pages.element_size()    # pool elements per 16 bytes
     if (any(s % vec for s in k_pages.stride()[:3])
             or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16):
         raise ValueError("paged_decode_attention: pool rows must be 16-byte "
@@ -81,16 +114,19 @@ def _check(q, k_pages, v_pages, block_tables, lengths):
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
-                           softcap=None):
+                           k_scales=None, v_scales=None, softcap=None):
     """q: (B, H, D); k_pages/v_pages: (N, page_size, KV, D);
     block_tables: (B, P) int physical page ids (-1 = unassigned);
-    lengths: (B,) int tokens written so far.  Returns (B, H, D) in q's dtype."""
+    lengths: (B,) int tokens written so far.  ``k_scales``/``v_scales``
+    (both or neither): (N, page_size, KV) fp32 per-(slot, kv-head) scales
+    of int8 pools, dequantized in-kernel.  Returns (B, H, D) in q's dtype."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
-                                          lengths, softcap=softcap)
+                                          lengths, k_scales=k_scales,
+                                          v_scales=v_scales, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: device {q.device} not supported")
-    _check(q, k_pages, v_pages, block_tables, lengths)
+    _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
     if softcap is not None and softcap <= 0:
         raise ValueError(f"paged_decode_attention: softcap {softcap} must be > 0")
     b, h, d = q.shape
@@ -99,19 +135,31 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    quantized = k_scales is not None
+    # scales are per-layer views of the (L, N, page, KV) pool: passed by
+    # strides, never copied
+    scale_ptrs = ((k_scales.data_ptr(), v_scales.data_ptr()) if quantized
+                  else (None, None))
+    scale_strides = k_scales.stride() if quantized else (0, 0, 0)
     fn = _bind(build.library("paged_decode_attention"))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], b, h, kv, d, tables.shape[1], page_size,
+                *scale_ptrs, tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], _POOL_INT8 if quantized else _DTYPES[q.dtype],
+                b, h, kv, d, tables.shape[1], page_size,
                 k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+                *scale_strides,
                 d ** -0.5, 0.0 if softcap is None else float(softcap), stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA launch failed "
                            f"(cudaError {rc})")
     paged_decode_attention.launches += 1
+    if quantized:
+        paged_decode_attention.launches_int8 += 1
     return out
 
 
+# launches of either variant, and of the int8-KV variant alone
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_int8 = 0

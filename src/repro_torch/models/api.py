@@ -4,7 +4,7 @@ package's ``models/api.py``).
     api = get_api(cfg, device=)            # the card unless device= says otherwise
     params = api.init(seed)
     logits, aux = api.apply(params, batch)
-    cache = api.init_paged_cache(num_pages, page_size)
+    cache = api.init_paged_cache(num_pages, page_size, kv_quant=)   # off | int8
     logits, cache = api.prefill_chunk(params, tokens, valid, start, block_row, cache)
     logits, cache = api.decode_paged(params, token, pos, cache, block_tables, attn_impl=)
 

@@ -18,10 +18,16 @@ Two forwards:
   (its plain version on the CPU); ``"ref"`` gathers K/V through the block
   tables and runs the plain ``attention._attend_direct``.
 
+With ``kv_quant="int8"`` the pages hold int8 codes and per-(page, slot,
+kv-head) fp32 scales live beside them, indexed by physical page like the
+pages, so every pool mechanism (COW fork, prefix cache, retention, page
+transfer) carries them.  Each position is quantized once, when written.
+
 Unlike the JAX package, whose jitted step returns a new pool, both forwards
-write K/V into the pool tensors IN PLACE (indexed assignment), and never
-copy the pool.  Only ``kv_quant="off"`` is ported; the int8 pool is a later
-slice.  Supported family: dense.
+write K/V (and scales) into the pool tensors IN PLACE (indexed assignment),
+and never copy the pool.  Quantized weights (``quant.quantize_params``) are
+dequantized one layer at a time inside the layer loop.  Supported family:
+dense.
 """
 from __future__ import annotations
 
@@ -36,18 +42,42 @@ from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.models import attention, ffn, module
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _last_position_logits, _unembed
+from repro_torch.quant import core as quant
 
 
 class PagedKVCache(NamedTuple):
     k_pages: torch.Tensor  # (num_layers, num_pages, page_size, n_kv, head_dim)
     v_pages: torch.Tensor
+    # kv_quant="int8": pages hold int8 codes, and these hold the fp32
+    # per-(page, slot, kv-head) scales, (num_layers, num_pages, page_size,
+    # n_kv).  None = full precision.
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
 
     def layer_pages(self, layer: int):
-        """One layer's (k_pages, v_pages) — views into the pool."""
-        return (self.k_pages[layer], self.v_pages[layer])
+        """One layer's (k_pages, v_pages), or (k, v, k_scales, v_scales)
+        when quantized — views into the pool."""
+        if self.k_scales is None:
+            return (self.k_pages[layer], self.v_pages[layer])
+        return (self.k_pages[layer], self.v_pages[layer],
+                self.k_scales[layer], self.v_scales[layer])
 
 
 GARBAGE_PAGE = 0  # physical page 0 is never allocated to a request
+
+_KV_SCALE_EPS = 1e-12  # zero-row guard for per-token absmax scales
+
+
+def quantize_kv(x):
+    """Symmetric int8 per-(token, kv-head) quantization of a K/V tensor.
+
+    x: (..., n_kv, head_dim) -> (int8 codes of the same shape, fp32 scales
+    (..., n_kv))."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax, min=_KV_SCALE_EPS) / 127.0
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
 
 
 class PagePool:
@@ -402,15 +432,22 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      kv_quant: str = "off", *, device) -> PagedKVCache:
     if not supports_paged(cfg):
         raise ValueError(f"paged KV cache requires the dense family, got {cfg.family}")
-    if kv_quant == "int8":
-        raise NotImplementedError("kv_quant='int8' is not ported yet")
-    if kv_quant != "off":
-        raise ValueError(f"unknown kv_quant {kv_quant!r} (expected off | int8)")
     hd = cfg.resolved_head_dim
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, hd)
-    dt = torch_dtype(cfg.dtype)
-    return PagedKVCache(k_pages=torch.zeros(shape, dtype=dt, device=device),
-                        v_pages=torch.zeros(shape, dtype=dt, device=device))
+    if kv_quant == "off":
+        dt = torch_dtype(cfg.dtype)
+        return PagedKVCache(k_pages=torch.zeros(shape, dtype=dt, device=device),
+                            v_pages=torch.zeros(shape, dtype=dt, device=device))
+    if kv_quant != "int8":
+        raise ValueError(f"unknown kv_quant {kv_quant!r} (expected off | int8)")
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return PagedKVCache(k_pages=zeros(shape, torch.int8),
+                        v_pages=zeros(shape, torch.int8),
+                        k_scales=zeros(shape[:-1], torch.float32),
+                        v_scales=zeros(shape[:-1], torch.float32))
 
 
 def pages_per_seq(max_total_len: int, page_size: int) -> int:
@@ -424,28 +461,37 @@ def pages_per_seq(max_total_len: int, page_size: int) -> int:
 def gather_request_view(layer_pages, block_row):
     """Dense (S_view, n_kv, hd) K/V view of one request's table row, plus
     its (S_view,) validity.  ``layer_pages`` is one layer's
-    ``(k_pages, v_pages)``; ``S_view = pages_per_seq * page_size``.
-    Positions beyond the request's written length hold stale pool contents
-    — callers must mask by length."""
-    k_pages, v_pages = layer_pages
+    ``(k_pages, v_pages)`` — or the 4-tuple with scales under
+    ``kv_quant="int8"``, in which case the view is dequantized to fp32.
+    ``S_view = pages_per_seq * page_size``.  Positions beyond the request's
+    written length hold stale pool contents — callers must mask by length."""
+    k_pages, v_pages = layer_pages[0], layer_pages[1]
     page_size, nkv, hd = k_pages.shape[1], k_pages.shape[2], k_pages.shape[3]
     idx = torch.clamp(block_row.long(), min=0)
     k = k_pages[idx].reshape(-1, nkv, hd)
     v = v_pages[idx].reshape(-1, nkv, hd)
+    if len(layer_pages) > 2:
+        k = k.float() * layer_pages[2][idx].reshape(-1, nkv)[..., None]
+        v = v.float() * layer_pages[3][idx].reshape(-1, nkv)[..., None]
     valid = torch.repeat_interleave(block_row >= 0, page_size)
     return k, v, valid
 
 
 class PageTransfer(NamedTuple):
     """Host-side buffer of extracted physical pages — the unit of
-    cross-replica KV movement.  CPU tensors in the pool's dtype, shaped like
-    the pool with the page axis narrowed to the extracted set::
+    cross-replica KV movement.  CPU tensors in the pool's dtype (int8 codes
+    under ``kv_quant="int8"``, with their fp32 scales: a page without its
+    scales dequantizes to garbage), shaped like the pool with the page axis
+    narrowed to the extracted set::
 
-        k / v : (num_layers, n, page_size, n_kv, head_dim)
+        k / v           : (num_layers, n, page_size, n_kv, head_dim)
+        k/v_scales      : (num_layers, n, page_size, n_kv)   (int8 only)
     """
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
 
     @property
     def num_pages(self) -> int:
@@ -453,8 +499,8 @@ class PageTransfer(NamedTuple):
 
     @property
     def nbytes(self) -> int:
-        return (self.k.numel() * self.k.element_size()
-                + self.v.numel() * self.v.element_size())
+        return sum(t.numel() * t.element_size() for t in self
+                   if t is not None)
 
 
 def _page_index(pages, device) -> torch.Tensor:
@@ -467,22 +513,27 @@ def export_pages(cache: PagedKVCache, pages) -> PageTransfer:
     never a per-page dispatch."""
     idx = _page_index(pages, cache.k_pages.device)
     kv = torch.stack([cache.k_pages[:, idx], cache.v_pages[:, idx]]).cpu()
-    return PageTransfer(k=kv[0], v=kv[1])
+    if cache.k_scales is None:
+        return PageTransfer(k=kv[0], v=kv[1])
+    sc = torch.stack([cache.k_scales[:, idx], cache.v_scales[:, idx]]).cpu()
+    return PageTransfer(k=kv[0], v=kv[1], k_scales=sc[0], v_scales=sc[1])
 
 
 def import_pages(cache: PagedKVCache, dst_pages,
                  transfer: PageTransfer) -> PagedKVCache:
     """Re-admit an exported buffer into this pool's ``dst_pages`` (one
-    batched scatter per tensor, in place).  ``len(dst_pages)`` must equal
-    ``transfer.num_pages``."""
+    batched scatter per tensor, in place), scales included.
+    ``len(dst_pages)`` must equal ``transfer.num_pages``; the source and
+    destination pools must agree on quantization mode."""
     dst = _page_index(dst_pages, cache.k_pages.device)
     if dst.shape[0] != transfer.num_pages:
         raise ValueError(
             f"import of {transfer.num_pages} pages into {dst.shape[0]} slots")
-    cache.k_pages[:, dst] = transfer.k.to(cache.k_pages.device,
-                                          cache.k_pages.dtype)
-    cache.v_pages[:, dst] = transfer.v.to(cache.v_pages.device,
-                                          cache.v_pages.dtype)
+    if (cache.k_scales is None) != (transfer.k_scales is None):
+        raise ValueError("kv_quant mismatch between transfer and pool")
+    for pool, src in zip(cache, transfer):
+        if pool is not None:
+            pool[:, dst] = src.to(pool.device, pool.dtype)
     return cache
 
 
@@ -492,17 +543,27 @@ def copy_pages(cache: PagedKVCache, src, dst) -> PagedKVCache:
     page duplicated into each forked lane's own page)."""
     device = cache.k_pages.device
     src, dst = _page_index(src, device), _page_index(dst, device)
-    cache.k_pages[:, dst] = cache.k_pages[:, src]
-    cache.v_pages[:, dst] = cache.v_pages[:, src]
+    for pool in cache:
+        if pool is not None:
+            pool[:, dst] = pool[:, src]
     return cache
 
 
 def _write_kv(layer_pages, phys, off, k, v) -> None:
-    """Write K/V rows into the pool in place.  Masked lanes all target the
+    """Write K/V rows into the pool in place — quantized once per written
+    position when the pool holds int8 codes.  Masked lanes all target the
     garbage page 0; indexed assignment with duplicate indices leaves the
-    stored value undefined, which is harmless only because page 0 is never
-    read unmasked."""
-    k_pages, v_pages = layer_pages
+    stored value (codes and scales alike) undefined, which is harmless only
+    because page 0 is never read unmasked."""
+    k_pages, v_pages = layer_pages[0], layer_pages[1]
+    if len(layer_pages) > 2:
+        # K and V quantized together: one pass of launches instead of two
+        codes, scales = quantize_kv(torch.stack([k, v]))
+        k_pages[phys, off] = codes[0]
+        v_pages[phys, off] = codes[1]
+        layer_pages[2][phys, off] = scales[0]
+        layer_pages[3][phys, off] = scales[1]
+        return
     k_pages[phys, off] = k.to(k_pages.dtype)
     v_pages[phys, off] = v.to(v_pages.dtype)
 
@@ -526,8 +587,8 @@ def _paged_attn_prefill(p, cfg: ModelConfig, x, positions, valid, layer_pages,
     phys = torch.clamp(phys, min=GARBAGE_PAGE).long()    # -1 -> garbage
     _write_kv(layer_pages, phys, (positions[0] % page_size).long(), k[0], v[0])
 
-    # in-chunk queries read their own K/V back through the pool — prefill
-    # attends to exactly what decode will see.
+    # in-chunk queries read their own K/V back through the (possibly
+    # quantized) pool — prefill attends to exactly what decode will see.
     kd, vd, page_valid = gather_request_view(layer_pages, block_row)
     kv_pos = torch.arange(kd.shape[0], dtype=torch.int32, device=x.device)[None, :]
     # causality (kv_pos <= q_pos) masks every not-yet-written position;
@@ -536,12 +597,24 @@ def _paged_attn_prefill(p, cfg: ModelConfig, x, positions, valid, layer_pages,
     out = attention.attend(q, kd[None], vd[None], q_pos, kv_pos,
                            page_valid[None], window=cfg.sliding_window,
                            softcap=cfg.attn_logit_softcap)
+    # the dequantized fp32 view promotes the attention output: cast back to
+    # the residual dtype (identity when unquantized)
     return out.reshape(1, x.shape[1], cfg.q_dim).to(x.dtype) @ p["wo"]
 
 
 def _mlp_residual(p, cfg: ModelConfig, x, y):
     x = x + y
     return x + ffn.mlp(p["mlp"], cfg, module.rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+
+def _layers(params):
+    """The per-layer params, each dequantized just before its layer runs
+    when the tree holds quantized weights: only one layer's full-precision
+    weights exist at once.  An unquantized tree is walked as it is."""
+    blocks = params["blocks"]
+    if not (blocks and quant.is_quantized_tree(blocks[0])):
+        return enumerate(blocks)
+    return ((i, quant.dequantize_params(lp)) for i, lp in enumerate(blocks))
 
 
 def paged_prefill_chunk(params, cfg: ModelConfig, tokens, valid, start: int,
@@ -554,7 +627,7 @@ def paged_prefill_chunk(params, cfg: ModelConfig, tokens, valid, start: int,
     x = params["embed"][tokens]
     positions = start + torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=x.device)[None, :]
-    for layer, lp in enumerate(params["blocks"]):
+    for layer, lp in _layers(params):
         y = _paged_attn_prefill(lp["attn"], cfg,
                                 module.rmsnorm(lp["ln1"], x, cfg.norm_eps),
                                 positions, valid, cache.layer_pages(layer),
@@ -574,7 +647,9 @@ def _paged_attn_decode(p, cfg: ModelConfig, x, pos, layer_pages, block_tables,
     positions = pos[:, None]
     q = attention._project_q(p, cfg, x, positions)           # (B,1,KV,G,hd)
     k_new, v_new = attention._project_kv(p, cfg, x, positions)
-    k_pages, v_pages = layer_pages
+    k_pages, v_pages = layer_pages[0], layer_pages[1]
+    k_scales, v_scales = (layer_pages[2:] if len(layer_pages) > 2
+                          else (None, None))
     page_size = k_pages.shape[1]
 
     logical = torch.clamp(pos // page_size, 0, block_tables.shape[1] - 1)
@@ -586,12 +661,16 @@ def _paged_attn_decode(p, cfg: ModelConfig, x, pos, layer_pages, block_tables,
     if attn_impl == "kernel":
         out = paged_decode_attention(
             q.reshape(b, cfg.num_heads, cfg.resolved_head_dim), k_pages,
-            v_pages, block_tables, pos + 1, softcap=cfg.attn_logit_softcap)
+            v_pages, block_tables, pos + 1, k_scales=k_scales,
+            v_scales=v_scales, softcap=cfg.attn_logit_softcap)
     elif attn_impl == "ref":
         nkv, hd = k_pages.shape[2], k_pages.shape[3]
         idx = torch.clamp(block_tables.long(), min=0)
         kd = k_pages[idx].reshape(b, -1, nkv, hd)
         vd = v_pages[idx].reshape(b, -1, nkv, hd)
+        if k_scales is not None:
+            kd = kd.float() * k_scales[idx].reshape(b, -1, nkv)[..., None]
+            vd = vd.float() * v_scales[idx].reshape(b, -1, nkv)[..., None]
         kv_pos = torch.arange(kd.shape[1], dtype=torch.int32,
                               device=x.device)[None, :].expand(b, -1)
         kv_valid = torch.repeat_interleave(block_tables >= 0, page_size, dim=1)
@@ -600,6 +679,7 @@ def _paged_attn_decode(p, cfg: ModelConfig, x, pos, layer_pages, block_tables,
                                        softcap=cfg.attn_logit_softcap)
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
+    # cast back to the residual dtype (identity when unquantized)
     return out.reshape(b, 1, cfg.q_dim).to(x.dtype) @ p["wo"]
 
 
@@ -610,7 +690,7 @@ def paged_decode_step(params, cfg: ModelConfig, token, pos,
     block_tables: (B, P) int32 (pass -1 rows for slots that must not step).
     Writes the pool in place and returns (logits (B, V) fp32, cache)."""
     x = params["embed"][token][:, None, :]
-    for layer, lp in enumerate(params["blocks"]):
+    for layer, lp in _layers(params):
         y = _paged_attn_decode(lp["attn"], cfg,
                                module.rmsnorm(lp["ln1"], x, cfg.norm_eps),
                                pos, cache.layer_pages(layer), block_tables,

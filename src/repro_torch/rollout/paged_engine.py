@@ -16,8 +16,11 @@ greedy run decodes) is the JAX engine's.  What differs is how a step runs:
   donation, no copy of the pool per step).
 * Sampling draws from a ``torch.Generator`` seeded with ``seed``; tokens
   under temperature > 0 differ from ``jax.random``'s.
-
-Only ``quant_mode="off"`` and ``kv_quant="off"`` are ported.
+* Quantize-on-sync (``quant_mode`` int8 / fp8): the engine holds the codes
+  and the paged forwards dequantize one layer at a time inside their layer
+  loop (the JAX step dequantizes the whole tree at trace time and lets XLA
+  fuse the multiply into each matmul).  ``kv_quant="int8"`` keeps int8
+  pages with fp32 scales, read by the int8 variant of the decode kernel.
 
 Implements ``repro_torch.core.llm_proxy.InferenceEngine`` plus the
 retain/resume and group-submit extensions.
@@ -34,14 +37,12 @@ from repro_torch.core.types import GenerationResult
 from repro_torch.device import resolve_device
 from repro_torch.models import paged
 from repro_torch.models.api import ModelAPI
+from repro_torch.quant import core as quant
 from repro_torch.rollout.sampler import sample_tokens
 
 _PREFILL = "prefill"
 _DECODE = "decode"
 _FORKWAIT = "forkwait"   # group follower parked until the leader's prefill
-
-_QUANT_MODES = ("off", "int8", "fp8")
-_KV_MODES = ("off", "int8")
 
 
 @dataclasses.dataclass
@@ -86,8 +87,6 @@ class _Retained:
 def _check_mode(kind: str, mode: str, known) -> None:
     if mode not in known:
         raise ValueError(f"unknown {kind} {mode!r} (expected {' | '.join(known)})")
-    if mode != "off":
-        raise NotImplementedError(f"{kind}={mode!r} is not ported yet (off only)")
 
 
 class PagedDecodeEngine:
@@ -117,14 +116,17 @@ class PagedDecodeEngine:
         if cfg.sliding_window is not None and cfg.sliding_window < max_total_len:
             raise ValueError("engine requires cache >= max_total_len "
                              "(enlarge window or shorten sequences)")
-        _check_mode("quant_mode", quant_mode, _QUANT_MODES)
-        _check_mode("kv_quant", kv_quant, _KV_MODES)
+        _check_mode("quant_mode", quant_mode, quant.MODES)
+        _check_mode("kv_quant", kv_quant, quant.KV_MODES)
         if attn_impl not in ("kernel", "ref"):
             raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
         self.api = api
+        # quantize-on-sync: the trainer's tree is quantized HERE, at
+        # construction and on every update_weights
         self.quant_mode = quant_mode
         self.kv_quant = kv_quant
-        self.params = self._checked(params)
+        self.params = self._checked(quant.quantize_params(params, quant_mode))
+        self.total_weight_syncs_quantized = 0
         self.num_slots = num_slots
         self.max_total_len = max_total_len
         self.page_size = page_size
@@ -175,6 +177,7 @@ class PagedDecodeEngine:
         self.transfer_device_ops = 0     # batched export/import dispatches
 
     def _checked(self, params):
+        # embed is never quantized: its device is the tree's
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine on "
                              f"{self.device}")
@@ -236,8 +239,18 @@ class PagedDecodeEngine:
     def cache_pages_held(self) -> int:
         return len(self.prefix_cache.held_pages()) if self.prefix_cache else 0
 
+    def set_quant_mode(self, mode: str) -> None:
+        """Change the weight-quantization mode mid-run.  Takes effect at the
+        NEXT ``update_weights``: the current tree is already (lossily)
+        quantized, and the next sync ships full-precision weights."""
+        _check_mode("quant_mode", mode, quant.MODES)
+        self.quant_mode = mode
+
     def update_weights(self, params) -> None:
-        self.params = self._checked(params)
+        self.params = self._checked(quant.quantize_params(params,
+                                                          self.quant_mode))
+        if self.quant_mode != "off":
+            self.total_weight_syncs_quantized += 1
         # bump the epoch even with the cache off: slot/retained records
         # stamped with an older epoch must never publish their (now
         # stale-policy) KV if the cache is enabled later.
@@ -625,7 +638,8 @@ class PagedDecodeEngine:
         need = t.num_pages - have
         if need > self.pool.pages_free:
             return 0
-        sub = paged.PageTransfer(k=t.k[:, have:], v=t.v[:, have:])
+        sub = paged.PageTransfer(*(None if x is None else x[:, have:]
+                                   for x in t))
         pages = self._alloc(need)
         self.cache = paged.import_pages(self.cache, pages, sub)
         self.pages_transferred_in += need

@@ -36,6 +36,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
+        "assert {'repro_torch.quant', 'repro_torch.quant.core'} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -88,9 +89,9 @@ def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(quant_mode="int8"), NotImplementedError),
-    (dict(kv_quant="int8"), NotImplementedError),
     (dict(quant_mode="int4"), ValueError),
+    (dict(kv_quant="fp8"), ValueError),
+    (dict(quant_mode="int8", kv_quant="int4"), ValueError),
     (dict(attn_impl="kernel_interpret"), ValueError),
 ])
 def test_engine_refuses_modes_not_ported(kw, exc):
@@ -101,6 +102,11 @@ def test_engine_refuses_modes_not_ported(kw, exc):
     with pytest.raises(exc):
         PagedDecodeEngine(api, api.init(0), num_slots=2, max_total_len=32,
                           page_size=8, prefill_chunk=8, device="cpu", **kw)
+    # the quantized modes are ported: they construct, on the CPU when asked
+    eng = PagedDecodeEngine(api, api.init(0), num_slots=2, max_total_len=32,
+                            page_size=8, prefill_chunk=8, device="cpu",
+                            quant_mode="fp8", kv_quant="int8")
+    assert eng.cache.k_scales is not None
 
 
 def test_other_families_are_not_ported_yet():
