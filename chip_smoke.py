@@ -10,17 +10,21 @@ no result):
    versions; TF32 is switched off for matmul and cuDNN.
 2. ``build``: ``nvcc`` builds every kernel in ``src/repro_torch/csrc``.
 3. ``kernels``: each kernel against its plain-torch version on the card, at
-   the shapes the serving path gives it, plus a softcap case and a small odd
-   shape, for fp/bf16 pools and for int8 pools with scales (made by the
-   port's ``quantize_kv``; a fully masked row and a length-0 row); times of
-   the kernel, the plain version, the bound and one PyTorch library call.
+   the shapes the main paths give it, plus edge cases; times of the kernel,
+   the plain version, the bound and one PyTorch library call.  The paged
+   decode kernel: the serving shape, a softcap case and a small odd shape,
+   for fp/bf16 pools and for int8 pools with scales (made by the port's
+   ``quantize_kv``; a fully masked row and a length-0 row).  Flash
+   attention, forward (O, lse) and backward (dQ, dK, dV): the trainer's
+   shape (B=8, H=16, KV=8, S=512, D=128) in bf16 and fp32, and an odd one
+   (S=300, G=4, D=64, window 128, softcap 30).
 4. ``model``: full-width Qwen3-4B in fp32, the same requests through two
    engines sharing one set of weights, ``attn_impl="kernel"`` and ``"ref"``,
    with a full-precision and with an int8 KV pool: greedy tokens must
    match.  Then quantize-on-sync: an engine with ``quant_mode`` int8 / fp8
    must decode exactly the tokens of an unquantized engine given the
    weights quantized and dequantized up front.
-5. ``serve``: the main path — full-width Qwen3-4B in bf16 behind
+5. ``serve``: the slice-1 main path — full-width Qwen3-4B in bf16 behind
    ``LLMProxy`` over ``PagedDecodeEngine`` (prefix cache on, 16 slots),
    serving a seeded mix of rollout tasks.  Every callback must fire, the
    page audit must be clean, and the decode kernel must have launched
@@ -31,6 +35,15 @@ no result):
    must have launched num_layers times per decode step; the held weights'
    and the KV pool's bytes are measured against bf16; then a profiled
    decode window and the device time of one forward's dequantization.
+7. ``train_model``: fp32 Qwen3-1.7B at full width, 4 layers: one train step
+   with ``attn_impl="kernel"`` against ``"ref"`` (loss, grad norm, params).
+8. ``train``: the slice-3 main path — full-width, full-depth Qwen3-1.7B in
+   bf16: 3 rounds of engine rollouts (4 prompts x groups of 4, behind
+   ``LLMProxy``), ``HostTrainer.train_on_samples`` on them, and a weight
+   sync back to the engine, whose next rollouts carry the new version and
+   whose logits must follow the trainer's.  Exact flash and paged-decode
+   launch counts.  Then ``profile_train``: one ``train_on_samples`` under
+   ``torch.profiler``.
 
 Then one line with every kernel's numbers, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, drawn from a seed
@@ -50,7 +63,8 @@ ARCH = "qwen3-4b"
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet), used for the bound.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12          # the kernel's math is fp32 on the CUDA cores
+FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # bf16 dense on the tensor cores
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),    # reduction order only
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}   # bf16 inputs and output
 
@@ -58,6 +72,9 @@ TOL = {"float32": dict(rtol=2e-5, atol=2e-5),    # reduction order only
 SERVE = dict(num_slots=16, max_total_len=1024, page_size=16, prefill_chunk=128)
 MAX_NEW = 64
 DEVICE = "cuda"
+# the trainer the slice-3 main path runs (Qwen3-1.7B at full width and depth)
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN = dict(slots=16, max_seq_len=512, prompts=4, group=4, max_new=64, rounds=3)
 
 
 def emit(phase: str, **fields) -> None:
@@ -265,6 +282,138 @@ def phase_kernels() -> list:
             _kernel_row("paged_decode_attention_int8", main.pop("slice_int8_bf16q"),
                         page_size, "int8 pool, k_scales/v_scales (:31-36, :51-53, "
                                    ":123-129)")]
+    for row in rows:
+        emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# kernels: flash attention forward and backward
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(gen, b, h, kv, s, d, dtype):
+    """q, k, v and an output gradient as the trainer has them: (B, S, heads,
+    D) projections seen as (B, heads, S, D) strided views."""
+    torch = _torch()
+    return tuple(torch.randn(b, s, n, d, generator=gen, device=DEVICE).to(dtype)
+                 .transpose(1, 2) for n in (h, kv, kv, h))
+
+
+def _flash_pairs(s, window):
+    """(query, key) pairs the causal (windowed) mask lets through, per head."""
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def _flash_bound(q, k, window, backward):
+    """(bound_ms, bound_by, detail): the larger of the operations these
+    inputs need (visible pairs only; 4D flops per pair forward: QK^T and PV;
+    10D backward: QK^T again, dP, dV, dK, dQ) at the dtype's peak, and the
+    bytes (forward: q, k, v read, o and lse written; backward: q, k, v, o,
+    dO, lse read, dq, dk, dv written) at 3.35 TB/s."""
+    torch = _torch()
+    b, h, s, d = q.shape
+    e = q.element_size()
+    flops = (10 if backward else 4) * d * b * h * _flash_pairs(s, window)
+    qo, kv = q.numel() * e, k.numel() * e
+    lse = 4 * b * h * s
+    nbytes = (3 * qo + 4 * kv + lse) if backward else (2 * qo + 2 * kv + lse)
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
+            {"flops": flops, "bytes": nbytes, "ops_ms": 1e3 * t_ops,
+             "bytes_ms": 1e3 * t_bytes, "peak_flops": peak})
+
+
+def _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap):
+    """Forward O and lse, then dQ/dK/dV, against the plain versions.
+    Gradients are held to the tolerance times their largest magnitude."""
+    torch = _torch()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    q, k, v, do = _flash_inputs(gen, b, h, kv, s, d, dtype)
+    opts = dict(causal=True, window=window, softcap=softcap)
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_attention_ref(q, k, v, return_lse=True, **opts)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **opts)
+    tol = TOL[str(dtype).split(".")[-1]]
+    errs = {"o": (o.float() - want_o.float()).abs().max().item(),
+            "lse": (lse - want_lse).abs().max().item()}
+    ok = (torch.allclose(o.float(), want_o.float(), **tol)
+          and torch.allclose(lse, want_lse, **tol))
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        scale = w.float().abs().max().item()
+        errs[name] = (got.float() - w.float()).abs().max().item()
+        errs[name + "_scaled"] = errs[name] / scale
+        ok = ok and torch.allclose(got.float(), w.float(), rtol=tol["rtol"],
+                                   atol=tol["atol"] * scale)
+        ok = ok and bool(torch.isfinite(got).all())
+    emit("kernels", case=label, kernel="flash_attention", shape=[b, h, kv, s, d],
+         dtype=str(dtype), window=window, softcap=softcap, max_abs_err=errs,
+         tol=tol, grad_tol="atol x max |grad|", ok=ok)
+    if not ok:
+        raise AssertionError(f"flash_attention {label}: errors {errs}")
+    return (q, k, v, do, o, lse, grads, errs)
+
+
+def phase_flash_kernels() -> list:
+    """Flash forward and backward at the trainer's shape (Qwen3-1.7B: B=8,
+    H=16, KV=8, S=512, D=128) in bf16 and fp32, and at an odd shape; then
+    the times of the bf16 trainer-shape case."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    main = None
+    for label, b, h, kv, s, d, dtype, window, softcap in [
+            ("train_bf16", 8, 16, 8, 512, 128, bf16, None, None),
+            ("train_fp32", 8, 16, 8, 512, 128, fp32, None, None),
+            ("odd_bf16", 2, 16, 4, 300, 64, bf16, 128, 30.0),
+            ("odd_fp32", 2, 16, 4, 300, 64, fp32, 128, 30.0)]:
+        case = _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap)
+        if label == "train_bf16":
+            main = case
+    q, k, v, do, o, lse, _, errs = main
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v))
+    bwd_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
+    plain_fwd = _time_ms(lambda: flash_attention_ref(q, k, v, return_lse=True))
+    plain_bwd = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do))
+    # yardstick only (the port never calls it): SDPA forward, and its
+    # backward alone (the graph of one forward, replayed)
+    lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                   retain_graph=True))
+    del out, ql, kl, vl
+    shape = f"B={b} H={h} KV={kv} S={s} D={d} causal bf16, (B, S, heads, D) strided views"
+    rows = []
+    for name, backward, ms, plain, lib, err, call in [
+            ("flash_attention", False, fwd_ms, plain_fwd, lib_fwd, errs["o"],
+             "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"),
+            ("flash_attention_bwd", True, bwd_ms, plain_bwd, lib_bwd,
+             max(errs["dq"], errs["dk"], errs["dv"]),
+             "torch.autograd.grad through one SDPA forward (its backward alone)")]:
+        bound_ms, bound_by, detail = _flash_bound(q, k, None, backward)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:108",
+                     "variant": "backward: delta, dK/dV and dQ kernels (the TPU had none)"
+                                if backward else "forward, O and lse",
+                     "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+                     "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_detail": detail, "library_ms": lib, "library_call": call,
+                     "shape": shape})
     for row in rows:
         emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
     return rows
@@ -615,6 +764,309 @@ def phase_serve_quant(kernel_row: dict, shared: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# train: the GRPO trainer on engine rollouts (Qwen3-1.7B)
+# ---------------------------------------------------------------------------
+
+def _rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def phase_train_model() -> None:
+    """fp32, full-width Qwen3-1.7B cut to 4 layers: one train step with
+    ``attn_impl="kernel"`` against ``"ref"`` from the same params and batch.
+    The optimizer's eps is 1e-3 here, as in tests/test_torch_trainer.py:
+    Adam divides each gradient by its own size, and a larger eps keeps the
+    reduction-order noise of near-zero gradients out of the params."""
+    import dataclasses
+    import numpy as np
+    torch = _torch()
+    from repro_torch.algos import LossConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_api
+    from repro_torch.train import OptConfig, make_logprob_fn, make_train_step
+    from repro_torch.train.optimizer import init_opt_state, tree_leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32", num_layers=4)
+    api = get_api(cfg, device=DEVICE)
+    params = api.init(SEED)
+    rng = np.random.default_rng(SEED + 20)
+    b, s = 4, 512
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s)).astype(np.int32)).to(DEVICE)
+    mask = torch.zeros(b, s, device=DEVICE)
+    for i, lo in enumerate((128, 200, 256, 384)):
+        mask[i, lo:lo + 64] = 1.0
+    lp = make_logprob_fn(api, attn_impl="ref")(params, {"tokens": tokens})
+    noise = torch.from_numpy(rng.normal(scale=0.1, size=(3, b, s)).astype(np.float32)).to(DEVICE)
+    rewards = torch.tensor([1.0, 0.0, 1.0, 0.0], device=DEVICE)
+    batch = {"tokens": tokens, "mask": mask,
+             "advantages": (rewards - 0.5)[:, None] * 2 * mask,
+             "old_logprobs": (lp + noise[0]) * mask, "prox_logprobs": (lp + noise[1]) * mask,
+             "ref_logprobs": (lp + noise[2]) * mask, "is_positive": rewards}
+    loss_cfg = LossConfig(pg_variant="decoupled_ppo", kl_beta=1e-3)
+    opt_cfg = OptConfig(learning_rate=1e-2, warmup_steps=2, weight_decay=0.1, eps=1e-3)
+    out = {}
+    for impl in ("kernel", "ref"):
+        fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
+        state = {"params": params,
+                 "opt": init_opt_state(params)}
+        step = make_train_step(api, loss_cfg, opt_cfg, attn_impl=impl)
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out[impl] = (state, metrics, fa.flash_attention.launches_fwd,
+                     fa.flash_attention.launches_bwd)
+        del state
+        torch.cuda.empty_cache()
+    (ks, km, kf, kb), (rs, rm, rf, rb) = out["kernel"], out["ref"]
+    if (kf, kb) != (cfg.num_layers, cfg.num_layers) or (rf, rb) != (0, 0):
+        raise AssertionError(f"train_model: flash launches kernel {kf}/{kb}, ref {rf}/{rb}")
+    tol = 1e-5
+    checks = {k: abs(float(km[k]) - float(rm[k])) / max(abs(float(rm[k])), 1e-12)
+              for k in ("loss", "grad_norm", "ratio_mean", "kl")}
+    params_err = max(_rel_err(a, b) for a, b in zip(tree_leaves(ks["params"]),
+                                                    tree_leaves(rs["params"])))
+    grads_err = max(_rel_err(a, b) for a, b in zip(tree_leaves(ks["opt"]["m"]),
+                                                   tree_leaves(rs["opt"]["m"])))
+    moved = max(_rel_err(a, b) for a, b in zip(tree_leaves(ks["params"]), tree_leaves(params)))
+    emit("train_model", arch=TRAIN_ARCH, dtype="float32", layers=cfg.num_layers,
+         d_model=cfg.d_model, batch=[b, s], check="kernel_vs_ref",
+         loss=float(km["loss"]), grad_norm=float(km["grad_norm"]), rel_err=checks,
+         params_rel_err_max=params_err, grads_rel_err_max=grads_err,
+         params_moved_rel=moved, tol_rel=tol,
+         flash_launches={"kernel": [kf, kb], "ref": [rf, rb]})
+    bad = {k: v for k, v in checks.items() if not v <= tol}
+    if bad or not params_err <= tol or not moved > 100 * tol:
+        raise AssertionError(f"train_model: kernel vs ref {bad}, params {params_err}, "
+                             f"moved {moved}")
+    del params, out, ks, rs
+    torch.cuda.empty_cache()
+
+
+def _train_tasks(vocab: int, round_: int):
+    """4 prompts of 128-384 tokens, each as a group of 4 replicas."""
+    import numpy as np
+    from repro_torch.core.types import RolloutTask, next_uid
+    rng = np.random.default_rng(SEED + 100 + round_)
+    groups = []
+    for i in range(TRAIN["prompts"]):
+        prompt = rng.integers(3, vocab, int(rng.integers(128, 385))).astype(np.int32)
+        gid = round_ * TRAIN["prompts"] + i
+        groups.append([RolloutTask(task_id=next_uid(), prompt_id=gid, replica_idx=j,
+                                   prompt_tokens=prompt, max_new_tokens=TRAIN["max_new"],
+                                   group_id=gid)
+                       for j in range(TRAIN["group"])])
+    return groups
+
+
+def _rollouts(proxy, groups, version: int) -> list:
+    """Submit every group, wait for all callbacks, return GenerationResults."""
+    lock, done, results = threading.Lock(), threading.Event(), []
+    want = sum(len(g) for g in groups)
+
+    def callback(res):
+        with lock:
+            results.append(res)
+            if len(results) == want:
+                done.set()
+
+    for g in groups:
+        proxy.generate_group(g, version, callback)
+    if not done.wait(timeout=600):
+        raise AssertionError(f"train: {len(results)}/{want} rollouts came back")
+    return results
+
+
+def _to_samples(results, vocab: int):
+    """GenerationResults -> Samples.  The pipeline's RolloutProducer and
+    verifier are a later slice of the port; here a seeded synthetic reward
+    scores each response: 1 when more than half its tokens are even."""
+    import numpy as np
+    from repro_torch.core.types import Sample
+    samples = []
+    for res in sorted(results, key=lambda r: r.request_id):
+        toks, lps = np.asarray(res.tokens), np.asarray(res.logprobs)
+        if res.aborted or toks.shape != (TRAIN["max_new"],) or not np.isfinite(lps).all() \
+                or (toks < 0).any() or (toks >= vocab).any():
+            raise AssertionError(f"train: bad rollout {res.request_id}")
+        t = res.task
+        samples.append(Sample(sample_id=res.request_id, prompt_id=t.prompt_id,
+                              replica_idx=t.replica_idx, prompt_tokens=t.prompt_tokens,
+                              response_tokens=toks, logprobs=lps,
+                              reward=float(np.mean(toks % 2 == 0) > 0.5),
+                              version_started=res.version_started,
+                              version_finished=res.version_started, group_id=t.group_id))
+    return samples
+
+
+def _engine_logits(api, params, prompt):
+    """Next-token logits after ``prompt`` through the engine's own paged
+    prefill, on a pool of its own, with the weights the engine holds."""
+    torch = _torch()
+    ps = 16
+    n = -(-len(prompt) // ps)
+    cache = api.init_paged_cache(1 + n, ps)
+    row = torch.arange(1, 1 + n, dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        for lo in range(0, len(prompt), 128):
+            chunk = torch.tensor(prompt[lo:lo + 128], device=DEVICE)[None]
+            logits, cache = api.prefill_chunk(params, chunk,
+                                              torch.ones_like(chunk, dtype=torch.bool),
+                                              lo, row, cache)
+    return logits[0].float()
+
+
+def phase_train() -> dict:
+    """The slice-3 main path, bf16, full width and depth: a PagedDecodeEngine
+    behind LLMProxy serves rollouts of the trainer's weights, HostTrainer
+    trains on them, and the new weights go back to the engine, 3 times."""
+    import numpy as np
+    torch = _torch()
+    from repro_torch.algos import LossConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.llm_proxy import LLMProxy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+    from repro_torch.models import get_api
+    from repro_torch.rollout import PagedDecodeEngine
+    from repro_torch.train import HostTrainer, OptConfig, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    api = get_api(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ref_params = api.init(SEED)                 # the frozen reference policy
+    trainer = HostTrainer(
+        api, SEED, LossConfig(pg_variant="decoupled_ppo", kl_beta=1e-3),
+        # build_rlvr_pipeline's optimizer; at the default 1e-6 a bf16 weight
+        # would not move (the update is far below a bf16 ulp)
+        OptConfig(learning_rate=3e-3, warmup_steps=5),
+        TrainerConfig(max_seq_len=TRAIN["max_seq_len"], group_size=TRAIN["group"],
+                      minibatches=2),
+        ref_params=ref_params)
+    eng = PagedDecodeEngine(api, trainer.get_weights(), num_slots=TRAIN["slots"],
+                            max_total_len=TRAIN["max_seq_len"], page_size=16,
+                            prefill_chunk=128, temperature=1.0, eos_id=-1, seed=SEED,
+                            device=DEVICE)
+    _warm(eng)
+    probe = np.random.default_rng(SEED + 30).integers(3, cfg.vocab_size, 200).astype(np.int32)
+    proxy = LLMProxy(eng, name="chip_smoke_train")
+    proxy.start()
+    steps = []
+    try:
+        for round_ in range(TRAIN["rounds"]):
+            decode0 = eng.total_decode_steps
+            paged_decode_attention.launches = 0
+            t0 = time.perf_counter()
+            results = _rollouts(proxy, _train_tasks(cfg.vocab_size, round_), round_)
+            rollout_s = time.perf_counter() - t0
+            paged = paged_decode_attention.launches
+            decode_steps = eng.total_decode_steps - decode0
+            if paged != cfg.num_layers * decode_steps or not paged:
+                raise AssertionError(f"train: {paged} paged decode launches for "
+                                     f"{decode_steps} decode steps x {cfg.num_layers}")
+            versions = {r.version_started for r in results}
+            if versions != {round_}:
+                raise AssertionError(f"train round {round_}: rollout versions {versions}")
+            samples = _to_samples(results, cfg.vocab_size)
+
+            fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.train_on_samples(samples)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd)
+            if launches != (cfg.num_layers * 4, cfg.num_layers * 2):
+                raise AssertionError(f"train: flash launches {launches}, expected "
+                                     f"{(cfg.num_layers * 4, cfg.num_layers * 2)}")
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"train: non-finite metrics {metrics}")
+
+            # weight sync: suspend, hand the engine the new tree, resume
+            proxy.suspend()
+            pre = _engine_logits(api, eng.params, probe)
+            t0 = time.perf_counter()
+            proxy.update_weights(trainer.get_weights())
+            torch.cuda.synchronize()
+            sync_s = time.perf_counter() - t0
+            post = _engine_logits(api, eng.params, probe)
+            with torch.no_grad():
+                want, _ = api.apply(trainer.get_weights(),
+                                    {"tokens": torch.tensor(probe, device=DEVICE)[None]})
+            proxy.resume()
+            served = (post - want[0, -1]).abs().max().item()
+            moved = (post - pre).abs().max().item()
+            scale = want[0, -1].abs().max().item()
+            if not (served <= 5e-2 * scale and moved > 4 * served):
+                raise AssertionError(f"train: after the sync the engine's logits differ "
+                                     f"from the trainer's by {served} (scale {scale}) and "
+                                     f"moved by {moved}")
+            real = int(sum(len(x.prompt_tokens) + len(x.response_tokens) for x in samples))
+            padded = len(samples) * TRAIN["max_seq_len"]
+            step = dict(round=round_, samples=len(samples), rollout_s=rollout_s,
+                        decode_steps=decode_steps, paged_launches=paged,
+                        loss=metrics["loss"], grad_norm=metrics["grad_norm"],
+                        clip_frac=metrics["clip_frac"], ratio_mean=metrics["ratio_mean"],
+                        ratio_max=metrics["ratio_max"], kl=metrics["kl"], lr=metrics["lr"],
+                        reward_mean=metrics["reward_mean"], train_step_s=train_s,
+                        trained_tokens=real, trained_tokens_per_s=real / train_s,
+                        padded_tokens_per_s=padded / train_s, weight_sync_s=sync_s,
+                        flash_launches_fwd=launches[0], flash_launches_bwd=launches[1],
+                        engine_vs_trainer_logits_max_abs=served,
+                        engine_logits_moved_max_abs=moved, logits_scale=scale,
+                        max_memory_allocated=torch.cuda.max_memory_allocated())
+            steps.append(step)
+            emit("train", arch=TRAIN_ARCH, dtype=cfg.dtype, layers=cfg.num_layers, **step)
+    finally:
+        proxy.stop()
+    eng.audit_pages()
+    return {"trainer": trainer, "samples": samples, "steps": steps, "engine": eng}
+
+
+def phase_profile_train(shared: dict) -> None:
+    """Where one ``train_on_samples`` call's time goes (prox and ref passes,
+    two minibatch steps): host wall (unprofiled, synchronised) against the
+    device's busy time, and device ms by kernel (torch.profiler)."""
+    torch = _torch()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, samples = shared["trainer"], shared["samples"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_on_samples(samples)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_on_samples(samples)
+        torch.cuda.synchronize()
+        profiled_wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    by = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    names: dict = {}
+    for e in kernels:
+        n = e.name.lower()
+        key = ("flash_fwd" if "flash_fwd" in n else
+               "flash_bwd" if "flash_bwd" in n else
+               "gemm" if any(w in n for w in ("gemm", "nvjet", "xmma", "cutlass", "matmul"))
+               else "other")
+        ms = _device_us(e) / 1e3
+        by[key] += ms
+        names[e.name] = names.get(e.name, 0.0) + ms
+    busy_ms = sum(by.values())
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
+    launches = sum(1 for e in events
+                   if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    emit("profile_train", window="one train_on_samples: prox + ref passes, 2 minibatch steps",
+         host_wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=max(0.0, 1 - busy_ms / wall_ms), launches=launches,
+         device_ms_by_kernel=by, top_kernels_ms=[[n[:80], ms] for n, ms in top])
+    if not busy_ms > 0:
+        raise AssertionError("profile_train: the profiler saw no device time")
+
+
 def _device_us(evt) -> float:
     for name in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, name):
@@ -690,8 +1142,15 @@ def main() -> int:
         phase_env()
         phase_build()
         rows = phase_kernels()
+        rows += phase_flash_kernels()
         phase_model()
         phase_serve_quant(rows[1], phase_serve(rows[0]))
+        phase_train_model()
+        shared = phase_train()
+        for row, key in ((rows[2], "flash_launches_fwd"), (rows[3], "flash_launches_bwd")):
+            row["launches"] = sum(st[key] for st in shared["steps"])
+            row["launches_per_train_on_samples"] = shared["steps"][0][key]
+        phase_profile_train(shared)
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -6,5 +6,7 @@ nothing of ``repro``.  It serves a dense decoder (Qwen3-4B at full width)
 through ``LLMProxy`` and ``PagedDecodeEngine``, in full precision or as
 quantized rollouts (int8/fp8 weights quantized at every sync, an int8 KV
 pool), with decode attention in a hand-written CUDA kernel for Hopper
-(``csrc/``).
+(``csrc/``), and trains on the rollouts (``algos``, ``train``: GRPO
+losses, fp32-master AdamW, ``HostTrainer``) with the trainer's attention
+in hand-written flash forward and backward kernels.
 """

@@ -7,7 +7,8 @@ stacked on a leading layer axis, ``final_norm``, ``lm_head``.  It returns
 the port's layout — the same dicts with ``blocks`` as a list of per-layer
 dicts — as tensors on ``device``.  ``cache_from_jax`` carries a paged KV
 pool across the same way, int8 codes and their scales included, so both
-packages can start from one pool.
+packages can start from one pool.  ``params_to_numpy`` is the way back, so
+that trees can be compared leaf by leaf.
 """
 from __future__ import annotations
 
@@ -55,3 +56,31 @@ def cache_from_jax(cache, device) -> PagedKVCache:
     return PagedKVCache(*(None if a is None else _tensor(a, device)
                           for a in (cache.k_pages, cache.v_pages,
                                     cache.k_scales, cache.v_scales)))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()   # numpy has no bf16 of its own; fp32 holds it exactly
+    return t.numpy()
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return _numpy(tree)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_numpy(params) -> dict:
+    """The port's params (or an fp32 optimizer tree of the same shape) ->
+    the JAX layout with numpy leaves: ``blocks`` stacked back on a leading
+    layer axis.  bf16 leaves come back as fp32 (exact)."""
+    out = {k: _to_numpy(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = _stack([_to_numpy(b) for b in params["blocks"]])
+    return out

@@ -39,3 +39,68 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def _flash_logits(q, k, causal, window, softcap):
+    """Scores (B, KV, G, S, S) fp32 after the softcap and the -1e30 fill,
+    and tanh(s / softcap) (None without a softcap) for the backward."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    qf = q.float().reshape(b, kv, h // kv, s, d) * (d ** -0.5)
+    logits = torch.einsum("bkgqd,bktd->bkgqt", qf, k.float())
+    t = None
+    if softcap is not None:
+        t = torch.tanh(logits / softcap)
+        logits = softcap * t
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return torch.where(mask, logits, -1e30), t
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
+                        return_lse=False):
+    """q: (B, H, S, D); k/v: (B, KV, S, D); GQA via H % KV == 0.
+    Returns (B, H, S, D) in q's dtype, accumulation in fp32; with
+    ``return_lse`` also the per-row log-sum-exp of the masked scores,
+    (B, H, S) fp32, which the backward recomputes P from."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    logits, _ = _flash_logits(q, k, causal, window, softcap)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
+    out = out.reshape(b, h, s, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(b, h, s)
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
+                            softcap=None):
+    """The explicit backward of ``flash_attention_ref``: P recomputed from
+    the saved log-sum-exp, dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O)),
+    times 1 - tanh^2 under a softcap, zero on masked entries (P is 0
+    there); dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), with dK and dV
+    summed over the G query heads of each KV head.  Returns (dq, dk, dv)
+    in the dtypes of q, k, v."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    scale = d ** -0.5
+    logits, t = _flash_logits(q, k, causal, window, softcap)
+    p = torch.exp(logits - lse.reshape(b, kv, g, s, 1))
+    dof = do.float().reshape(b, kv, g, s, d)
+    delta = (dof * o.float().reshape(b, kv, g, s, d)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, dof)
+    dp = torch.einsum("bkgqd,bktd->bkgqt", dof, v.float())
+    ds = p * (dp - delta)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    qf = q.float().reshape(b, kv, g, s, d)
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qf) * scale
+    return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))

@@ -3,7 +3,7 @@ package's ``models/api.py``).
 
     api = get_api(cfg, device=)            # the card unless device= says otherwise
     params = api.init(seed)
-    logits, aux = api.apply(params, batch)
+    logits, aux = api.apply(params, batch, attn_impl=)   # kernel | ref
     cache = api.init_paged_cache(num_pages, page_size, kv_quant=)   # off | int8
     logits, cache = api.prefill_chunk(params, tokens, valid, start, block_row, cache)
     logits, cache = api.decode_paged(params, token, pos, cache, block_tables, attn_impl=)
@@ -28,7 +28,7 @@ class ModelAPI:
     cfg: ModelConfig
     device: torch.device
     init: Callable[..., Any]              # (seed) -> params on device
-    apply: Callable[..., Any]             # (params, batch, return_features=) -> (logits, aux)
+    apply: Callable[..., Any]             # (params, batch, return_features=, attn_impl=) -> (logits, aux)
     init_paged_cache: Callable[..., Any]  # (num_pages, page_size, kv_quant=) -> PagedKVCache
     prefill_chunk: Callable[..., Any]     # (params, tokens, valid, start, block_row, cache) -> (logits, cache)
     decode_paged: Callable[..., Any]      # (params, token, pos, cache, block_tables, attn_impl=) -> (logits, cache)
@@ -44,9 +44,10 @@ def get_api(cfg: ModelConfig, *, device=None) -> ModelAPI:
     def init(seed: int = 0):
         return transformer.init_lm(cfg, seed, device=device)
 
-    def apply(params, batch, *, return_features=False):
+    def apply(params, batch, *, return_features=False, attn_impl="kernel"):
         return transformer.lm_apply(params, cfg, batch["tokens"],
-                                    return_features=return_features)
+                                    return_features=return_features,
+                                    attn_impl=attn_impl)
 
     def init_paged_cache(num_pages, page_size, kv_quant="off"):
         return paged.init_paged_cache(cfg, num_pages, page_size,

@@ -1,4 +1,6 @@
-"""GQA attention: projections and the plain-torch ``attend``.
+"""GQA attention: projections, the plain-torch ``attend``, and the
+full-sequence ``self_attention`` that runs either ``attend`` or the flash
+kernels (``attn_impl``).
 
 * GQA is expressed by reshaping queries to (B, S, n_kv, group, head_dim);
   KV heads are never repeated in memory.
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import torch_dtype
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import module
 from repro_torch.models.config import ModelConfig
 
@@ -153,12 +156,29 @@ def _project_kv(p, cfg: ModelConfig, x, positions):
     return k, v
 
 
-def self_attention(p, cfg: ModelConfig, x, positions):
-    """Full-sequence causal self-attention. x: (B,S,D); positions: (B,S) int."""
+def self_attention(p, cfg: ModelConfig, x, positions, *,
+                   attn_impl: str = "kernel"):
+    """Full-sequence causal self-attention. x: (B,S,D); positions: (B,S) int.
+
+    ``attn_impl="kernel"`` runs ``FlashAttention`` (the CUDA kernels on the
+    card, their plain versions on the CPU) on strided (B, H, S, D) views of
+    the projections; it masks by sequence index, which is ``attend``'s mask
+    for positions 0..S-1 (``lm_apply``'s default).  ``"ref"`` runs
+    ``attend``, which rounds P to ``v.dtype`` before PV: in bf16 the two
+    differ by that rounding, in fp32 they agree."""
     b, s, _ = x.shape
     q = _project_q(p, cfg, x, positions)
     k, v = _project_kv(p, cfg, x, positions)
-    kv_valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
-    out = attend(q, k, v, positions, positions, kv_valid,
-                 window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    if attn_impl == "kernel":
+        out = flash_attention(
+            q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim).transpose(1, 2),
+            k.transpose(1, 2), v.transpose(1, 2), causal=True,
+            window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+        out = out.transpose(1, 2)
+    elif attn_impl == "ref":
+        kv_valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
+        out = attend(q, k, v, positions, positions, kv_valid,
+                     window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    else:
+        raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
     return out.reshape(b, s, cfg.q_dim) @ p["wo"]

@@ -59,10 +59,10 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None):
 # apply
 # ---------------------------------------------------------------------------
 
-def _attn_block_apply(p, cfg: ModelConfig, x, positions):
+def _attn_block_apply(p, cfg: ModelConfig, x, positions, attn_impl):
     y = attention.self_attention(p["attn"], cfg,
                                  module.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                 positions)
+                                 positions, attn_impl=attn_impl)
     x = x + y
     h = module.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + ffn.mlp(p["mlp"], cfg, h)
@@ -82,16 +82,22 @@ def _default_positions(b, s, device):
 
 
 def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
-             return_features: bool = False):
+             return_features: bool = False, attn_impl: str = "kernel"):
     """Full-sequence causal forward.  Returns (logits fp32, aux dict) — or,
-    with ``return_features``, the final-norm hidden states (B, S, D)."""
+    with ``return_features``, the final-norm hidden states (B, S, D).
+    Differentiable with respect to the param tensors.  ``attn_impl``:
+    ``"kernel"`` (flash attention; masks by index, so ``positions`` must be
+    left to the default 0..S-1) or ``"ref"`` (plain ``attend``)."""
     _check_dense(cfg)
+    if positions is not None and attn_impl == "kernel":
+        raise ValueError("lm_apply: explicit positions need attn_impl='ref' "
+                         "(the flash kernel masks by sequence index)")
     x = params["embed"][tokens]
     b, s, _ = x.shape
     if positions is None:
         positions = _default_positions(b, s, x.device)
     for lp in params["blocks"]:
-        x = _attn_block_apply(lp, cfg, x, positions)
+        x = _attn_block_apply(lp, cfg, x, positions, attn_impl)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"load_balance_loss": zero, "router_z_loss": zero}
     if return_features:

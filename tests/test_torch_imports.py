@@ -36,7 +36,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
-        "assert {'repro_torch.quant', 'repro_torch.quant.core'} <= set(names), names\n"
+        "assert {'repro_torch.quant', 'repro_torch.quant.core', 'repro_torch.algos',\n"
+        "        'repro_torch.algos.grpo', 'repro_torch.algos.off_policy',\n"
+        "        'repro_torch.algos.advantages', 'repro_torch.train',\n"
+        "        'repro_torch.train.optimizer', 'repro_torch.train.trainer',\n"
+        "        'repro_torch.kernels.flash_attention'} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

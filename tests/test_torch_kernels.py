@@ -165,3 +165,38 @@ def test_cuda_kernel_matches_plain_version(cuda_device, b, h, kv, d,
     tol = DTYPES[dtype][2]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,window,softcap", [
+    (2, 16, 8, 512, 128, None, None),   # the trainer's shape (Qwen3-1.7B), fewer rows
+    (1, 8, 2, 300, 64, 128, 30.0),      # odd: ragged S, G = 4, window, softcap
+    (1, 2, 1, 77, 256, None, None),     # head_dim 256
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_kernels_match_plain_versions(cuda_device, b, h, kv, s, d,
+                                                 window, softcap, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    tdt, tol = DTYPES[dtype][1], DTYPES[dtype][2]
+    rng = np.random.default_rng(5)
+    # q/k/v as the trainer has them: (B, S, heads, D) seen as (B, heads, S, D)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(np.float32))
+                   .to(cuda_device, tdt).transpose(1, 2) for n in (h, kv, kv, h))
+    before = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd)
+    o, lse = fa.flash_attention_fwd(q, k, v, window=window, softcap=softcap)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd) == (
+        before[0] + 1, before[1] + 1)
+    assert o.stride() == q.stride()
+    want_o, want_lse = ref.flash_attention_ref(q, k, v, window=window, softcap=softcap,
+                                               return_lse=True)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=window,
+                                       softcap=softcap)
+    for got, w in zip(grads, want):
+        scale = w.float().abs().max().item()   # gradients: tolerance x max |grad|
+        torch.testing.assert_close(got.float(), w.float(), rtol=tol,
+                                   atol=tol * scale)
