@@ -8,5 +8,8 @@ quantized rollouts (int8/fp8 weights quantized at every sync, an int8 KV
 pool), with decode attention in a hand-written CUDA kernel for Hopper
 (``csrc/``), and trains on the rollouts (``algos``, ``train``: GRPO
 losses, fp32-master AdamW, ``HostTrainer``) with the trainer's attention
-in hand-written flash forward and backward kernels.
+in hand-written flash forward and backward kernels.  The slot
+``DecodeEngine`` serves the dense family from a dense KV cache and the
+RWKV-6 family from its recurrent state, with hand-written decode-attention
+and WKV-scan kernels, and drives Pass@k evaluation (``eval``).
 """

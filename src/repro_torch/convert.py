@@ -7,7 +7,9 @@ stacked on a leading layer axis, ``final_norm``, ``lm_head``.  It returns
 the port's layout — the same dicts with ``blocks`` as a list of per-layer
 dicts — as tensors on ``device``.  ``cache_from_jax`` carries a paged KV
 pool across the same way, int8 codes and their scales included, so both
-packages can start from one pool.  ``params_to_numpy`` is the way back, so
+packages can start from one pool; ``slot_cache_from_jax`` does the same
+for the slot engine's caches (a dense ``KVCache`` or an RWKV-6
+``RWKVState``, stacked on a leading layer axis in both packages).  ``params_to_numpy`` is the way back, so
 that trees can be compared leaf by leaf.
 """
 from __future__ import annotations
@@ -15,7 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.attention import KVCache
 from repro_torch.models.paged import PagedKVCache
+from repro_torch.models.rwkv6 import RWKVState
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -56,6 +60,20 @@ def cache_from_jax(cache, device) -> PagedKVCache:
     return PagedKVCache(*(None if a is None else _tensor(a, device)
                           for a in (cache.k_pages, cache.v_pages,
                                     cache.k_scales, cache.v_scales)))
+
+
+def slot_cache_from_jax(cache, device, *, max_len=None):
+    """A JAX slot-engine cache with numpy leaves -> the port's: a
+    ``KVCache`` (``k``, ``v``, ``pos``; ``max_len``, the sequence budget it
+    serves, defaults to its S_max, i.e. not a ring) or an ``RWKVState``
+    (``wkv``, ``tm_prev``, ``cm_prev``)."""
+    device = torch.device(device)
+    if hasattr(cache, "wkv"):
+        return RWKVState(*(_tensor(a, device)
+                           for a in (cache.wkv, cache.tm_prev, cache.cm_prev)))
+    k = _tensor(cache.k, device)
+    return KVCache(k, _tensor(cache.v, device), _tensor(cache.pos, device),
+                   k.shape[2] if max_len is None else max_len)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

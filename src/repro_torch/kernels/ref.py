@@ -10,6 +10,25 @@ from __future__ import annotations
 import torch
 
 
+def decode_attention_ref(q, k, v, lengths, *, window=None):
+    """Single-token GQA decode. q: (B, H, D); k/v: (B, S, KV, D);
+    lengths: (B,) number of valid cache entries (positions 0..len-1).
+    Returns (B, H, D)."""
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = q.float().reshape(b, kv, g, d) * (d ** -0.5)
+    logits = torch.einsum("bkgd,btkd->bkgt", qf, k.float())
+    pos = torch.arange(s, device=q.device)[None, :]
+    mask = pos < lengths[:, None]
+    if window is not None:
+        mask &= pos >= (lengths[:, None] - window)
+    logits = torch.where(mask[:, None, None, :], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
                                k_scales=None, v_scales=None, softcap=None):
     """Paged single-token GQA decode. q: (B, H, D);
@@ -104,3 +123,16 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
     dq = torch.einsum("bkgqt,bktd->bkgqd", ds, k.float()) * scale
     dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qf) * scale
     return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+def rwkv6_scan_ref(r, k, v, w, u, state):
+    """RWKV-6 WKV recurrence. r/k/v/w: (B, T, H, D); u: (H, D);
+    state: (B, H, D, D) fp32. Returns (y (B,T,H,D) fp32, new_state)."""
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    ys = []
+    for t in range(rf.shape[1]):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]  # (B, H, D)
+        a = kt[..., :, None] * vt[..., None, :]                   # (B, H, D, D)
+        ys.append(torch.einsum("bhi,bhij->bhj", rt, state + u[..., :, None] * a))
+        state = wt[..., :, None] * state + a
+    return torch.stack(ys, dim=1), state

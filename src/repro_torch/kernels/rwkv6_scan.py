@@ -1,0 +1,102 @@
+"""The RWKV-6 WKV recurrence: ``y_t = r_t^T (S + u * k_t v_t^T)``,
+``S <- w_t * S + k_t v_t^T`` per (batch, head), over any number of steps.
+
+Replaces the Pallas TPU kernel ``_wkv_kernel`` behind
+``repro.kernels.rwkv6_scan.rwkv6_scan``.  The CUDA kernel is
+``src/repro_torch/csrc/rwkv6_scan.cu``, built for ``sm_90a`` at first use
+(``kernels/build.py``) and called through ``ctypes``.
+
+What bounds it on an H100: at decode (T = 1) the bytes of the two fp32
+states; over a prompt, the serial dependence on t.  One thread block owns a
+(batch, head) pair and keeps its (D, D) state in registers, one column per
+thread, from the first read to the last write; r/k/v/w are read in their
+own dtypes by strides (no transposed fp32 copies, which the Pallas wrapper
+made), and any T is taken (the TPU kernel needed ``T % block_t == 0``).
+
+On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
+tensor it launches the kernel or raises.  The kernel has no backward: on
+either device the wrapper refuses inputs that need a gradient, so a
+trainer cannot take its forward for a differentiable one (``attn_impl=
+"ref"`` runs the plain scan, which autograd differentiates).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import rwkv6_scan_ref
+
+_IN_DTYPES = (torch.float32, torch.bfloat16)
+_HEAD_DIMS = (32, 64, 128)
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.rwkv6_scan
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(r, k, v, w, u, state):
+    b, t, h, d = r.shape
+    for name, x in zip("rkvw", (r, k, v, w)):
+        if x.shape != (b, t, h, d):
+            raise ValueError(f"rwkv6_scan: {name} {tuple(x.shape)} differs from "
+                             f"r {tuple(r.shape)}")
+        if x.dtype not in _IN_DTYPES:
+            raise TypeError(f"rwkv6_scan: {name} dtype {x.dtype} not supported "
+                            "(float32, bfloat16)")
+        if x.stride(3) != 1:
+            raise ValueError(f"rwkv6_scan: {name} needs a contiguous head_dim")
+    if t < 1:
+        raise ValueError("rwkv6_scan: needs at least one step")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan: head_dim {d} not supported (one of "
+                         f"{_HEAD_DIMS})")
+    if u.shape != (h, d) or state.shape != (b, h, d, d):
+        raise ValueError(f"rwkv6_scan: u {tuple(u.shape)} / state "
+                         f"{tuple(state.shape)} must be ({h}, {d}) / "
+                         f"({b}, {h}, {d}, {d})")
+    if state.dtype != torch.float32:
+        raise TypeError(f"rwkv6_scan: state dtype {state.dtype} must be float32")
+    devices = {x.device for x in (r, k, v, w, u, state)}
+    if len(devices) != 1:
+        raise ValueError(f"rwkv6_scan: tensors on {devices}")
+
+
+def rwkv6_scan(r, k, v, w, u, state):
+    """r/k/v/w: (B, T, H, D) fp32 or bf16 each; u: (H, D); state: (B, H, D,
+    D) fp32.  Returns (y (B, T, H, D) fp32, new state (B, H, D, D) fp32)."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, w, u, state)):
+        raise RuntimeError("rwkv6_scan: the WKV kernel has no backward; "
+                           "differentiate through attn_impl='ref' (the plain scan)")
+    if r.device.type == "cpu":
+        return rwkv6_scan_ref(r, k, v, w, u, state)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan: device {r.device} not supported")
+    _check(r, k, v, w, u, state)
+    b, t, h, d = r.shape
+    u = u.float().contiguous()
+    state = state.contiguous()
+    y = torch.empty((b, t, h, d), dtype=torch.float32, device=r.device)
+    new_state = torch.empty_like(state)
+    xs = (r, k, v, w)
+    dtypes = sum(1 << n for n, x in enumerate(xs) if x.dtype == torch.bfloat16)
+    strides = (ctypes.c_longlong * 12)(*(s for x in xs for s in x.stride()[:3]))
+    fn = _bind(build.library("rwkv6_scan"))
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = fn(*(x.data_ptr() for x in xs), u.data_ptr(), state.data_ptr(),
+                y.data_ptr(), new_state.data_ptr(), dtypes, b, t, h, d,
+                ctypes.cast(strides, ctypes.c_void_p), stream)
+    if rc != 0:
+        raise RuntimeError(f"rwkv6_scan: CUDA launch failed (cudaError {rc})")
+    rwkv6_scan.launches += 1
+    return y, new_state
+
+
+rwkv6_scan.launches = 0

@@ -1,20 +1,26 @@
-"""Uniform model API, dense family (the port's counterpart of the JAX
-package's ``models/api.py``).
+"""Uniform model API, dense and RWKV-6 families (the port's counterpart of
+the JAX package's ``models/api.py``).
 
     api = get_api(cfg, device=)            # the card unless device= says otherwise
     params = api.init(seed)
     logits, aux = api.apply(params, batch, attn_impl=)   # kernel | ref
+    cache = api.init_cache(batch_size, max_len)          # KVCache | RWKVState
+    logits, cache = api.prefill(params, batch, cache, attn_impl=)
+    logits, cache = api.decode_step(params, token, pos, cache, attn_impl=)
+
+The dense family also exposes the paged-KV views of the paged engine:
+
     cache = api.init_paged_cache(num_pages, page_size, kv_quant=)   # off | int8
     logits, cache = api.prefill_chunk(params, tokens, valid, start, block_row, cache)
     logits, cache = api.decode_paged(params, token, pos, cache, block_tables, attn_impl=)
 
-The slot engine's dense-cache views (``prefill``, ``decode_step``,
-``init_cache``) and the other families are later slices of the port.
+Families without positional KV (``ssm``) leave those None.  The other
+families are later slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -29,16 +35,21 @@ class ModelAPI:
     device: torch.device
     init: Callable[..., Any]              # (seed) -> params on device
     apply: Callable[..., Any]             # (params, batch, return_features=, attn_impl=) -> (logits, aux)
-    init_paged_cache: Callable[..., Any]  # (num_pages, page_size, kv_quant=) -> PagedKVCache
-    prefill_chunk: Callable[..., Any]     # (params, tokens, valid, start, block_row, cache) -> (logits, cache)
-    decode_paged: Callable[..., Any]      # (params, token, pos, cache, block_tables, attn_impl=) -> (logits, cache)
-    cache_view: Callable[..., Any]        # (layer_pages, block_row) -> (k, v, valid)
+    prefill: Callable[..., Any]           # (params, batch, cache, attn_impl=) -> (logits, cache)
+    decode_step: Callable[..., Any]       # (params, token, pos, cache, attn_impl=) -> (logits, cache)
+    init_cache: Callable[..., Any]        # (batch, max_len) -> KVCache | RWKVState
+    # paged-KV views (None for families without positional KV caches)
+    init_paged_cache: Optional[Callable[..., Any]] = None  # (num_pages, page_size, kv_quant=) -> PagedKVCache
+    prefill_chunk: Optional[Callable[..., Any]] = None     # (params, tokens, valid, start, block_row, cache) -> (logits, cache)
+    decode_paged: Optional[Callable[..., Any]] = None      # (params, token, pos, cache, block_tables, attn_impl=) -> (logits, cache)
+    cache_view: Optional[Callable[..., Any]] = None        # (layer_pages, block_row) -> (k, v, valid)
 
 
 def get_api(cfg: ModelConfig, *, device=None) -> ModelAPI:
-    if not paged.supports_paged(cfg):
+    if cfg.family not in transformer.FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet "
+            f"({' | '.join(transformer.FAMILIES)})")
     device = resolve_device(device)
 
     def init(seed: int = 0):
@@ -48,6 +59,22 @@ def get_api(cfg: ModelConfig, *, device=None) -> ModelAPI:
         return transformer.lm_apply(params, cfg, batch["tokens"],
                                     return_features=return_features,
                                     attn_impl=attn_impl)
+
+    def prefill(params, batch, cache, *, attn_impl="kernel"):
+        return transformer.lm_prefill(params, cfg, batch["tokens"], cache,
+                                      valid=batch.get("valid"),
+                                      attn_impl=attn_impl)
+
+    def decode_step(params, token, pos, cache, *, attn_impl="kernel"):
+        return transformer.lm_decode_step(params, cfg, token, pos, cache,
+                                          attn_impl=attn_impl)
+
+    def init_cache(batch, max_len):
+        return transformer.init_cache(cfg, batch, max_len, device)
+
+    if not paged.supports_paged(cfg):
+        return ModelAPI(cfg, device, init, apply, prefill, decode_step,
+                        init_cache)
 
     def init_paged_cache(num_pages, page_size, kv_quant="off"):
         return paged.init_paged_cache(cfg, num_pages, page_size,
@@ -62,6 +89,7 @@ def get_api(cfg: ModelConfig, *, device=None) -> ModelAPI:
         return paged.paged_decode_step(params, cfg, token, pos, cache,
                                        block_tables, attn_impl=attn_impl)
 
-    return ModelAPI(cfg, device, init, apply, init_paged_cache=init_paged_cache,
+    return ModelAPI(cfg, device, init, apply, prefill, decode_step, init_cache,
+                    init_paged_cache=init_paged_cache,
                     prefill_chunk=prefill_chunk, decode_paged=decode_paged,
                     cache_view=paged.gather_request_view)

@@ -1,6 +1,7 @@
-"""GQA attention: projections, the plain-torch ``attend``, and the
+"""GQA attention: projections, the plain-torch ``attend``, the
 full-sequence ``self_attention`` that runs either ``attend`` or the flash
-kernels (``attn_impl``).
+kernels (``attn_impl``), and the slot engine's dense KV cache with its
+prefill and decode steps.
 
 * GQA is expressed by reshaping queries to (B, S, n_kv, group, head_dim);
   KV heads are never repeated in memory.
@@ -9,13 +10,25 @@ kernels (``attn_impl``).
   plain torch) keeps peak scores at (B, H, q_chunk, block_k).
 * Masked scores take a ``-1e30`` fill, not ``-inf``: a fully masked row
   averages V uniformly, exactly as in the reference package.
+* The dense cache (``KVCache``) is ``(L, B, S_max, n_kv, head_dim)`` plus
+  an int32 position map ``(L, B, S_max)`` (-1 = empty), stacked over layers
+  like the paged pool.  Sliding-window configs allocate ``S_max = window``
+  when that is shorter than the sequence budget and write at
+  ``pos % S_max`` (a ring); the position map makes masking uniform.  Unlike
+  the reference, whose functions return a new cache, prefill and decode
+  write the layer's view IN PLACE (indexed assignment): a functional copy
+  of the whole cache per step is not an option at serving sizes.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import torch_dtype
+from repro_torch.kernels.decode_attention import (
+    decode_attention as decode_attention_kernel)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import module
 from repro_torch.models.config import ModelConfig
@@ -39,6 +52,46 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device):
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
     return p
+
+
+# ---------------------------------------------------------------------------
+# cache
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor    # (L, B, S_max, n_kv, head_dim); one layer's view drops L
+    v: torch.Tensor
+    pos: torch.Tensor  # (L, B, S_max) int32, -1 = empty
+    max_len: int       # the sequence budget it was made for (> S_max: a ring)
+
+    @property
+    def ring(self) -> bool:
+        return self.k.shape[-3] < self.max_len
+
+    def layer(self, i: int) -> "KVCache":
+        """Layer ``i``'s (B, S_max, ...) views into the cache."""
+        return KVCache(self.k[i], self.v[i], self.pos[i], self.max_len)
+
+    def rows(self, lo: int, hi: int) -> "KVCache":
+        """Views of batch rows ``lo:hi`` of every layer."""
+        return KVCache(self.k[:, lo:hi], self.v[:, lo:hi], self.pos[:, lo:hi],
+                       self.max_len)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
+                  window=None) -> KVCache:
+    """Empty cache of every layer: zeros, positions -1.  ``window`` (default
+    ``cfg.sliding_window``) shorter than ``max_len`` makes a ring of
+    ``window`` slots."""
+    w = window if window is not None else cfg.sliding_window
+    s = min(max_len, w) if w is not None else max_len
+    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dt, device=device),
+        v=torch.zeros(shape, dtype=dt, device=device),
+        pos=torch.full(shape[:3], -1, dtype=torch.int32, device=device),
+        max_len=max_len)
 
 
 # ---------------------------------------------------------------------------
@@ -182,3 +235,67 @@ def self_attention(p, cfg: ModelConfig, x, positions, *,
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
     return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def prefill_attention(p, cfg: ModelConfig, x, positions, cache: KVCache, *,
+                      valid=None):
+    """Causal self-attention that also writes one layer's cache in place.
+
+    x: (B, S, D); positions: (B, S); ``cache``: one layer's view.  Requires
+    S_max >= S for full caches; ring caches keep the last ``window`` tokens.
+    ``valid`` (B, S) masks right-padded prompt slots: invalid positions are
+    excluded from attention and written with pos = -1.  Attention runs the
+    plain ``attend`` over the new K/V, as the reference does."""
+    b, s, _ = x.shape
+    q = _project_q(p, cfg, x, positions)
+    k, v = _project_kv(p, cfg, x, positions)
+    kv_valid = (torch.ones((b, s), dtype=torch.bool, device=x.device)
+                if valid is None else valid)
+    idx = (positions % cache.k.shape[1]).long()
+    bidx = torch.arange(b, device=x.device)[:, None]
+    cache.k[bidx, idx] = k
+    cache.v[bidx, idx] = v
+    cache.pos[bidx, idx] = torch.where(kv_valid, positions, -1).to(torch.int32)
+    out = attend(q, k, v, positions, positions, kv_valid,
+                 window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"], cache
+
+
+def decode_attention(p, cfg: ModelConfig, x, pos, cache: KVCache, *,
+                     attn_impl: str = "kernel"):
+    """One-token decode. x: (B, 1, D); pos: (B,) int current positions;
+    ``cache``: one layer's view, written in place at ``pos % S_max``.
+
+    ``attn_impl="kernel"`` runs the decode kernel (the CUDA kernel on the
+    card, its plain version on the CPU) with lengths ``pos + 1`` and the
+    config's window: the cache is not a ring, so slot index = position and
+    the valid entries after the write are exactly 0..pos.  It refuses a
+    softcapped config (the TPU kernel has no softcap) and a ring cache.
+    ``"ref"`` runs ``_attend_direct`` over the position map."""
+    if attn_impl == "kernel" and cfg.attn_logit_softcap is not None:
+        raise ValueError("decode_attention: attn_impl='kernel' has no softcap "
+                         "(as the TPU kernel); use attn_impl='ref'")
+    if attn_impl == "kernel" and cache.ring:
+        raise ValueError("decode_attention: attn_impl='kernel' needs a cache of "
+                         f"the full sequence budget ({cache.max_len}), not a ring "
+                         f"of {cache.k.shape[1]}; use attn_impl='ref'")
+    b = x.shape[0]
+    positions = pos[:, None]
+    q = _project_q(p, cfg, x, positions)
+    k_new, v_new = _project_kv(p, cfg, x, positions)
+    idx = (pos % cache.k.shape[1]).long()
+    bidx = torch.arange(b, device=x.device)
+    cache.k[bidx, idx] = k_new[:, 0]
+    cache.v[bidx, idx] = v_new[:, 0]
+    cache.pos[bidx, idx] = pos.to(torch.int32)
+    if attn_impl == "kernel":
+        out = decode_attention_kernel(
+            q.reshape(b, cfg.num_heads, cfg.resolved_head_dim), cache.k,
+            cache.v, pos + 1, window=cfg.sliding_window)
+    elif attn_impl == "ref":
+        out = _attend_direct(q, cache.k, cache.v, positions, cache.pos,
+                             cache.pos >= 0, window=cfg.sliding_window,
+                             softcap=cfg.attn_logit_softcap)
+    else:
+        raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
+    return out.reshape(b, 1, cfg.q_dim) @ p["wo"], cache

@@ -41,8 +41,7 @@ from repro_torch.device import torch_dtype
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.models import attention, ffn, module
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _last_position_logits, _unembed
-from repro_torch.quant import core as quant
+from repro_torch.models.transformer import _last_position_logits, _unembed, layers
 
 
 class PagedKVCache(NamedTuple):
@@ -607,16 +606,6 @@ def _mlp_residual(p, cfg: ModelConfig, x, y):
     return x + ffn.mlp(p["mlp"], cfg, module.rmsnorm(p["ln2"], x, cfg.norm_eps))
 
 
-def _layers(params):
-    """The per-layer params, each dequantized just before its layer runs
-    when the tree holds quantized weights: only one layer's full-precision
-    weights exist at once.  An unquantized tree is walked as it is."""
-    blocks = params["blocks"]
-    if not (blocks and quant.is_quantized_tree(blocks[0])):
-        return enumerate(blocks)
-    return ((i, quant.dequantize_params(lp)) for i, lp in enumerate(blocks))
-
-
 def paged_prefill_chunk(params, cfg: ModelConfig, tokens, valid, start: int,
                         block_row, cache: PagedKVCache):
     """One prefill chunk of one request.
@@ -627,7 +616,7 @@ def paged_prefill_chunk(params, cfg: ModelConfig, tokens, valid, start: int,
     x = params["embed"][tokens]
     positions = start + torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=x.device)[None, :]
-    for layer, lp in _layers(params):
+    for layer, lp in layers(params):
         y = _paged_attn_prefill(lp["attn"], cfg,
                                 module.rmsnorm(lp["ln1"], x, cfg.norm_eps),
                                 positions, valid, cache.layer_pages(layer),
@@ -690,7 +679,7 @@ def paged_decode_step(params, cfg: ModelConfig, token, pos,
     block_tables: (B, P) int32 (pass -1 rows for slots that must not step).
     Writes the pool in place and returns (logits (B, V) fp32, cache)."""
     x = params["embed"][token][:, None, :]
-    for layer, lp in _layers(params):
+    for layer, lp in layers(params):
         y = _paged_attn_decode(lp["attn"], cfg,
                                module.rmsnorm(lp["ln1"], x, cfg.norm_eps),
                                pos, cache.layer_pages(layer), block_tables,

@@ -109,6 +109,9 @@ class PagedDecodeEngine:
                  prefix_cache: bool = False, quant_mode: str = "off",
                  kv_quant: str = "off", device=None):
         cfg = api.cfg
+        if api.init_paged_cache is None:
+            raise ValueError(f"family {cfg.family} has no paged-KV support "
+                             "(use the slot DecodeEngine)")
         self.device = resolve_device(device)
         if api.device != self.device:
             raise ValueError(f"engine device {self.device} differs from the "

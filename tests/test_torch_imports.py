@@ -40,7 +40,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "        'repro_torch.algos.grpo', 'repro_torch.algos.off_policy',\n"
         "        'repro_torch.algos.advantages', 'repro_torch.train',\n"
         "        'repro_torch.train.optimizer', 'repro_torch.train.trainer',\n"
-        "        'repro_torch.kernels.flash_attention'} <= set(names), names\n"
+        "        'repro_torch.kernels.flash_attention', 'repro_torch.rollout.engine',\n"
+        "        'repro_torch.models.rwkv6', 'repro_torch.kernels.decode_attention',\n"
+        "        'repro_torch.kernels.rwkv6_scan', 'repro_torch.data',\n"
+        "        'repro_torch.data.dataset', 'repro_torch.rewards',\n"
+        "        'repro_torch.rewards.verifier', 'repro_torch.eval',\n"
+        "        'repro_torch.eval.passk'} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -71,7 +76,8 @@ def _cfg():
 def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
     from repro_torch.models import get_api
     from repro_torch.models.transformer import init_lm
-    from repro_torch.rollout import PagedDecodeEngine
+    from repro_torch.eval import evaluate_passk
+    from repro_torch.rollout import DecodeEngine, PagedDecodeEngine
 
     cfg = _cfg()
     api = get_api(cfg, device="cpu")
@@ -84,6 +90,11 @@ def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedDecodeEngine(api, params, num_slots=2, max_total_len=32,
                           page_size=8, prefill_chunk=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeEngine(api, params, num_slots=2, max_total_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_passk(api, params, num_prompts=1, n_per_prompt=1)
+    DecodeEngine(api, params, num_slots=2, max_total_len=32, device="cpu")
     # explicit CPU works, and the engine refuses a device unlike the API's
     PagedDecodeEngine(api, params, num_slots=2, max_total_len=32, page_size=8,
                       prefill_chunk=8, device="cpu")
@@ -115,6 +126,10 @@ def test_engine_refuses_modes_not_ported(kw, exc):
 
 def test_other_families_are_not_ported_yet():
     from repro_torch.models import get_api
-    cfg = ModelConfig(**dataclasses.asdict(tiny("rwkv6-3b")))
-    with pytest.raises(NotImplementedError):
-        get_api(cfg, device="cpu")
+    for arch in ("recurrentgemma-9b", "qwen3-moe-235b-a22b"):
+        cfg = ModelConfig(**dataclasses.asdict(tiny(arch)))
+        with pytest.raises(NotImplementedError):
+            get_api(cfg, device="cpu")
+    # the RWKV-6 family is ported (slot engine only: no paged views)
+    api = get_api(ModelConfig(**dataclasses.asdict(tiny("rwkv6-3b"))), device="cpu")
+    assert api.prefill is not None and api.init_paged_cache is None

@@ -1,8 +1,10 @@
-"""The port's paged decode attention against the JAX package's Pallas
-kernel (interpret mode) and its plain oracle, on the same inputs.
+"""The port's decode kernels' plain versions against the JAX package's
+Pallas kernels (interpret mode) and their plain oracles, on the same
+inputs: paged decode attention, dense-cache decode attention and the RWKV-6
+WKV scan.
 
 On the CPU the wrapper runs the plain version; the CUDA kernel itself is
-held to the plain version by the ``cuda``-marked test (on the card) and by
+held to the plain version by the ``cuda``-marked tests (on the card) and by
 ``chip_smoke.py``.  Tolerances follow tests/test_kernels.py: fp32 2e-5
 (reduction order), bf16 2e-2 (bf16 inputs and output)."""
 import jax.numpy as jnp
@@ -11,9 +13,13 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as jax_decode_attention
+from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6_scan
 from repro.kernels.paged_decode_attention import (
     paged_decode_attention as jax_paged_decode_attention)
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.kernels import rwkv6_scan as wkv
 from repro_torch.kernels import ref
 
 # tiny shapes: one torch thread, so the suite's parallel workers keep their
@@ -138,6 +144,142 @@ def test_wrapper_refuses_devices_other_than_cpu_and_cuda():
         pda.paged_decode_attention(q, kp, kp, bt, torch.ones(1, device="meta"))
 
 
+# ---------------------------------------------------------------------------
+# dense-cache decode attention (the slot engine's decode step)
+# ---------------------------------------------------------------------------
+
+def _dense_inputs(seed, b, h, kv, s, d, lengths):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, h, d)).astype(np.float32),
+            rng.normal(size=(b, s, kv, d)).astype(np.float32),
+            rng.normal(size=(b, s, kv, d)).astype(np.float32),
+            np.asarray(lengths, np.int32))
+
+
+@pytest.mark.parametrize("h,kv,window", [(8, 2, None), (8, 8, 100), (8, 1, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_matches_the_pallas_kernel(h, kv, window, dtype):
+    """S a multiple of the TPU kernel's tile (128), as tests/test_kernels.py
+    runs it."""
+    q, k, v, lengths = _dense_inputs(0, 4, h, kv, 256, 64, [1, 77, 200, 256])
+    jdt, tdt, _ = DTYPES[dtype]
+    got = da.decode_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                              torch.from_numpy(lengths), window=window)
+    assert got.dtype == tdt and got.shape == q.shape
+    _close(jax_decode_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                                jnp.asarray(lengths), window=window, block_k=128,
+                                interpret=True), got, dtype)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("window", [None, 48])
+def test_decode_attention_ref_matches_the_oracle_at_ragged_s(g, window):
+    """Ragged S, lengths 0 (no valid key: V averaged over all S), 1, S and
+    above S (counts as S, the window still measured from the length)."""
+    s = 77
+    q, k, v, lengths = _dense_inputs(1, 5, 2 * g, 2, s, 32, [0, 1, 30, s, s + 20])
+    got = ref.decode_attention_ref(*(torch.from_numpy(x) for x in (q, k, v, lengths)),
+                                   window=window)
+    want = jref.decode_attention_ref(*(jnp.asarray(x) for x in (q, k, v, lengths)),
+                                     window=window)
+    _close(want, got, "float32")
+    wrapped = da.decode_attention(*(torch.from_numpy(x) for x in (q, k, v, lengths)),
+                                  window=window)
+    torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
+    # length 0: the -1e30 fill averages V uniformly over every slot
+    uniform = v[0].mean(axis=0)                               # (KV, D)
+    np.testing.assert_allclose(got[0].numpy().reshape(2, g, 32),
+                               np.broadcast_to(uniform[:, None], (2, g, 32)),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(dtype=torch.float16), TypeError),
+    (dict(d=48), ValueError),                       # head_dim
+    (dict(h=8 * 33, kv=8), ValueError),             # group > 32
+    (dict(window=0), ValueError),
+    (dict(lengths=3), ValueError),                  # lengths not (B,)
+])
+def test_decode_kernel_checks_refuse_what_the_kernel_does_not_take(kw, exc):
+    a = dict(dtype=torch.float32, h=8, kv=2, d=64, window=None, lengths=2)
+    a.update(kw)
+    q = torch.zeros(2, a["h"], a["d"], dtype=a["dtype"])
+    k = torch.zeros(2, 16, a["kv"], a["d"], dtype=a["dtype"])
+    with pytest.raises(exc):
+        da._check(q, k, k.clone(), torch.ones(a["lengths"], dtype=torch.int32),
+                  a["window"])
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV scan
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(seed, b, t, h, d):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(b, t, h, d)).astype(np.float32) for _ in range(3))
+    w = rng.uniform(0.3, 1.0, size=(b, t, h, d)).astype(np.float32)
+    u = rng.normal(size=(h, d)).astype(np.float32) * 0.5
+    state = rng.normal(size=(b, h, d, d)).astype(np.float32) * 0.3
+    return r, k, v, w, u, state
+
+
+def test_rwkv6_scan_matches_the_pallas_kernel_and_the_oracle():
+    arrays = _wkv_inputs(0, 2, 64, 3, 32)
+    tx = [torch.from_numpy(x) for x in arrays]
+    y, state = wkv.rwkv6_scan(*tx)
+    assert y.dtype == state.dtype == torch.float32 and y.shape == (2, 64, 3, 32)
+    jx = [jnp.asarray(x) for x in arrays]
+    for jy, jstate in (jax_rwkv6_scan(*jx, block_t=32, interpret=True),
+                       jref.rwkv6_scan_ref(*jx)):
+        _close(jy, y, "float32")
+        _close(jstate, state, "float32")
+    # the state carried across a split of T continues the recurrence
+    r, k, v, w, u, s0 = tx
+    y1, s1 = wkv.rwkv6_scan(r[:, :23], k[:, :23], v[:, :23], w[:, :23], u, s0)
+    y2, s2 = wkv.rwkv6_scan(r[:, 23:], k[:, 23:], v[:, 23:], w[:, 23:], u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(s2, state, rtol=2e-5, atol=2e-5)
+
+
+def test_rwkv6_scan_takes_mixed_dtypes_like_the_model():
+    """The model hands over bf16 r/k/v and fp32 w: each is widened to fp32,
+    as the oracle widens them."""
+    r, k, v, w, u, s0 = _wkv_inputs(1, 2, 5, 2, 32)
+    bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (r, k, v)]
+    y, state = wkv.rwkv6_scan(*bf, torch.from_numpy(w), torch.from_numpy(u),
+                              torch.from_numpy(s0))
+    jy, jstate = jref.rwkv6_scan_ref(*(jnp.asarray(x.float().numpy()) for x in bf),
+                                     jnp.asarray(w), jnp.asarray(u), jnp.asarray(s0))
+    _close(jy, y, "float32")
+    _close(jstate, state, "float32")
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(d=48), ValueError),                       # head_dim
+    (dict(state_dtype=torch.bfloat16), TypeError),
+    (dict(t=0), ValueError),
+    (dict(w_dtype=torch.float16), TypeError),
+])
+def test_scan_kernel_checks_refuse_what_the_kernel_does_not_take(kw, exc):
+    a = dict(d=32, t=3, state_dtype=torch.float32, w_dtype=torch.float32)
+    a.update(kw)
+    x = torch.zeros(2, a["t"], 2, a["d"])
+    with pytest.raises(exc):
+        wkv._check(x, x, x, x.to(a["w_dtype"]), torch.zeros(2, a["d"]),
+                   torch.zeros(2, 2, a["d"], a["d"], dtype=a["state_dtype"]))
+
+
+def test_new_wrappers_refuse_devices_other_than_cpu_and_cuda():
+    q = torch.zeros(1, 4, 64, device="meta")
+    k = torch.zeros(1, 16, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        da.decode_attention(q, k, k, torch.ones(1, device="meta"))
+    x = torch.zeros(1, 2, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        wkv.rwkv6_scan(x, x, x, x, torch.zeros(2, 32, device="meta"),
+                       torch.zeros(1, 2, 32, 32, device="meta"))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -200,3 +342,58 @@ def test_cuda_flash_kernels_match_plain_versions(cuda_device, b, h, kv, s, d,
         scale = w.float().abs().max().item()   # gradients: tolerance x max |grad|
         torch.testing.assert_close(got.float(), w.float(), rtol=tol,
                                    atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,window", [
+    (16, 32, 8, 1024, 128, None),   # the slot engine's serve shape (Qwen3-4B)
+    (3, 8, 2, 300, 64, 128),        # odd: ragged S, G = 4, a window
+    (2, 8, 8, 77, 256, None),       # MHA, head_dim 256
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_kernel_matches_plain_version(cuda_device, b, h, kv, s, d,
+                                                  window, dtype):
+    q, k, v, _ = _dense_inputs(6, b, h, kv, s, d, [0] * b)
+    lengths = np.random.default_rng(7).integers(0, s + 40, b).astype(np.int32)
+    n = min(b, 3)
+    lengths[:n] = [0, 1, s][:n]             # no valid key, one, all of S
+    tdt, tol = DTYPES[dtype][1], DTYPES[dtype][2]
+    tx = [torch.from_numpy(x).to(cuda_device, tdt) for x in (q, k, v)]
+    lens = torch.from_numpy(lengths).to(cuda_device)
+    before = da.decode_attention.launches
+    got = da.decode_attention(*tx, lens, window=window)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    want = ref.decode_attention_ref(*tx, lens, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d", [(1, 512, 40, 64), (16, 1, 40, 64), (2, 300, 3, 32),
+                                     (1, 17, 2, 128)])
+@pytest.mark.parametrize("rkv_dtype", ["float32", "bfloat16"])
+def test_cuda_scan_kernel_matches_plain_version(cuda_device, b, t, h, d, rkv_dtype):
+    r, k, v, w, u, s0 = _wkv_inputs(8, b, t, h, d)
+    tdt = DTYPES[rkv_dtype][1]
+    rkv = [torch.from_numpy(x).to(cuda_device, tdt) for x in (r, k, v)]
+    rest = [torch.from_numpy(x).to(cuda_device) for x in (w, u, s0)]
+    before = wkv.rwkv6_scan.launches
+    y, state = wkv.rwkv6_scan(*rkv, *rest)
+    torch.cuda.synchronize()
+    assert wkv.rwkv6_scan.launches == before + 1
+    want_y, want_state = ref.rwkv6_scan_ref(*rkv, *rest)
+    # fp32 arithmetic on both sides (bf16 inputs are widened exactly)
+    torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(state, want_state, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_kernel_refuses_inputs_that_need_a_gradient(cuda_device):
+    """The scan kernel has no backward: under autograd the wrapper raises
+    before it launches, on the card as on the CPU."""
+    r, k, v, w, u, s0 = (torch.from_numpy(x).to(cuda_device)
+                         for x in _wkv_inputs(9, 1, 4, 2, 64))
+    before = wkv.rwkv6_scan.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv.rwkv6_scan(r, k, v, w.requires_grad_(), u, s0)
+    assert wkv.rwkv6_scan.launches == before
