@@ -3,22 +3,28 @@
 ``params_from_jax`` takes the JAX param tree as nested dicts of numpy
 arrays (the caller does the ``np.asarray`` on the JAX side, so this module
 imports no JAX) in ``transformer.init_lm``'s layout: ``embed``, ``blocks``
-stacked on a leading layer axis, ``final_norm``, ``lm_head``.  It returns
-the port's layout — the same dicts with ``blocks`` as a list of per-layer
-dicts — as tensors on ``device``.  ``cache_from_jax`` carries a paged KV
-pool across the same way, int8 codes and their scales included, so both
-packages can start from one pool; ``slot_cache_from_jax`` does the same
-for the slot engine's caches (a dense ``KVCache`` or an RWKV-6
-``RWKVState``, stacked on a leading layer axis in both packages).  ``params_to_numpy`` is the way back, so
-that trees can be compared leaf by leaf.
+stacked on a leading layer axis, ``final_norm``, ``lm_head`` — for the
+hybrid, ``blocks`` a dict of pattern positions (``"{i}_{kind}"``) each
+stacked over the groups, and a ``tail`` list.  It returns the port's
+layout — the same dicts with ``blocks`` as a list of per-layer dicts in
+execution order — as tensors on ``device``.  ``cache_from_jax`` carries a
+paged KV pool across the same way, int8 codes and their scales included,
+so both packages can start from one pool; ``slot_cache_from_jax`` does the
+same for the slot engine's caches (a dense ``KVCache`` or an RWKV-6
+``RWKVState``, stacked on a leading layer axis in both packages, or the
+hybrid's dict of stacked groups and tail, which becomes a
+``HybridCache``).  ``params_to_numpy`` is the way back, so that trees can
+be compared leaf by leaf.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models import transformer
 from repro_torch.models.attention import KVCache
 from repro_torch.models.paged import PagedKVCache
+from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.rwkv6 import RWKVState
 
 
@@ -43,13 +49,27 @@ def _layer(tree, i: int):
     return np.asarray(tree)[i]
 
 
+def _pattern_keys(stacked: dict) -> list:
+    """The hybrid's ``"{i}_{kind}"`` keys in pattern order."""
+    return sorted((k for k in stacked if k != "tail"),
+                  key=lambda k: int(k.split("_", 1)[0]))
+
+
 def params_from_jax(tree, device) -> dict:
-    """JAX dense-LM param tree (numpy leaves) -> the port's params."""
+    """JAX LM param tree (numpy leaves) -> the port's params."""
     device = torch.device(device)
-    out = {k: _convert(v, device) for k, v in tree.items() if k != "blocks"}
-    n = len(np.asarray(tree["blocks"]["ln1"]["scale"]))
-    out["blocks"] = [_convert(_layer(tree["blocks"], i), device)
-                     for i in range(n)]
+    out = {k: _convert(v, device) for k, v in tree.items()
+           if k not in ("blocks", "tail")}
+    blocks = tree["blocks"]
+    if "tail" in tree:                      # hybrid: groups, then the tail
+        keys = _pattern_keys(blocks)
+        n = len(np.asarray(blocks[keys[0]]["ln1"]["scale"]))
+        layers = ([_layer(blocks[k], g) for g in range(n) for k in keys]
+                  + list(tree["tail"]))
+    else:
+        n = len(np.asarray(blocks["ln1"]["scale"]))
+        layers = [_layer(blocks, i) for i in range(n)]
+    out["blocks"] = [_convert(lp, device) for lp in layers]
     return out
 
 
@@ -62,12 +82,36 @@ def cache_from_jax(cache, device) -> PagedKVCache:
                                     cache.k_scales, cache.v_scales)))
 
 
+def _hybrid_cache_from_jax(cache, device, max_len):
+    """The hybrid's JAX cache (each pattern position stacked over the
+    groups; tail states with their batch on axis 0) -> a ``HybridCache``
+    stacked per kind in execution order."""
+    keys = _pattern_keys(cache)
+    n = len(np.asarray(cache[keys[0]][0]))
+    layers = [(k.split("_", 1)[1], cache[k], g) for g in range(n) for k in keys]
+    layers += [("attn" if hasattr(st, "k") else "rglru", st, None)
+               for st in cache["tail"]]
+    def stack(kind, name):
+        return _tensor(np.stack([np.asarray(getattr(st, name))[() if g is None else g]
+                                 for k, st, g in layers if k == kind]), device)
+
+    k = stack("attn", "k")
+    kv = KVCache(k, stack("attn", "v"), stack("attn", "pos"),
+                 k.shape[2] if max_len is None else max_len)
+    return transformer.HybridCache(kv, RGLRUState(stack("rglru", "h"),
+                                                  stack("rglru", "conv")),
+                                   transformer.indexed_kinds(k for k, _, _ in layers))
+
+
 def slot_cache_from_jax(cache, device, *, max_len=None):
     """A JAX slot-engine cache with numpy leaves -> the port's: a
     ``KVCache`` (``k``, ``v``, ``pos``; ``max_len``, the sequence budget it
-    serves, defaults to its S_max, i.e. not a ring) or an ``RWKVState``
-    (``wkv``, ``tm_prev``, ``cm_prev``)."""
+    serves, defaults to its S_max, i.e. not a ring), an ``RWKVState``
+    (``wkv``, ``tm_prev``, ``cm_prev``) or, from the hybrid's dict, a
+    ``HybridCache``."""
     device = torch.device(device)
+    if isinstance(cache, dict):
+        return _hybrid_cache_from_jax(cache, device, max_len)
     if hasattr(cache, "wkv"):
         return RWKVState(*(_tensor(a, device)
                            for a in (cache.wkv, cache.tm_prev, cache.cm_prev)))
@@ -95,10 +139,20 @@ def _stack(trees):
     return np.stack(trees)
 
 
-def params_to_numpy(params) -> dict:
+def params_to_numpy(params, cfg=None) -> dict:
     """The port's params (or an fp32 optimizer tree of the same shape) ->
     the JAX layout with numpy leaves: ``blocks`` stacked back on a leading
-    layer axis.  bf16 leaves come back as fp32 (exact)."""
+    layer axis — for a hybrid ``cfg``, one stack per pattern position and
+    the ``tail`` list.  bf16 leaves come back as fp32 (exact)."""
     out = {k: _to_numpy(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = _stack([_to_numpy(b) for b in params["blocks"]])
+    blocks = [_to_numpy(b) for b in params["blocks"]]
+    if cfg is None or cfg.family != "hybrid":
+        if any("rec" in b for b in blocks):
+            raise ValueError("params_to_numpy: a hybrid tree needs its cfg")
+        out["blocks"] = _stack(blocks)
+        return out
+    groups = transformer.block_groups(cfg)
+    out["blocks"] = {f"{i}_{kind}": _stack([b for b, g in zip(blocks, groups) if g == i])
+                     for i, kind in enumerate(cfg.block_pattern)}
+    out["tail"] = [b for b, g in zip(blocks, groups) if g is None]
     return out

@@ -136,3 +136,16 @@ def rwkv6_scan_ref(r, k, v, w, u, state):
         ys.append(torch.einsum("bhi,bhij->bhj", rt, state + u[..., :, None] * a))
         state = wt[..., :, None] * state + a
     return torch.stack(ys, dim=1), state
+
+
+def rglru_scan_ref(a, b, h0):
+    """RG-LRU linear recurrence h_t = a_t * h_{t-1} + b_t, elementwise over
+    W. a/b: (B, T, W) (widened to fp32); h0: (B, W) fp32.
+    Returns (hs (B, T, W) fp32, h_last (B, W) fp32)."""
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    hs = []
+    for t in range(af.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

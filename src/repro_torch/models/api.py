@@ -1,10 +1,10 @@
-"""Uniform model API, dense and RWKV-6 families (the port's counterpart of
-the JAX package's ``models/api.py``).
+"""Uniform model API, dense, RWKV-6 and RecurrentGemma (hybrid) families
+(the port's counterpart of the JAX package's ``models/api.py``).
 
     api = get_api(cfg, device=)            # the card unless device= says otherwise
     params = api.init(seed)
     logits, aux = api.apply(params, batch, attn_impl=)   # kernel | ref
-    cache = api.init_cache(batch_size, max_len)          # KVCache | RWKVState
+    cache = api.init_cache(batch_size, max_len)          # KVCache | RWKVState | HybridCache
     logits, cache = api.prefill(params, batch, cache, attn_impl=)
     logits, cache = api.decode_step(params, token, pos, cache, attn_impl=)
 
@@ -14,8 +14,9 @@ The dense family also exposes the paged-KV views of the paged engine:
     logits, cache = api.prefill_chunk(params, tokens, valid, start, block_row, cache)
     logits, cache = api.decode_paged(params, token, pos, cache, block_tables, attn_impl=)
 
-Families without positional KV (``ssm``) leave those None.  The other
-families are later slices of the port.
+Families without a paged KV cache (``ssm``, ``hybrid``) leave those None:
+the slot ``DecodeEngine`` serves them.  The other families are later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ class ModelAPI:
     apply: Callable[..., Any]             # (params, batch, return_features=, attn_impl=) -> (logits, aux)
     prefill: Callable[..., Any]           # (params, batch, cache, attn_impl=) -> (logits, cache)
     decode_step: Callable[..., Any]       # (params, token, pos, cache, attn_impl=) -> (logits, cache)
-    init_cache: Callable[..., Any]        # (batch, max_len) -> KVCache | RWKVState
+    init_cache: Callable[..., Any]        # (batch, max_len) -> KVCache | RWKVState | HybridCache
     # paged-KV views (None for families without positional KV caches)
     init_paged_cache: Optional[Callable[..., Any]] = None  # (num_pages, page_size, kv_quant=) -> PagedKVCache
     prefill_chunk: Optional[Callable[..., Any]] = None     # (params, tokens, valid, start, block_row, cache) -> (logits, cache)

@@ -79,13 +79,15 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
-                  window=None) -> KVCache:
-    """Empty cache of every layer: zeros, positions -1.  ``window`` (default
+                  window=None, num_layers=None) -> KVCache:
+    """Empty cache of ``num_layers`` layers (default: every layer of the
+    config): zeros, positions -1.  ``window`` (default
     ``cfg.sliding_window``) shorter than ``max_len`` makes a ring of
     ``window`` slots."""
     w = window if window is not None else cfg.sliding_window
     s = min(max_len, w) if w is not None else max_len
-    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+    n = cfg.num_layers if num_layers is None else num_layers
+    shape = (n, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
     dt = torch_dtype(cfg.dtype)
     return KVCache(
         k=torch.zeros(shape, dtype=dt, device=device),

@@ -1,36 +1,40 @@
-"""Decoder-only LM assembly, dense and RWKV-6 (``ssm``) families.
+"""Decoder-only LM assembly: the dense, RWKV-6 (``ssm``) and RecurrentGemma
+(``hybrid``: RG-LRU + local attention) families.
 
 The JAX package stacks the layers on a leading axis and runs them with
-``lax.scan``; here ``params["blocks"]`` is a list of per-layer dicts walked
-by a Python loop, and the slot engine's caches (``attention.KVCache``,
-``rwkv6.RWKVState``) are stacked on a leading layer axis and updated in
-place, one layer's view at a time.  Other families (MoE, RG-LRU, VLM,
-enc-dec) are later slices of the port.
+``lax.scan`` (the hybrid: a scan over pattern groups, then an unrolled
+tail); here ``params["blocks"]`` is a list of per-layer dicts in execution
+order (the hybrid: group g's pattern positions for every g, then the
+tail) walked by a Python loop, and the slot engine's caches
+(``attention.KVCache``, ``rwkv6.RWKVState``, ``HybridCache``) are stacked
+on a leading layer axis and updated in place, one layer's view at a time.
+Other families (MoE, VLM, enc-dec) are later slices of the port.
 
 Entry points:
     init_lm(cfg, seed, device=)                   -> params
-    init_cache(cfg, batch, max_len, device)       -> KVCache | RWKVState
+    init_cache(cfg, batch, max_len, device)       -> KVCache | RWKVState | HybridCache
     lm_apply(params, cfg, tokens, ...)            -> (logits fp32, aux)
     lm_prefill(params, cfg, tokens, cache, ...)   -> (last logits (B, V), cache)
     lm_decode_step(params, cfg, token, pos, cache, attn_impl=) -> (logits (B, V), cache)
 
 ``attn_impl`` ("kernel" | "ref") picks the dense family's attention
-kernels and the RWKV-6 family's WKV scan kernel against their plain
-versions.  Quantized trees (``quant.quantize_params``) are dequantized one
-layer at a time inside the layer loops.
+kernels, the RWKV-6 family's WKV scan kernel, and the hybrid's RG-LRU scan
+and decode-attention kernels against their plain versions.  Quantized
+trees (``quant.quantize_params``, with ``block_groups(cfg)``) are
+dequantized one layer at a time inside the layer loops.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.models import attention, ffn, module, rwkv6
+from repro_torch.models import attention, ffn, module, rglru, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant import core as quant
 
-FAMILIES = ("dense", "ssm")     # the families ported so far
+FAMILIES = ("dense", "ssm", "hybrid")     # the families ported so far
 _IMPLS = ("kernel", "ref")
 
 
@@ -54,6 +58,55 @@ def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, device):
     }
 
 
+def _init_rglru_block(gen: torch.Generator, cfg: ModelConfig, device):
+    return {
+        "ln1": module.rmsnorm_init(cfg.d_model, device),
+        "ln2": module.rmsnorm_init(cfg.d_model, device),
+        "rec": rglru.init_recurrent_block(gen, cfg, device),
+        "mlp": ffn.init_mlp(gen, cfg, device),
+    }
+
+
+def _hybrid_layout(cfg: ModelConfig):
+    pattern = cfg.block_pattern
+    n_groups = cfg.num_layers // len(pattern)
+    tail = tuple(pattern[: cfg.num_layers - n_groups * len(pattern)])
+    return pattern, n_groups, tail
+
+
+def indexed_kinds(kinds) -> Tuple[Tuple[str, int], ...]:
+    """Each kind with its index among the earlier entries of that kind."""
+    seen: dict = {}
+    out = []
+    for k in kinds:
+        out.append((k, seen.get(k, 0)))
+        seen[k] = seen.get(k, 0) + 1
+    return tuple(out)
+
+
+def layer_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
+    """Per layer in execution order: (kind, its index among the layers of
+    that kind), kind "attn" | "rglru" (the hybrid) — or the dense /
+    RWKV-6 layer kind for every layer."""
+    if cfg.family == "hybrid":
+        pattern, n_groups, tail = _hybrid_layout(cfg)
+        return indexed_kinds([k for _ in range(n_groups) for k in pattern] + list(tail))
+    return indexed_kinds(["attn" if cfg.family == "dense" else "rwkv"] * cfg.num_layers)
+
+
+def block_groups(cfg: ModelConfig) -> Optional[list]:
+    """For each entry of ``blocks``, the reference's stacked leaf it belongs
+    to: the hybrid's pattern position ``i`` (its ``blocks["{i}_{kind}"]``,
+    stacked over the groups), or None for the tail (a Python list).  Other
+    families: None (one stack of every layer).  These are the reference's
+    quantization scale groups (``quant.quantize_params``'s ``groups``: the
+    tail stays unquantized) and its param layout (``convert``)."""
+    if cfg.family != "hybrid":
+        return None
+    pattern, n_groups, tail = _hybrid_layout(cfg)
+    return list(range(len(pattern))) * n_groups + [None] * len(tail)
+
+
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None):
     """Random weights drawn on ``device`` from one generator seeded with
     ``seed`` (fp32 draws, cast to ``cfg.dtype``)."""
@@ -69,18 +122,40 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = module.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                               dt, device)
-    init_block = _init_attn_block if cfg.family == "dense" else rwkv6.init_block
-    params["blocks"] = [init_block(gen, cfg, device)
-                        for _ in range(cfg.num_layers)]
+    init_block = {"attn": _init_attn_block, "rwkv": rwkv6.init_block,
+                  "rglru": _init_rglru_block}
+    params["blocks"] = [init_block[kind](gen, cfg, device)
+                        for kind, _ in layer_kinds(cfg)]
     return params
 
 
+class HybridCache(NamedTuple):
+    """The hybrid's slot cache: a ``KVCache`` stacked over its attention
+    layers, an ``RGLRUState`` stacked over its RG-LRU layers, and per layer
+    in execution order (kind, index into the stack of that kind)."""
+    kv: attention.KVCache
+    rglru: rglru.RGLRUState
+    kinds: Tuple[Tuple[str, int], ...]
+
+    def rows(self, lo: int, hi: int) -> "HybridCache":
+        """Views of batch rows ``lo:hi`` of every layer."""
+        return HybridCache(self.kv.rows(lo, hi), self.rglru.rows(lo, hi), self.kinds)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """The slot engine's cache: dense -> ``KVCache``; ssm -> ``RWKVState``."""
+    """The slot engine's cache: dense -> ``KVCache``; ssm -> ``RWKVState``;
+    hybrid -> ``HybridCache``."""
     _check_family(cfg)
     if cfg.family == "dense":
         return attention.init_kv_cache(cfg, batch, max_len, device)
-    return rwkv6.init_rwkv_state(cfg, batch, device)
+    if cfg.family == "ssm":
+        return rwkv6.init_rwkv_state(cfg, batch, device)
+    kinds = layer_kinds(cfg)
+    n_attn = sum(k == "attn" for k, _ in kinds)
+    return HybridCache(
+        attention.init_kv_cache(cfg, batch, max_len, device, num_layers=n_attn),
+        rglru.init_rglru_state(cfg, batch, device, num_layers=len(kinds) - n_attn),
+        kinds)
 
 
 def layers(params):
@@ -123,6 +198,32 @@ def _attn_block_decode(p, cfg: ModelConfig, x, pos, cache, *, attn_impl):
     return x + ffn.mlp(p["mlp"], cfg, module.rmsnorm(p["ln2"], x, cfg.norm_eps))
 
 
+def _rglru_block_apply(p, cfg: ModelConfig, x, state, *, decode: bool, attn_impl):
+    fn = rglru.recurrent_step if decode else rglru.recurrent_block
+    y, state = fn(p["rec"], cfg, module.rmsnorm(p["ln1"], x, cfg.norm_eps), state,
+                  attn_impl=attn_impl)
+    x = x + y
+    x = x + ffn.mlp(p["mlp"], cfg, module.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x, state
+
+
+def _hybrid_layer(lp, cfg: ModelConfig, x, cache: HybridCache, i: int, *,
+                  positions=None, pos=None, attn_impl):
+    """Layer ``i`` of a hybrid prefill (``positions``) or decode step
+    (``pos``), its cache written in place.  Prefill attention runs plain
+    ``attend`` and passes no ``valid``, as the reference does."""
+    kind, j = cache.kinds[i]
+    if kind == "attn":
+        if pos is None:
+            return _attn_block_prefill(lp, cfg, x, positions, cache.kv.layer(j))
+        return _attn_block_decode(lp, cfg, x, pos, cache.kv.layer(j),
+                                  attn_impl=attn_impl)
+    x, st = _rglru_block_apply(lp, cfg, x, cache.rglru.layer(j),
+                               decode=pos is not None, attn_impl=attn_impl)
+    cache.rglru.write_layer(j, st)
+    return x
+
+
 def unembedding_matrix(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -144,7 +245,11 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
     ``"kernel"`` (flash attention; masks by index, so ``positions`` must be
     left to the default 0..S-1) or ``"ref"`` (plain ``attend``).  RWKV-6:
     every block from a zero state, the WKV scan kernel or its plain version
-    (``attn_impl``); ``positions`` are unused."""
+    (``attn_impl``); ``positions`` are unused.  Hybrid: the RG-LRU layers
+    from a zero state through the scan kernel or the reference's doubling
+    scan (``attn_impl``); the attention layers run plain ``attend`` (the
+    reference's forward; the flash kernel takes a group x head_dim of at
+    most 512, RecurrentGemma's is 4096)."""
     _check_family(cfg)
     _check_impl(attn_impl)
     if positions is not None and attn_impl == "kernel" and cfg.family == "dense":
@@ -157,10 +262,20 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
             positions = _default_positions(b, s, x.device)
         for lp in params["blocks"]:
             x = _attn_block_apply(lp, cfg, x, positions, attn_impl)
-    else:
+    elif cfg.family == "ssm":
         state0 = rwkv6.init_rwkv_state(cfg, b, x.device)
         for i, lp in enumerate(params["blocks"]):
             x, _ = rwkv6.block(lp, cfg, x, state0.layer(i), attn_impl=attn_impl)
+    else:
+        if positions is None:
+            positions = _default_positions(b, s, x.device)
+        state0 = rglru.init_rglru_state(cfg, b, x.device).layer(0)
+        for lp, (kind, _) in zip(params["blocks"], layer_kinds(cfg)):
+            if kind == "attn":
+                x = _attn_block_apply(lp, cfg, x, positions, "ref")
+            else:
+                x, _ = _rglru_block_apply(lp, cfg, x, state0, decode=False,
+                                          attn_impl=attn_impl)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"load_balance_loss": zero, "router_z_loss": zero}
     if return_features:
@@ -186,10 +301,10 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache, *, valid=None,
 
     tokens: (B, S); ``valid`` (B, S) marks real (non-pad) token positions,
     meaningful for the dense family only: the recurrent state ingests every
-    position, so RWKV-6 prompts must be prefilled at their exact length.
-    Dense prefill runs plain ``attend`` (as the reference); ``attn_impl``
-    picks the RWKV-6 scan.  Returns (last-valid-position logits (B, V)
-    fp32, cache)."""
+    position, so RWKV-6 and hybrid prompts must be prefilled at their exact
+    length.  Dense and hybrid attention prefill runs plain ``attend`` (as
+    the reference); ``attn_impl`` picks the RWKV-6 and RG-LRU scans.
+    Returns (last-valid-position logits (B, V) fp32, cache)."""
     _check_family(cfg)
     _check_impl(attn_impl)
     x = params["embed"][tokens]
@@ -199,10 +314,15 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache, *, valid=None,
         for i, lp in layers(params):
             x = _attn_block_prefill(lp, cfg, x, positions, cache.layer(i),
                                     valid=valid)
-    else:
+    elif cfg.family == "ssm":
         for i, lp in layers(params):
             x, st = rwkv6.block(lp, cfg, x, cache.layer(i), attn_impl=attn_impl)
             cache.write_layer(i, st)
+    else:
+        positions = _default_positions(b, s, x.device)
+        for i, lp in layers(params):
+            x = _hybrid_layer(lp, cfg, x, cache, i, positions=positions,
+                              attn_impl=attn_impl)
     return _last_position_logits(params, cfg, x, valid), cache
 
 
@@ -217,8 +337,11 @@ def lm_decode_step(params, cfg: ModelConfig, token, pos, cache, *,
         for i, lp in layers(params):
             x = _attn_block_decode(lp, cfg, x, pos, cache.layer(i),
                                    attn_impl=attn_impl)
-    else:
+    elif cfg.family == "ssm":
         for i, lp in layers(params):
             x, st = rwkv6.block(lp, cfg, x, cache.layer(i), attn_impl=attn_impl)
             cache.write_layer(i, st)
+    else:
+        for i, lp in layers(params):
+            x = _hybrid_layer(lp, cfg, x, cache, i, pos=pos, attn_impl=attn_impl)
     return _unembed(params, cfg, x)[:, 0, :], cache

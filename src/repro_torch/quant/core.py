@@ -14,6 +14,10 @@ Scheme (the FlashRL / vLLM loading recipe), as the reference computes it:
   the layer axis too and one column's scale is SHARED by all layers.  Here
   ``blocks`` is a list of per-layer dicts; ``quantize_params`` reduces each
   leaf's absmax across the whole list to give the same scales and codes.
+  The hybrid (RecurrentGemma) stacks each pattern position over the groups
+  and keeps its tail as a Python list, which the reference does not
+  quantize: ``groups`` (``transformer.block_groups(cfg)``) names each
+  layer's scale group, or None for a tail layer.
 * embeddings / lm_head / norm gains stay full precision.
 * fp8 codes are ``torch.float8_e4m3fn`` (max normal 448).
 
@@ -123,13 +127,28 @@ def _quantize_blocks(layers: List[Any], key: str, mode: str) -> List[Any]:
     return _quantize_layers(layers, mode)
 
 
-def quantize_params(params: Any, mode: str) -> Any:
+def _quantize_groups(layers: List[Any], groups: List[Any], mode: str) -> List[Any]:
+    """``layers[i]`` quantized with the other layers of its scale group
+    ``groups[i]``; layers of group None are left as they are."""
+    if len(groups) != len(layers):
+        raise ValueError(f"quantize_params: {len(groups)} groups for "
+                         f"{len(layers)} layers")
+    out = list(layers)
+    for g in dict.fromkeys(x for x in groups if x is not None):
+        idx = [i for i, x in enumerate(groups) if x == g]
+        for i, lp in zip(idx, _quantize_blocks([layers[i] for i in idx], "", mode)):
+            out[i] = lp
+    return out
+
+
+def quantize_params(params: Any, mode: str, *, groups=None) -> Any:
     """Quantize every matmul-weight leaf of a parameter tree.
 
     ``mode="off"`` returns the tree untouched.  Embeddings, lm_head and
     norm gains are kept full precision; everything else becomes a
     ``QuantLeaf``.  A list (``blocks``) is quantized as the reference's
-    stacked layer axis."""
+    stacked layer axis: one scale group of every layer, or, with
+    ``groups``, the scale group of each layer (None: not quantized)."""
     if mode == "off":
         return params
     if mode not in MODES:
@@ -140,6 +159,8 @@ def quantize_params(params: Any, mode: str) -> Any:
         if isinstance(node, dict):
             return {k: rec(v, k) for k, v in node.items()}
         if isinstance(node, list):
+            if groups is not None:
+                return _quantize_groups(node, groups, mode)
             return _quantize_blocks(node, key, mode) if node else []
         if _skip(key, node):
             return node

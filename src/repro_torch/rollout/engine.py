@@ -2,13 +2,15 @@
 package's ``rollout/engine.py``.
 
 The engine holds a fixed number of decode *slots*, each owning one row of a
-statically shaped cache: a dense KV cache (``attention.KVCache``) or a
-recurrent state (``rwkv6.RWKVState``).  ADD claims the first free slot and
+statically shaped cache: a dense KV cache (``attention.KVCache``), a
+recurrent state (``rwkv6.RWKVState``) or both (the hybrid's
+``transformer.HybridCache``).  ADD claims the first free slot and
 prefills the prompt into that row; every ``step()`` advances ALL slots by
 one token in one forward (inactive rows are computed and discarded, and
 their positions keep advancing, as in the reference); finish/ABORT releases
 the slot.  This is the LLMProxy's step-wise inference contract (§4.2).  It
-serves every ported family, the ones without paged KV (RWKV-6) included.
+serves every ported family, the ones without paged KV (RWKV-6,
+RecurrentGemma) included.
 
 What differs from the JAX engine is how a step runs:
 
@@ -22,11 +24,13 @@ What differs from the JAX engine is how a step runs:
 * Sampling draws from a ``torch.Generator`` seeded with ``seed``; tokens
   under temperature > 0 differ from ``jax.random``'s.
 * ``attn_impl``: "kernel" (the hand-written decode-attention kernel of
-  dense decode steps, the WKV scan kernel of every RWKV-6 forward) or
-  "ref" (their plain versions).  Dense prefill runs plain attention in
-  both, as in the reference.
+  dense and hybrid decode steps, the WKV scan kernel of every RWKV-6
+  forward, the RG-LRU scan kernel of every hybrid forward) or "ref" (their
+  plain versions).  Prefill attention runs plain attention in both, as in
+  the reference.
 * Quantize-on-sync (``quant_mode`` int8 / fp8): the engine holds the codes
-  and the forwards dequantize one layer at a time inside their layer loop.
+  (in the reference's scale groups, ``transformer.block_groups``) and the
+  forwards dequantize one layer at a time inside their layer loop.
 
 Implements ``repro_torch.core.llm_proxy.InferenceEngine``.
 """
@@ -40,6 +44,7 @@ import torch
 
 from repro_torch.core.types import GenerationResult
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer
 from repro_torch.models.api import ModelAPI
 from repro_torch.quant import core as quant
 from repro_torch.rollout.sampler import sample_tokens
@@ -58,10 +63,13 @@ def _check_mode(kind: str, mode: str, known) -> None:
 
 
 def _reset_rows(cache) -> None:
-    """An empty row, as ``init_cache`` makes it: positions -1, the rest 0."""
+    """An empty row, as ``init_cache`` makes it: positions -1, the rest 0
+    (every part of a ``HybridCache``)."""
     for name, t in cache._asdict().items():
         if isinstance(t, torch.Tensor):
             t.fill_(-1 if name == "pos" else 0)
+        elif hasattr(t, "_asdict"):
+            _reset_rows(t)
 
 
 class DecodeEngine:
@@ -90,7 +98,7 @@ class DecodeEngine:
         # quantize-on-sync: the trainer's tree is quantized HERE, at
         # construction and on every update_weights
         self.quant_mode = quant_mode
-        self.params = self._checked(quant.quantize_params(params, quant_mode))
+        self.params = self._quantized(params)
         self.num_slots = num_slots
         self.max_total_len = max_total_len
         self.eos_id = eos_id
@@ -112,7 +120,9 @@ class DecodeEngine:
         self.total_decode_steps = 0
         self.total_tokens_decoded = 0
 
-    def _checked(self, params):
+    def _quantized(self, params):
+        params = quant.quantize_params(params, self.quant_mode,
+                                       groups=transformer.block_groups(self.api.cfg))
         # embed is never quantized: its device is the tree's
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine on "
@@ -144,7 +154,7 @@ class DecodeEngine:
         self.quant_mode = mode
 
     def update_weights(self, params) -> None:
-        self.params = self._checked(quant.quantize_params(params, self.quant_mode))
+        self.params = self._quantized(params)
 
     def add_request(self, request_id: int, prompt_tokens, max_new_tokens: int) -> None:
         assert self.num_free_slots > 0, "no free slot"

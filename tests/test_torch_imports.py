@@ -45,7 +45,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "        'repro_torch.kernels.rwkv6_scan', 'repro_torch.data',\n"
         "        'repro_torch.data.dataset', 'repro_torch.rewards',\n"
         "        'repro_torch.rewards.verifier', 'repro_torch.eval',\n"
-        "        'repro_torch.eval.passk'} <= set(names), names\n"
+        "        'repro_torch.eval.passk', 'repro_torch.models.rglru',\n"
+        "        'repro_torch.kernels.rglru_scan'} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -126,10 +127,12 @@ def test_engine_refuses_modes_not_ported(kw, exc):
 
 def test_other_families_are_not_ported_yet():
     from repro_torch.models import get_api
-    for arch in ("recurrentgemma-9b", "qwen3-moe-235b-a22b"):
+    for arch in ("qwen3-moe-235b-a22b", "paligemma-3b"):
         cfg = ModelConfig(**dataclasses.asdict(tiny(arch)))
         with pytest.raises(NotImplementedError):
             get_api(cfg, device="cpu")
-    # the RWKV-6 family is ported (slot engine only: no paged views)
-    api = get_api(ModelConfig(**dataclasses.asdict(tiny("rwkv6-3b"))), device="cpu")
-    assert api.prefill is not None and api.init_paged_cache is None
+    # the RWKV-6 and RecurrentGemma families are ported (slot engine only:
+    # no paged views)
+    for arch in ("rwkv6-3b", "recurrentgemma-9b"):
+        api = get_api(ModelConfig(**dataclasses.asdict(tiny(arch))), device="cpu")
+        assert api.prefill is not None and api.init_paged_cache is None

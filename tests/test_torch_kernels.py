@@ -1,7 +1,7 @@
 """The port's decode kernels' plain versions against the JAX package's
 Pallas kernels (interpret mode) and their plain oracles, on the same
-inputs: paged decode attention, dense-cache decode attention and the RWKV-6
-WKV scan.
+inputs: paged decode attention, dense-cache decode attention, the RWKV-6
+WKV scan and the RG-LRU scan.
 
 On the CPU the wrapper runs the plain version; the CUDA kernel itself is
 held to the plain version by the ``cuda``-marked tests (on the card) and by
@@ -14,11 +14,13 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jax_decode_attention
+from repro.kernels.rglru_scan import rglru_scan as jax_rglru_scan
 from repro.kernels.rwkv6_scan import rwkv6_scan as jax_rwkv6_scan
 from repro.kernels.paged_decode_attention import (
     paged_decode_attention as jax_paged_decode_attention)
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.kernels import rglru_scan as lru
 from repro_torch.kernels import rwkv6_scan as wkv
 from repro_torch.kernels import ref
 
@@ -269,6 +271,58 @@ def test_scan_kernel_checks_refuse_what_the_kernel_does_not_take(kw, exc):
                    torch.zeros(2, 2, a["d"], a["d"], dtype=a["state_dtype"]))
 
 
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def _lru_inputs(seed, b, t, w):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.01, 0.99, size=(b, t, w)).astype(np.float32)
+    bb = (rng.normal(size=(b, t, w)) * 0.5).astype(np.float32)
+    h0 = (rng.normal(size=(b, w)) * 0.5).astype(np.float32)
+    return a, bb, h0
+
+
+def test_rglru_scan_matches_the_pallas_kernel_and_the_oracle():
+    arrays = _lru_inputs(0, 2, 64, 64)
+    hs, h_last = lru.rglru_scan(*(torch.from_numpy(x) for x in arrays))
+    jx = [jnp.asarray(x) for x in arrays]
+    for jhs, jlast in (jax_rglru_scan(*jx, block_t=32, block_w=32, interpret=True),
+                       jref.rglru_scan_ref(*jx)):
+        _close(jhs, hs, "float32")
+        _close(jlast, h_last, "float32")
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(a_dtype=torch.float16), TypeError),
+    (dict(h0_dtype=torch.bfloat16), TypeError),
+    (dict(t=0), ValueError),
+    (dict(b_shape=(2, 3, 8)), ValueError),           # b unlike a
+    (dict(h0_shape=(2, 8)), ValueError),             # h0 not (B, W)
+    (dict(a_ndim=2), ValueError),
+    (dict(strided_w=True), ValueError),               # width axis not contiguous
+])
+def test_rglru_kernel_checks_refuse_what_the_kernel_does_not_take(kw, exc):
+    a = dict(a_dtype=torch.float32, h0_dtype=torch.float32, t=3, b_shape=None,
+             h0_shape=(2, 16), a_ndim=3, strided_w=False)
+    a.update(kw)
+    x = torch.zeros(2, a["t"], 32)[..., ::2] if a["strided_w"] else torch.zeros(2, a["t"], 16)
+    av = x.to(a["a_dtype"]) if a["a_ndim"] == 3 else x[:, 0].to(a["a_dtype"])
+    bv = torch.zeros(a["b_shape"]) if a["b_shape"] else x
+    with pytest.raises(exc):
+        lru._check(av, bv, torch.zeros(a["h0_shape"], dtype=a["h0_dtype"]))
+
+
+def test_rglru_scan_refuses_inputs_that_need_a_gradient():
+    """No backward kernel (nor had the TPU's): the wrapper raises under
+    autograd on every device, the CPU's plain version included."""
+    a, bb, h0 = (torch.from_numpy(x) for x in _lru_inputs(1, 1, 4, 8))
+    with pytest.raises(RuntimeError, match="no backward"):
+        lru.rglru_scan(a.requires_grad_(), bb, h0)
+    with torch.no_grad():
+        lru.rglru_scan(a, bb, h0)
+
+
 def test_new_wrappers_refuse_devices_other_than_cpu_and_cuda():
     q = torch.zeros(1, 4, 64, device="meta")
     k = torch.zeros(1, 16, 2, 64, device="meta")
@@ -278,6 +332,9 @@ def test_new_wrappers_refuse_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError, match="device"):
         wkv.rwkv6_scan(x, x, x, x, torch.zeros(2, 32, device="meta"),
                        torch.zeros(1, 2, 32, 32, device="meta"))
+    a = torch.zeros(1, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        lru.rglru_scan(a, a, torch.zeros(1, 32, device="meta"))
 
 
 @pytest.fixture
@@ -397,3 +454,21 @@ def test_cuda_scan_kernel_refuses_inputs_that_need_a_gradient(cuda_device):
     with pytest.raises(RuntimeError, match="no backward"):
         wkv.rwkv6_scan(r, k, v, w.requires_grad_(), u, s0)
     assert wkv.rwkv6_scan.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,w", [(1, 512, 4096), (16, 1, 4096), (3, 300, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rglru_kernel_matches_plain_version(cuda_device, b, t, w, dtype):
+    a, bb, h0 = _lru_inputs(10, b, t, w)
+    tdt = DTYPES[dtype][1]
+    ta, tb = (torch.from_numpy(x).to(cuda_device, tdt) for x in (a, bb))
+    th0 = torch.from_numpy(h0).to(cuda_device)
+    before = lru.rglru_scan.launches
+    hs, h_last = lru.rglru_scan(ta, tb, th0)
+    torch.cuda.synchronize()
+    assert lru.rglru_scan.launches == before + 1
+    want_hs, want_last = ref.rglru_scan_ref(ta, tb, th0)
+    # fp32 arithmetic on both sides (bf16 inputs are widened exactly)
+    torch.testing.assert_close(hs, want_hs, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(h_last, want_last, rtol=2e-5, atol=2e-5)
