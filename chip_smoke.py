@@ -14,16 +14,24 @@ no result):
    the plain version, the bound and one PyTorch library call.  The paged
    decode kernel: the serving shape, a softcap case and a small odd shape,
    for fp/bf16 pools and for int8 pools with scales (made by the port's
-   ``quantize_kv``; a fully masked row and a length-0 row).  Flash
-   attention, forward (O, lse) and backward (dQ, dK, dV): the trainer's
-   shape (B=8, H=16, KV=8, S=512, D=128) in bf16 and fp32, and an odd one
-   (S=300, G=4, D=64, window 128, softcap 30).
+   ``quantize_kv``; a fully masked row and a length-0 row), and
+   H2O-Danube-3's head_dim 120 for both pools.  Flash attention, forward
+   (O, lse) and backward (dQ, dK, dV): the trainer's shape (B=8, H=16,
+   KV=8, S=512, D=128) in bf16 and fp32, an odd one (S=300, G=4, D=64,
+   window 128, softcap 30), G x D = 2,048 (H=32 over KV=2), PaliGemma's
+   group (G=8, D=256) and head_dim 120 (window 128, softcap 30) in bf16
+   and fp32; the bf16 kernels must show tensor-core MMAs (HMMA) in their
+   SASS, and the build's registers and spills are printed.
 4. ``model``: full-width Qwen3-4B in fp32, the same requests through two
    engines sharing one set of weights, ``attn_impl="kernel"`` and ``"ref"``,
    with a full-precision and with an int8 KV pool: greedy tokens must
    match.  Then quantize-on-sync: an engine with ``quant_mode`` int8 / fp8
    must decode exactly the tokens of an unquantized engine given the
-   weights quantized and dequantized up front.
+   weights quantized and dequantized up front.  ``model_danube``:
+   full-width H2O-Danube-3-4B (head_dim 120) cut to 4 layers, fp32 kernel
+   against ref through ``PagedDecodeEngine`` (both pools) and the slot
+   ``DecodeEngine``, then one bf16 train step through the flash kernels
+   (finite loss, one forward and one backward launch per layer).
 5. ``serve``: the slice-1 main path — full-width Qwen3-4B in bf16 behind
    ``LLMProxy`` over ``PagedDecodeEngine`` (prefix cache on, 16 slots),
    serving a seeded mix of rollout tasks.  Every callback must fire, the
@@ -39,9 +47,9 @@ no result):
    ``kernels`` also holds the dense decode-attention kernel (Qwen3-4B's
    serve shape B=16, H=32, KV=8, D=128, S=1024 with ragged lengths 1, S
    and > S; an odd S=300, G=4, D=64, window 128 with a length-0 row; bf16
-   and fp32) and the WKV scan (RWKV-6 3B's prefill B=1, T=512, H=40, D=64
-   and decode B=16, T=1 shapes, an odd T=300, D=32; bf16 r/k/v with fp32
-   w, and all fp32) to their plain versions; the scan must refuse inputs
+   and fp32; head_dim 120) and the WKV scan (RWKV-6 3B's prefill B=1,
+   T=512, H=40, D=64 and decode B=16, T=1 shapes, an odd T=300, D=32; bf16
+   r/k/v with fp32 w, and all fp32) to their plain versions; the scan must refuse inputs
    that need a gradient.  ``model_slot``: fp32 full-width Qwen3-4B and
    RWKV-6 3B, slot engines with ``attn_impl="kernel"`` against ``"ref"``
    (greedy tokens; for RWKV-6 also the per-layer and accumulated logit
@@ -130,6 +138,9 @@ SERVE = dict(num_slots=16, max_total_len=1024, page_size=16, prefill_chunk=128)
 SERVE_SLOT = dict(num_slots=16, max_total_len=1024, prefill_bucket=16)
 MAX_NEW = 64
 DEVICE = "cuda"
+# head_dim 120 through every attention kernel (full width, cut to 4 layers)
+DANUBE_ARCH = "h2o-danube-3-4b"
+DANUBE_LAYERS = 4
 # the trainer the slice-3 main path runs (Qwen3-1.7B at full width and depth)
 TRAIN_ARCH = "qwen3-1.7b"
 TRAIN = dict(slots=16, max_seq_len=512, prompts=4, group=4, max_new=64, rounds=3)
@@ -332,7 +343,8 @@ def _kernel_row(name, main, page_size, variant):
             "library_call": "F.scaled_dot_product_attention(enable_gqa=True) on a bf16 "
                             "dense view gathered (and dequantized) beforehand, not timed",
             "shape": f"B={b} H={h} KV={kv} D={d} page={page_size} "
-                     f"P={tables.shape[1]} bf16 q, {pool}"}
+                     f"P={tables.shape[1]} bf16 q, {pool}",
+            "registers": _ptxas_registers("paged_decode_attention")}
 
 
 def phase_kernels() -> list:
@@ -356,6 +368,10 @@ def phase_kernels() -> list:
         ("slice_int8_fp32q", b, h, kv, d, page_size, p, fp32, None, True),
         ("softcap_int8_fp32q", b, h, kv, d, page_size, p, fp32, 30.0, True),
         ("odd_int8_bf16q", 3, 12, 3, 64, 8, 5, bf16, None, True),
+        # H2O-Danube-3's head_dim 120 (32 heads, 8 KV heads): the D=128
+        # instance with the last lanes' tail idle; int8 rows 8-byte aligned
+        ("d120_bf16", 4, 32, 8, 120, page_size, 8, bf16, None, False),
+        ("d120_int8_bf16q", 4, 32, 8, 120, page_size, 8, bf16, None, True),
     ]
     main = {}
     for label, bb, hh, kvv, dd, ps, pp, dtype, softcap, int8 in cases:
@@ -459,10 +475,35 @@ def _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap):
     return (q, k, v, do, o, lse, grads, errs)
 
 
+def _sass_hmma(name: str) -> dict:
+    """{kernel function: count of HMMA (tensor-core MMA) instructions} in the
+    SASS of ``csrc/<name>.cu``'s built library (``cuobjdump -sass``)."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build._target(build.sources()[name]))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = 0
+        elif fn and "HMMA" in line:
+            out[fn] += 1
+    return out
+
+
 def phase_flash_kernels() -> list:
-    """Flash forward and backward at the trainer's shape (Qwen3-1.7B: B=8,
-    H=16, KV=8, S=512, D=128) in bf16 and fp32, and at an odd shape; then
-    the times of the bf16 trainer-shape case."""
+    """Flash forward and backward against the plain versions: the trainer's
+    shape (Qwen3-1.7B: B=8, H=16, KV=8, S=512, D=128) in bf16 and fp32, an
+    odd shape (S=300, G=4, D=64, window 128, softcap 30), a group of 16
+    (G x D = 2,048), PaliGemma's group (G=8, D=256) and H2O-Danube-3's
+    head_dim 120 (window 128, softcap 30) in bf16 and fp32.  The bf16
+    kernels must compute with tensor-core MMAs (HMMA in their SASS);
+    registers and spills from the build's report.  Then the times of the
+    bf16 trainer-shape case."""
     torch = _torch()
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -475,10 +516,20 @@ def phase_flash_kernels() -> list:
             ("train_bf16", 8, 16, 8, 512, 128, bf16, None, None),
             ("train_fp32", 8, 16, 8, 512, 128, fp32, None, None),
             ("odd_bf16", 2, 16, 4, 300, 64, bf16, 128, 30.0),
-            ("odd_fp32", 2, 16, 4, 300, 64, fp32, 128, 30.0)]:
+            ("odd_fp32", 2, 16, 4, 300, 64, fp32, 128, 30.0),
+            ("gqa16_bf16", 1, 32, 2, 512, 128, bf16, None, None),
+            ("g8d256_bf16", 1, 8, 1, 512, 256, bf16, None, None),
+            ("d120_bf16", 2, 32, 8, 300, 120, bf16, 128, 30.0),
+            ("d120_fp32", 2, 32, 8, 300, 120, fp32, 128, 30.0)]:
         case = _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap)
         if label == "train_bf16":
             main = case
+    registers = _ptxas_registers("flash_attention")
+    hmma = _sass_hmma("flash_attention")
+    emit("kernels", kernel="flash_attention", case="build", registers=registers, hmma=hmma)
+    tensor_core = {fn: n for fn, n in hmma.items() if "_bf16_kernel" in fn}
+    if len(tensor_core) < 3 or not all(tensor_core.values()):
+        raise AssertionError(f"flash_attention: bf16 kernels without HMMA: {tensor_core}")
     q, k, v, do, o, lse, _, errs = main
     b, h, s, d = q.shape
     kv = k.shape[1]
@@ -504,15 +555,19 @@ def phase_flash_kernels() -> list:
              max(errs["dq"], errs["dk"], errs["dv"]),
              "torch.autograd.grad through one SDPA forward (its backward alone)")]:
         bound_ms, bound_by, detail = _flash_bound(q, k, None, backward)
+        kind = "flash_bwd" if backward else "flash_fwd"
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention.py:108",
-                     "variant": "backward: delta, dK/dV and dQ kernels (the TPU had none)"
-                                if backward else "forward, O and lse",
+                     "variant": ("backward: delta, dK/dV and dQ kernels (the TPU had none); "
+                                 if backward else "forward, O and lse; ")
+                                + "bf16 on tensor cores (mma.sync m16n8k16), fp32 on CUDA cores",
                      "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                      "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_detail": detail, "library_ms": lib, "library_call": call,
-                     "shape": shape})
+                     "shape": shape,
+                     "registers": {fn: r for fn, r in registers.items() if kind in fn},
+                     "hmma": {fn: n for fn, n in hmma.items() if kind in fn}})
     for row in rows:
         emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
     return rows
@@ -598,7 +653,10 @@ def phase_slot_kernels() -> list:
             ("serve_bf16", 16, 32, 8, 1024, 128, bf16, None, [1, 1024, 1100]),
             ("serve_fp32", 16, 32, 8, 1024, 128, fp32, None, [1, 1024, 1100]),
             ("odd_bf16", 3, 8, 2, 300, 64, bf16, 128, [0, 1, 320]),
-            ("odd_fp32", 3, 8, 2, 300, 64, fp32, 128, [0, 1, 320])]:
+            ("odd_fp32", 3, 8, 2, 300, 64, fp32, 128, [0, 1, 320]),
+            # H2O-Danube-3's head_dim 120 (32 heads, 8 KV heads)
+            ("d120_bf16", 4, 32, 8, 1024, 120, bf16, None, [1, 1024, 1100]),
+            ("d120_fp32", 3, 32, 8, 300, 120, fp32, 128, [0, 1, 320])]:
         q, k, v, lengths = dense_case(b, h, kv, s, d, dtype, fixed)
         out = decode_attention(q, k, v, lengths, window=window)
         torch.cuda.synchronize()
@@ -883,7 +941,8 @@ def _top2_gap(api, params, tokens) -> float:
     return float(top[0] - top[1])
 
 
-def _kernel_vs_ref(api, params, prompts, kv_quant: str, max_new: int) -> dict:
+def _kernel_vs_ref(api, params, prompts, kv_quant: str, max_new: int,
+                   phase: str = "model") -> dict:
     """Kernel vs plain decode attention at full width: the first decode
     step's logits on one shared pool, then greedy tokens through two
     engines.  A divergence is tolerated only at a near-tie of the top two
@@ -921,7 +980,8 @@ def _kernel_vs_ref(api, params, prompts, kv_quant: str, max_new: int) -> dict:
             step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
             gap = _top2_gap(api, params, list(prompt) + a[:step])
             divergences.append({"request": rid, "step": step, "top2_gap": gap})
-    emit("model", arch=ARCH, dtype="float32", kv_quant=kv_quant, check="kernel_vs_ref",
+    emit(phase, arch=api.cfg.arch_id, dtype="float32", kv_quant=kv_quant,
+         check="kernel_vs_ref",
          layers=api.cfg.num_layers, d_model=api.cfg.d_model,
          first_decode_logits_max_abs_diff=logit_diff, requests=len(prompts),
          max_new_tokens=max_new, tokens_identical=not divergences,
@@ -1120,7 +1180,7 @@ def _max_diffs(xs, ys) -> list:
     return [(x - y).abs().max().item() for x, y in zip(xs, ys)]
 
 
-def _slot_kernel_vs_ref(arch, api, params, prompts, max_new) -> None:
+def _slot_kernel_vs_ref(arch, api, params, prompts, max_new, phase=None) -> None:
     """The slot engine's kernel path against its plain one at full width:
     prefill and first decode logits, then greedy tokens through two engines
     sharing the weights.  Dense: a divergence is tolerated only at a top-2
@@ -1189,7 +1249,7 @@ def _slot_kernel_vs_ref(arch, api, params, prompts, max_new) -> None:
             step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
             gap = _top2_gap(api, params, list(prompt) + a[:step])
             divergences.append({"request": rid, "step": step, "top2_gap": gap})
-    emit("model_hybrid" if family == "hybrid" else "model_slot", arch=arch,
+    emit(phase or ("model_hybrid" if family == "hybrid" else "model_slot"), arch=arch,
          family=family, dtype="float32",
          check="kernel_vs_ref", layers=api.cfg.num_layers, d_model=api.cfg.d_model,
          max_abs_diff=diffs, requests=len(prompts), max_new_tokens=max_new,
@@ -1718,6 +1778,83 @@ def phase_serve_hybrid(scan_row: dict, decode_row: dict) -> None:
 # train: the GRPO trainer on engine rollouts (Qwen3-1.7B)
 # ---------------------------------------------------------------------------
 
+def _train_batch(vocab: int, rng, logprobs=None):
+    """4 rows of 512 tokens, 64 response tokens each at staggered offsets,
+    two rewarded; old/prox/ref log-probs are ``logprobs(tokens)`` (zeros
+    without) plus seeded noise."""
+    torch = _torch()
+    b, s = 4, 512
+    tokens = torch.from_numpy(rng.integers(3, vocab, (b, s)).astype("int32")).to(DEVICE)
+    mask = torch.zeros(b, s, device=DEVICE)
+    for i, lo in enumerate((128, 200, 256, 384)):
+        mask[i, lo:lo + 64] = 1.0
+    lp = logprobs(tokens) if logprobs else torch.zeros(b, s, device=DEVICE)
+    noise = torch.from_numpy(rng.normal(scale=0.1, size=(3, b, s)).astype("float32")).to(DEVICE)
+    rewards = torch.tensor([1.0, 0.0, 1.0, 0.0], device=DEVICE)
+    return {"tokens": tokens, "mask": mask,
+            "advantages": (rewards - 0.5)[:, None] * 2 * mask,
+            "old_logprobs": (lp + noise[0]) * mask, "prox_logprobs": (lp + noise[1]) * mask,
+            "ref_logprobs": (lp + noise[2]) * mask, "is_positive": rewards}
+
+
+def phase_model_danube() -> None:
+    """H2O-Danube-3-4B at full width (d_model 3840, 32 heads over 8 KV heads
+    of head_dim 120, d_ff 10240, vocab 32000, window 4096), cut to 4 layers:
+    head_dim 120 through every attention kernel on an entry point.  fp32:
+    4 requests through ``PagedDecodeEngine`` (an fp32 and an int8 KV pool)
+    and through the slot ``DecodeEngine``, ``attn_impl`` kernel against
+    ref, greedy tokens identical but at a top-2 gap below
+    ``DENSE_TOP2_TOL``.  bf16: one ``make_train_step`` through the flash
+    kernels: a finite loss and grad norm, exactly one forward and one
+    backward launch per layer."""
+    import dataclasses
+    import numpy as np
+    torch = _torch()
+    from repro_torch.algos import LossConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_api
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+
+    cfg = dataclasses.replace(get_config(DANUBE_ARCH), dtype="float32",
+                              num_layers=DANUBE_LAYERS)
+    api = get_api(cfg, device=DEVICE)
+    params = api.init(SEED)
+    rng = np.random.default_rng(SEED + 70)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 100, 180, 250)]
+    max_new = 16
+    for kv_quant in ("off", "int8"):
+        _kernel_vs_ref(api, params, prompts, kv_quant, max_new, phase="model_danube")
+    _slot_kernel_vs_ref(DANUBE_ARCH, api, params, prompts, max_new, phase="model_danube")
+    del params, api
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    api = get_api(cfg, device=DEVICE)
+    params = api.init(SEED)
+    batch = _train_batch(cfg.vocab_size, rng)
+    step = make_train_step(api, LossConfig(pg_variant="decoupled_ppo", kl_beta=1e-3),
+                           OptConfig(learning_rate=1e-3, warmup_steps=2), attn_impl="kernel")
+    fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
+    state, metrics = step({"params": params, "opt": init_opt_state(params)}, batch)
+    torch.cuda.synchronize()
+    launches = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd)
+    loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    emit("model_danube", arch=DANUBE_ARCH, dtype="bfloat16", layers=cfg.num_layers,
+         d_model=cfg.d_model, head_dim=cfg.resolved_head_dim, check="train_step",
+         batch=list(batch["tokens"].shape), loss=loss, grad_norm=grad_norm,
+         flash_launches=list(launches))
+    if launches != (cfg.num_layers, cfg.num_layers):
+        raise AssertionError(f"model_danube: flash launches {launches}, expected "
+                             f"{(cfg.num_layers, cfg.num_layers)}")
+    if not (np.isfinite(loss) and np.isfinite(grad_norm) and grad_norm > 0):
+        raise AssertionError(f"model_danube: loss {loss}, grad norm {grad_norm}")
+    del params, state, api
+    torch.cuda.empty_cache()
+
+
 def _rel_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
@@ -1742,18 +1879,10 @@ def phase_train_model() -> None:
     api = get_api(cfg, device=DEVICE)
     params = api.init(SEED)
     rng = np.random.default_rng(SEED + 20)
-    b, s = 4, 512
-    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s)).astype(np.int32)).to(DEVICE)
-    mask = torch.zeros(b, s, device=DEVICE)
-    for i, lo in enumerate((128, 200, 256, 384)):
-        mask[i, lo:lo + 64] = 1.0
-    lp = make_logprob_fn(api, attn_impl="ref")(params, {"tokens": tokens})
-    noise = torch.from_numpy(rng.normal(scale=0.1, size=(3, b, s)).astype(np.float32)).to(DEVICE)
-    rewards = torch.tensor([1.0, 0.0, 1.0, 0.0], device=DEVICE)
-    batch = {"tokens": tokens, "mask": mask,
-             "advantages": (rewards - 0.5)[:, None] * 2 * mask,
-             "old_logprobs": (lp + noise[0]) * mask, "prox_logprobs": (lp + noise[1]) * mask,
-             "ref_logprobs": (lp + noise[2]) * mask, "is_positive": rewards}
+    logprob_fn = make_logprob_fn(api, attn_impl="ref")
+    batch = _train_batch(cfg.vocab_size, rng,
+                         lambda tokens: logprob_fn(params, {"tokens": tokens}))
+    b, s = batch["tokens"].shape
     loss_cfg = LossConfig(pg_variant="decoupled_ppo", kl_beta=1e-3)
     opt_cfg = OptConfig(learning_rate=1e-2, warmup_steps=2, weight_decay=0.1, eps=1e-3)
     out = {}
@@ -2114,6 +2243,7 @@ def main() -> int:
         rows[4].update(decode_extra)
         rows.append(scan_row)
         phase_model()
+        phase_model_danube()
         phase_model_slot()
         phase_serve_quant(rows[1], phase_serve(rows[0]))
         api, params = phase_serve_slot(rows[4], ARCH, "decode_attention")

@@ -11,6 +11,12 @@
 //   lengths  (B,)  int32     valid entries: positions 0..len-1
 //   out      (B, H, D)       q's dtype
 //
+// head_dim is any multiple of 8 up to 256: the kernel is instantiated at
+// the next of 32, 64, 128, 256 and takes the true head_dim at run time.
+// Columns past it are zeros in the shared tiles and in q, and the lanes
+// that hold them store nothing (the lane loop's bound), so D=120 runs the
+// D=128 instance with the tail of the last lanes idle.
+//
 // Semantics are those of the TPU kernel and of `decode_attention_ref`:
 // fp32 scores with the 1/sqrt(D) scale applied to q, position p valid iff
 // p < len (and p >= len - window with a window), masked scores -1e30, fp32
@@ -98,7 +104,8 @@ struct Vec16<__nv_bfloat16> {
 template <typename T, int D>
 __global__ void decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const int* __restrict__ lengths,
-                              T* __restrict__ out, int num_heads, int num_kv, int seq_len,
+                              T* __restrict__ out, int num_heads, int num_kv, int head_dim,
+                              int seq_len,
                               long long stride_b, long long stride_s, long long stride_h,
                               int window, float scale) {
   constexpr int EPL = D / 32;          // head_dim elements per lane
@@ -128,8 +135,9 @@ __global__ void decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       acc[i][e] = 0.f;
-      qr[i][e] = g < group
-                     ? to_float(q[((long long)b * num_heads + kvh * group + g) * D + lane + 32 * e]) *
+      qr[i][e] = g < group && lane + 32 * e < head_dim
+                     ? to_float(q[((long long)b * num_heads + kvh * group + g) * head_dim + lane +
+                                  32 * e]) *
                            scale
                      : 0.f;
     }
@@ -154,9 +162,11 @@ __global__ void decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int t = i / VPR;
       const int c = (i - t * VPR) * VN;
       const long long off = base + (long long)(t0 + t) * stride_s + c;
-      float kr[VN], vr[VN];
-      Vec16<T>::load(k + off, kr);
-      Vec16<T>::load(v + off, vr);
+      float kr[VN] = {}, vr[VN] = {};   // zeros past head_dim
+      if (c < head_dim) {
+        Vec16<T>::load(k + off, kr);
+        Vec16<T>::load(v + off, vr);
+      }
 #pragma unroll
       for (int e = 0; e < VN; e += 4) {
         store4(kr + e, k_tile + t * D + c + e);
@@ -203,9 +213,10 @@ __global__ void decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int g = warp + i * nwarps;
     if (g >= group) break;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((long long)b * num_heads + kvh * group + g) * D;
+    T* o = out + ((long long)b * num_heads + kvh * group + g) * head_dim;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) store(acc[i][e] / denom, o + lane + 32 * e);
+    for (int e = 0; e < EPL; ++e)
+      if (lane + 32 * e < head_dim) store(acc[i][e] / denom, o + lane + 32 * e);
   }
 }
 
@@ -215,7 +226,7 @@ struct Args {
   const void* v;
   const void* lengths;
   void* out;
-  int batch, num_heads, num_kv, seq_len;
+  int batch, num_heads, num_kv, head_dim, seq_len;
   long long stride_b, stride_s, stride_h;
   int window;
   float scale;
@@ -238,30 +249,26 @@ int launch(const Args& a) {
   kernel<<<dim3(a.batch, a.num_kv), nwarps * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const int*>(a.lengths), static_cast<T*>(a.out), a.num_heads, a.num_kv,
-      a.seq_len, a.stride_b, a.stride_s, a.stride_h, a.window, a.scale);
+      a.head_dim, a.seq_len, a.stride_b, a.stride_s, a.stride_h, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
+// The instance for head_dim: the next of 32, 64, 128, 256 (any multiple
+// of 8 up to 256).
 template <typename T>
 int dispatch_head_dim(int head_dim, const Args& a) {
-  switch (head_dim) {
-    case 32:
-      return launch<T, 32>(a);
-    case 64:
-      return launch<T, 64>(a);
-    case 128:
-      return launch<T, 128>(a);
-    case 256:
-      return launch<T, 256>(a);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (head_dim < 8 || head_dim > 256 || head_dim % 8) return (int)cudaErrorInvalidValue;
+  if (head_dim <= 32) return launch<T, 32>(a);
+  if (head_dim <= 64) return launch<T, 64>(a);
+  if (head_dim <= 128) return launch<T, 128>(a);
+  return launch<T, 256>(a);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  Strides of k and v
 // (equal) are in elements; their last (head_dim) stride must be 1.
+// head_dim: a multiple of 8 up to 256.
 // window <= 0 means none.  Returns cudaGetLastError() after the launch
 // (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
@@ -270,7 +277,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 long long stride_b, long long stride_s, long long stride_h,
                                 int window, float scale, void* stream) {
   const Args a{q,        k,        v,        lengths,  out,    batch,
-               num_heads, num_kv,  seq_len,  stride_b, stride_s, stride_h,
+               num_heads, num_kv,  head_dim, seq_len,  stride_b, stride_s, stride_h,
                window,   scale,    static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_head_dim<float>(head_dim, a);
   if (dtype == 1) return dispatch_head_dim<__nv_bfloat16>(head_dim, a);

@@ -15,6 +15,12 @@
 //   lengths      (B,)   int32         tokens written so far
 //   out          (B, H, D)            q's dtype
 //
+// head_dim is any multiple of 8 up to 256: the kernel is instantiated at
+// the next of 32, 64, 128, 256 and takes the true head_dim at run time.
+// Columns past it are zeros in the shared tiles and in q, and the lanes
+// that hold them store nothing (the lane loop's bound), so D=120 runs the
+// D=128 instance with the tail of the last lanes idle.
+//
 // int8 pools (the TPU kernel's `quantized=True`): each code row is widened
 // to fp32 and multiplied by its (slot, kv-head) scale as it lands in the
 // shared-memory tile, so QK^T and PV see k * k_scale and v * v_scale in
@@ -31,7 +37,8 @@
 // the softmax state in scratch; here one thread block owns one
 // (sequence, KV head) and loops over the pages itself.  Per page, the whole
 // block loads that page's (page, D) K and V tiles for its KV head into
-// shared memory with 16-byte loads, once for all G query heads of the group
+// shared memory with 16-byte loads (8-byte for int8 rows whose head_dim is
+// not a multiple of 16), once for all G query heads of the group
 // (the GQA saving).  Each warp then runs the online-softmax update for one
 // query head (or several, when G exceeds the warps): each lane holds D/32
 // elements of q and of the fp32 accumulator, and dot products are reduced
@@ -70,12 +77,12 @@ __device__ __forceinline__ void store4(const float* x, float* dst) {
   *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
-// One 16-byte vector of T, widened to floats (into registers).
-template <typename T>
-struct Vec16;
+// One vector of BYTES bytes of T, widened to floats (into registers).
+template <typename T, int BYTES>
+struct Vec;
 
 template <>
-struct Vec16<float> {
+struct Vec<float, 16> {
   static constexpr int N = 4;
   __device__ __forceinline__ static void load(const float* src, float* dst) {
     const float4 x = *reinterpret_cast<const float4*>(src);
@@ -87,7 +94,7 @@ struct Vec16<float> {
 };
 
 template <>
-struct Vec16<__nv_bfloat16> {
+struct Vec<__nv_bfloat16, 16> {
   static constexpr int N = 8;
   __device__ __forceinline__ static void load(const __nv_bfloat16* src, float* dst) {
     const uint4 raw = *reinterpret_cast<const uint4*>(src);
@@ -102,7 +109,7 @@ struct Vec16<__nv_bfloat16> {
 };
 
 template <>
-struct Vec16<int8_t> {
+struct Vec<int8_t, 16> {
   static constexpr int N = 16;
   __device__ __forceinline__ static void load(const int8_t* src, float* dst) {
     const int4 raw = *reinterpret_cast<const int4*>(src);
@@ -116,22 +123,42 @@ struct Vec16<int8_t> {
   }
 };
 
-// Tq: q and out; Tpool: the pages; QUANT: int8 pages with fp32 scales.
-template <typename Tq, typename Tpool, bool QUANT, int D>
+// int8 rows of a head_dim that is a multiple of 8 but not of 16 (120) are
+// 8-byte aligned only: their codes move 8 at a time.
+template <>
+struct Vec<int8_t, 8> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const int8_t* src, float* dst) {
+    const int2 raw = *reinterpret_cast<const int2*>(src);
+    const int words[2] = {raw.x, raw.y};
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dst[4 * w + j] = static_cast<float>(static_cast<int8_t>(words[w] >> (8 * j)));
+    }
+  }
+};
+
+// Tq: q and out; Tpool: the pages; QUANT: int8 pages with fp32 scales; VB:
+// bytes per vector load of the pages (16, or 8 for int8 rows of 8 bytes'
+// alignment).
+template <typename Tq, typename Tpool, bool QUANT, int D, int VB>
 __global__ void paged_decode_kernel(const Tq* __restrict__ q, const Tpool* __restrict__ k_pages,
                                     const Tpool* __restrict__ v_pages,
                                     const float* __restrict__ k_scales,
                                     const float* __restrict__ v_scales,
                                     const int* __restrict__ block_tables,
                                     const int* __restrict__ lengths, Tq* __restrict__ out,
-                                    int num_heads, int num_kv, int pages_per_seq, int page_size,
+                                    int num_heads, int num_kv, int head_dim,
+                                    int pages_per_seq, int page_size,
                                     long long stride_page, long long stride_slot,
                                     long long stride_head, long long scale_stride_page,
                                     long long scale_stride_slot, long long scale_stride_head,
                                     float scale, float softcap) {
   constexpr int EPL = D / 32;          // head_dim elements per lane
-  constexpr int VN = Vec16<Tpool>::N;  // pool elements per 16-byte load
-  constexpr int VPR = D / VN;          // 16-byte loads per (slot, head) row
+  constexpr int VN = Vec<Tpool, VB>::N;  // pool elements per vector load
+  constexpr int VPR = D / VN;          // vector loads per (slot, head) row
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int group = num_heads / num_kv;
@@ -157,8 +184,9 @@ __global__ void paged_decode_kernel(const Tq* __restrict__ q, const Tpool* __res
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       acc[i][e] = 0.f;
-      qr[i][e] = g < group
-                     ? to_float(q[((long long)b * num_heads + kvh * group + g) * D + lane + 32 * e]) *
+      qr[i][e] = g < group && lane + 32 * e < head_dim
+                     ? to_float(q[((long long)b * num_heads + kvh * group + g) * head_dim + lane +
+                                  32 * e]) *
                            scale
                      : 0.f;
     }
@@ -178,9 +206,11 @@ __global__ void paged_decode_kernel(const Tq* __restrict__ q, const Tpool* __res
       const int t = i / VPR;
       const int c = (i - t * VPR) * VN;
       const long long off = base + t * stride_slot + c;
-      float kr[VN], vr[VN];
-      Vec16<Tpool>::load(k_pages + off, kr);
-      Vec16<Tpool>::load(v_pages + off, vr);
+      float kr[VN] = {}, vr[VN] = {};   // zeros past head_dim
+      if (c < head_dim) {
+        Vec<Tpool, VB>::load(k_pages + off, kr);
+        Vec<Tpool, VB>::load(v_pages + off, vr);
+      }
       if constexpr (QUANT) {
         const long long soff = scale_base + t * scale_stride_slot;
         const float ks = k_scales[soff];
@@ -239,9 +269,10 @@ __global__ void paged_decode_kernel(const Tq* __restrict__ q, const Tpool* __res
     const int g = warp + i * nwarps;
     if (g >= group) break;
     const float denom = fmaxf(l[i], 1e-30f);
-    Tq* o = out + ((long long)b * num_heads + kvh * group + g) * D;
+    Tq* o = out + ((long long)b * num_heads + kvh * group + g) * head_dim;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) store(acc[i][e] / denom, o + lane + 32 * e);
+    for (int e = 0; e < EPL; ++e)
+      if (lane + 32 * e < head_dim) store(acc[i][e] / denom, o + lane + 32 * e);
   }
 }
 
@@ -254,14 +285,14 @@ struct Args {
   const void* block_tables;
   const void* lengths;
   void* out;
-  int batch, num_heads, num_kv, pages_per_seq, page_size;
+  int batch, num_heads, num_kv, head_dim, pages_per_seq, page_size;
   long long stride_page, stride_slot, stride_head;
   long long scale_stride_page, scale_stride_slot, scale_stride_head;
   float scale, softcap;
   cudaStream_t stream;
 };
 
-template <typename Tq, typename Tpool, bool QUANT, int D>
+template <typename Tq, typename Tpool, bool QUANT, int D, int VB>
 int launch(const Args& a) {
   const int group = a.num_heads / a.num_kv;
   int nwarps = group < kMinWarps ? kMinWarps : group;
@@ -269,7 +300,7 @@ int launch(const Args& a) {
   if (group > nwarps * kMaxHeadsPerWarp) return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)2 * a.page_size * D + (size_t)nwarps * a.page_size);
-  auto kernel = paged_decode_kernel<Tq, Tpool, QUANT, D>;
+  auto kernel = paged_decode_kernel<Tq, Tpool, QUANT, D, VB>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -280,25 +311,28 @@ int launch(const Args& a) {
       static_cast<const Tpool*>(a.v_pages), static_cast<const float*>(a.k_scales),
       static_cast<const float*>(a.v_scales), static_cast<const int*>(a.block_tables),
       static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), a.num_heads, a.num_kv,
-      a.pages_per_seq, a.page_size, a.stride_page, a.stride_slot, a.stride_head,
+      a.head_dim, a.pages_per_seq, a.page_size, a.stride_page, a.stride_slot, a.stride_head,
       a.scale_stride_page, a.scale_stride_slot, a.scale_stride_head, a.scale, a.softcap);
   return (int)cudaGetLastError();
 }
 
+template <typename Tq, typename Tpool, bool QUANT, int VB>
+int dispatch_instance(int head_dim, const Args& a) {
+  if (head_dim <= 32) return launch<Tq, Tpool, QUANT, 32, VB>(a);
+  if (head_dim <= 64) return launch<Tq, Tpool, QUANT, 64, VB>(a);
+  if (head_dim <= 128) return launch<Tq, Tpool, QUANT, 128, VB>(a);
+  return launch<Tq, Tpool, QUANT, 256, VB>(a);
+}
+
+// The instance for head_dim: the next of 32, 64, 128, 256 (any multiple of
+// 8 up to 256); int8 rows not a multiple of 16 bytes load 8 bytes at a time.
 template <typename Tq, typename Tpool, bool QUANT>
 int dispatch_head_dim(int head_dim, const Args& a) {
-  switch (head_dim) {
-    case 32:
-      return launch<Tq, Tpool, QUANT, 32>(a);
-    case 64:
-      return launch<Tq, Tpool, QUANT, 64>(a);
-    case 128:
-      return launch<Tq, Tpool, QUANT, 128>(a);
-    case 256:
-      return launch<Tq, Tpool, QUANT, 256>(a);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (head_dim < 8 || head_dim > 256 || head_dim % 8) return (int)cudaErrorInvalidValue;
+  if constexpr (QUANT) {
+    if (head_dim % 16) return dispatch_instance<Tq, Tpool, QUANT, 8>(head_dim, a);
   }
+  return dispatch_instance<Tq, Tpool, QUANT, 16>(head_dim, a);
 }
 
 }  // namespace
@@ -306,6 +340,7 @@ int dispatch_head_dim(int head_dim, const Args& a) {
 // q_dtype: 0 = float32, 1 = bfloat16.  pool_dtype: q_dtype (k/v scales
 // unused, may be null), or 2 = int8 codes with fp32 k/v scales.  Strides
 // are in elements; the last (head_dim) stride of the pools must be 1.
+// head_dim: a multiple of 8 up to 256.
 // softcap <= 0 means none.  Returns cudaGetLastError() after the launch
 // (0 = launched).
 extern "C" int paged_decode_attention(
@@ -317,7 +352,7 @@ extern "C" int paged_decode_attention(
     long long scale_stride_head, float scale, float softcap, void* stream) {
   const Args a{q,           k_pages,     v_pages,     k_scales,          v_scales,
                block_tables, lengths,     out,         batch,             num_heads,
-               num_kv,      pages_per_seq, page_size, stride_page,       stride_slot,
+               num_kv,      head_dim,    pages_per_seq, page_size, stride_page,       stride_slot,
                stride_head, scale_stride_page, scale_stride_slot, scale_stride_head, scale,
                softcap,     static_cast<cudaStream_t>(stream)};
   if (q_dtype == 0 && pool_dtype == 0) return dispatch_head_dim<float, float, false>(head_dim, a);

@@ -13,6 +13,10 @@ K/V tile once for the G query heads of a KV head, and walks only the live
 keys ``[max(0, len - window), min(len, S))`` of each row: the TPU kernel's
 tiling without its dead tiles.  Lengths above S therefore count as S.
 
+head_dim is any multiple of 8 up to 256 (H2O-Danube-3's 120 among them):
+the kernel runs its instance at the next of 32, 64, 128, 256 with the true
+head_dim as an argument, the lanes past it idle.
+
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.
 """
@@ -26,7 +30,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
 _MAX_GROUP = 32          # 8 warps x 4 query heads per warp
 
 
@@ -49,9 +52,9 @@ def _check(q, k, v, lengths, window):
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)} "
                          "(k, v: (B, S, KV, D))")
     kv = k.shape[2]
-    if d not in _HEAD_DIMS:
+    if d % 8 or not 8 <= d <= 256:
         raise ValueError(f"decode_attention: head_dim {d} not supported "
-                         f"(one of {_HEAD_DIMS})")
+                         "(a multiple of 8 up to 256)")
     if h % kv or h // kv > _MAX_GROUP:
         raise ValueError(f"decode_attention: {h} heads over {kv} KV heads "
                          f"not supported (group <= {_MAX_GROUP})")

@@ -2,19 +2,38 @@
 sequence, forward and backward.
 
 Replaces the Pallas TPU kernel ``_flash_kernel`` behind
-``repro.kernels.flash_attention.flash_attention`` (forward only there: the
-JAX trainer differentiates plain ``attend``).  Here the trainer's attention
+``repro.kernels.flash_attention.flash_attention`` (``pallas_call`` at
+``src/repro/kernels/flash_attention.py:108``; forward only there: the JAX
+trainer differentiates plain ``attend``).  Here the trainer's attention
 runs through ``FlashAttention``, whose backward is a kernel too.  The CUDA
 kernels are ``src/repro_torch/csrc/flash_attention.cu``, built for
 ``sm_90a`` at first use (``kernels/build.py``) and called through
 ``ctypes``.
 
-What bounds it on an H100: at the trainer's shape the causal forward does
-~170 flops per byte of q/k/v/o, below bf16's ridge (~295), so its roofline
-bound is the bytes; this first version computes with fp32 FMAs on the CUDA
-cores from shared-memory tiles and is bound by those operations.  It skips
-every key tile outside the causal/window band and loads each K/V tile once
-for the G query heads of a group.  Tensor-core MMAs are later work.
+What bounds it on an H100: at the trainer's shape (B=8, H=16, KV=8, S=512,
+D=128, bf16) the causal forward does ~170 flops per byte of q/k/v/o, below
+bf16's ridge (~295), so its roofline bound is the bytes.
+
+Routes, by dtype and nothing else (no route falls back to another):
+
+* bfloat16: tensor cores.  ``mma.sync`` m16n8k16 (bf16 in, fp32
+  accumulate) on operands brought in by ``ldmatrix``, K/V tiles streamed
+  through a ``cp.async`` ring; P (and dS in the backward) rounded to bf16
+  in registers as the next product's operand, as the TPU kernel casts P to
+  ``v.dtype``.  ``mma.sync`` rather than ``wgmma``: bound by bytes, the
+  kernel needs the tensor cores fed, not wgmma's last third of peak, and
+  mma.sync builds in seconds through the nvcc + ctypes route.  A block
+  holds one query head, so any group size G is taken (DBRX's 6 x 128,
+  Qwen3-MoE's 16 x 128, PaliGemma's 8 x 256).
+* float32: the first version's fp32 FMAs on the CUDA cores, exact to the
+  fp32 gates (2e-5).  A block holds a whole KV group, so G x D <= 512 with
+  D the kernel's instance (64, 128 or 256).
+
+Both routes skip every key tile outside the causal/window band, and the
+backward (delta, dK/dV, dQ kernels) uses no atomics: it is deterministic.
+head_dim is any multiple of 8 up to 256 (H2O-Danube-3's 120 among them):
+the kernels run their instance at the next of 64, 128, 256 with the true
+head_dim as an argument.
 
 Layout: the public functions keep the JAX function's ``(B, H, S, D)`` /
 ``(B, KV, S, D)``, and the kernels read every tensor by its (batch, head,
@@ -35,10 +54,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
-# G * D: 128 threads per query head (at most 1024 a block), D/2 fp32
-# accumulators each; the forward's tiles then fit in shared memory
-_MAX_GROUP_DIM = 512
+# the kernels' instances: head_dim (a multiple of 8 up to 256) runs the next
+# one up, with loads past head_dim zero-filled and stores masked
+_HEAD_DIM_INSTANCES = (64, 128, 256)
+# float32 only: G x D (D the instance), 128 threads per query head of the
+# group in one block (at most 1024), D/2 fp32 accumulators each; the
+# forward's tiles then fit in shared memory.  bfloat16 has no such limit.
+_F32_MAX_GROUP_DIM = 512
 
 
 def _bind(lib: ctypes.CDLL):
@@ -65,10 +87,18 @@ def _check(q, k, v, causal, window, softcap):
     if k.shape != (b, kv, s, d) or v.shape != k.shape or kv == 0 or h % kv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} with k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if d not in _HEAD_DIMS or (h // kv) * d > _MAX_GROUP_DIM:
-        raise ValueError(f"flash_attention: head_dim {d} with group {h // kv} not "
-                         f"supported (head_dim in {_HEAD_DIMS}, group * head_dim <= "
-                         f"{_MAX_GROUP_DIM})")
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(f"flash_attention: head_dim {d} not supported (a "
+                         "multiple of 8 up to 256)")
+    instance = next(x for x in _HEAD_DIM_INSTANCES if x >= d)
+    if q.dtype == torch.float32 and (h // kv) * instance > _F32_MAX_GROUP_DIM:
+        raise ValueError(f"flash_attention: float32 with group {h // kv} x head_dim "
+                         f"{d} (instance {instance}) not supported: the float32 "
+                         f"route takes group * head_dim <= {_F32_MAX_GROUP_DIM} "
+                         "(bfloat16 takes any group)")
+    if b * h * s >= 2 ** 31:
+        raise ValueError(f"flash_attention: B * H * S = {b * h * s} rows (the kernels "
+                         "index rows in 32 bits)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} must be >= 1")
     if softcap is not None and softcap <= 0:

@@ -19,6 +19,12 @@ shared memory, so an int8 pool reads about half the bytes of a bf16 one).
 It keeps one page in flight per block; splitting long sequences across
 blocks and double-buffering the loads are later work.
 
+head_dim is any multiple of 8 up to 256 (H2O-Danube-3's 120 among them):
+the kernel runs its instance at the next of 32, 64, 128, 256 with the true
+head_dim as an argument.  Pool rows need 16-byte alignment, except int8
+rows whose head_dim is not a multiple of 16 (120 bytes): those move 8 bytes
+at a time and need 8.
+
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.
 """
@@ -33,7 +39,9 @@ from repro_torch.kernels.ref import paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_INT8 = 2
-_HEAD_DIMS = (32, 64, 128, 256)
+# the kernel's instances: head_dim (a multiple of 8 up to 256) runs the next
+# one up, its lanes past head_dim idle
+_HEAD_DIM_INSTANCES = (32, 64, 128, 256)
 _MAX_GROUP = 32          # 8 warps x 4 query heads per warp
 _MAX_SMEM = 232_448      # bytes of shared memory a block may use on Hopper
 _MAX_WARPS = 8
@@ -85,23 +93,26 @@ def _check(q, k_pages, v_pages, block_tables, lengths, k_scales=None,
     if k_pages.dtype != pool_dtype or v_pages.dtype != pool_dtype:
         raise TypeError("paged_decode_attention: the pools must share q's "
                         "dtype, or be int8 with scales")
-    if d not in _HEAD_DIMS or dk != d or v_pages.shape != k_pages.shape:
+    if d % 8 or not 8 <= d <= 256 or dk != d or v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_decode_attention: head_dim {d} with pools "
-                         f"{tuple(k_pages.shape)} not supported (head_dim in "
-                         f"{_HEAD_DIMS}, k and v pools of one shape)")
+                         f"{tuple(k_pages.shape)} not supported (head_dim a "
+                         "multiple of 8 up to 256, k and v pools of one shape)")
     if h % kv or h // kv > _MAX_GROUP:
         raise ValueError(f"paged_decode_attention: {h} heads over {kv} KV heads "
                          f"not supported (group <= {_MAX_GROUP})")
     if k_pages.stride() != v_pages.stride() or k_pages.stride(3) != 1:
         raise ValueError("paged_decode_attention: k and v pools need equal "
                          "strides and a contiguous head_dim")
-    vec = 16 // k_pages.element_size()    # pool elements per 16 bytes
+    # bytes per vector load: int8 rows of 120 codes are 8-byte aligned only
+    align = 8 if k_pages.dtype == torch.int8 and d % 16 else 16
+    vec = align // k_pages.element_size()
     if (any(s % vec for s in k_pages.stride()[:3])
-            or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16):
-        raise ValueError("paged_decode_attention: pool rows must be 16-byte "
-                         "aligned")
+            or k_pages.data_ptr() % align or v_pages.data_ptr() % align):
+        raise ValueError(f"paged_decode_attention: pool rows must be "
+                         f"{align}-byte aligned")
     nwarps = min(max(h // kv, _MIN_WARPS), _MAX_WARPS)
-    smem = 4 * (2 * page_size * d + nwarps * page_size)
+    instance = next(x for x in _HEAD_DIM_INSTANCES if x >= d)
+    smem = 4 * (2 * page_size * instance + nwarps * page_size)
     if smem > _MAX_SMEM:
         raise ValueError(f"paged_decode_attention: page_size {page_size} needs "
                          f"{smem} bytes of shared memory (max {_MAX_SMEM})")

@@ -248,8 +248,8 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
     (``attn_impl``); ``positions`` are unused.  Hybrid: the RG-LRU layers
     from a zero state through the scan kernel or the reference's doubling
     scan (``attn_impl``); the attention layers run plain ``attend`` (the
-    reference's forward; the flash kernel takes a group x head_dim of at
-    most 512, RecurrentGemma's is 4096)."""
+    reference's forward; the flash kernel's fp32 route takes a group x
+    head_dim of at most 512, RecurrentGemma's is 4096)."""
     _check_family(cfg)
     _check_impl(attn_impl)
     if positions is not None and attn_impl == "kernel" and cfg.family == "dense":

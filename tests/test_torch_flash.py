@@ -39,11 +39,17 @@ def _qkv(seed, b, h, kv, s, d):
             rng.normal(size=(b, kv, s, d)).astype(np.float32))
 
 
-@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (8, 2)])      # G = 1, 2, 4
+# (h, kv, head_dim): G = 1, 2, 4 at head_dim 64 (ids: h-kv), a group of 16
+# and H2O-Danube-3's head_dim 120
+@pytest.mark.parametrize("h,kv,d", [pytest.param(4, 4, 64, id="4-4"),
+                                    pytest.param(4, 2, 64, id="4-2"),
+                                    pytest.param(8, 2, 64, id="8-2"),
+                                    pytest.param(16, 1, 64, id="16-1"),
+                                    pytest.param(8, 2, 120, id="8-2-d120")])
 @pytest.mark.parametrize("window,softcap", [(None, None), (48, None),
                                             (None, 5.0), (40, 5.0)])
-def test_flash_ref_matches_pallas_interpret(h, kv, window, softcap):
-    q, k, v = _qkv(0, 1, h, kv, 128, 64)
+def test_flash_ref_matches_pallas_interpret(h, kv, d, window, softcap):
+    q, k, v = _qkv(0, 1, h, kv, 128, d)
     want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                causal=True, window=window, softcap=softcap,
                                block_q=64, block_k=64, interpret=True)
@@ -68,11 +74,16 @@ def test_flash_ref_matches_jax_oracle_at_ragged_lengths(s, causal, window, softc
     assert lse.shape == (2, 8, s) and lse.dtype == torch.float32
 
 
-@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (8, 2)])
+# (h, kv, head_dim): head_dim 16 (ids: h-kv), a group of 16 and head_dim 120
+@pytest.mark.parametrize("h,kv,d", [pytest.param(4, 4, 16, id="4-4"),
+                                    pytest.param(4, 2, 16, id="4-2"),
+                                    pytest.param(8, 2, 16, id="8-2"),
+                                    pytest.param(16, 1, 16, id="16-1"),
+                                    pytest.param(4, 2, 120, id="4-2-d120")])
 @pytest.mark.parametrize("s,window,softcap", [(24, None, None), (37, 10, None),
                                               (33, None, 4.0), (19, 7, 4.0)])
-def test_flash_backward_matches_jax_vjp(h, kv, s, window, softcap):
-    q, k, v = _qkv(2, 2, h, kv, s, 16)
+def test_flash_backward_matches_jax_vjp(h, kv, d, s, window, softcap):
+    q, k, v = _qkv(2, 2, h, kv, s, d)
     do = np.random.default_rng(3).normal(size=q.shape).astype(np.float32)
 
     @jax.jit
@@ -96,12 +107,14 @@ def test_flash_backward_matches_jax_vjp(h, kv, s, window, softcap):
 
 
 @pytest.mark.parametrize("shape,dtype,kw,exc", [
-    ((2, 4, 2, 8, 48), torch.float32, {}, ValueError),            # head_dim
+    ((2, 4, 2, 8, 44), torch.float32, {}, ValueError),            # head_dim % 8
     ((2, 4, 2, 8, 64), torch.float16, {}, TypeError),             # dtype
-    ((2, 16, 2, 8, 128), torch.float32, {}, ValueError),          # group * D > 512
+    ((2, 16, 2, 8, 128), torch.float32, {}, ValueError),          # fp32 group * D > 512
     ((2, 4, 3, 8, 64), torch.float32, {}, ValueError),            # H % KV
     ((2, 4, 2, 8, 64), torch.float32, {"window": 0}, ValueError),
     ((2, 4, 2, 8, 64), torch.float32, {"softcap": -1.0}, ValueError),
+    ((2, 4, 2, 8, 264), torch.bfloat16, {}, ValueError),          # head_dim > 256
+    ((2, 8, 1, 8, 120), torch.float32, {}, ValueError),           # fp32: 8 x 128 (instance)
 ])
 def test_kernel_checks_refuse_what_the_kernel_does_not_take(shape, dtype, kw, exc):
     b, h, kv, s, d = shape
@@ -110,6 +123,24 @@ def test_kernel_checks_refuse_what_the_kernel_does_not_take(shape, dtype, kw, ex
     opts = dict(causal=True, window=None, softcap=None) | kw
     with pytest.raises(exc):
         fa._check(q, k, k.clone(), **opts)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 32, 2, 8, 128), torch.bfloat16),    # G x D = 2,048 (Qwen3-MoE's 16 x 128)
+    ((1, 8, 1, 8, 256), torch.bfloat16),     # PaliGemma's 8 x 256
+    ((1, 48, 8, 8, 128), torch.bfloat16),    # DBRX's 6 x 128
+    ((1, 32, 8, 8, 120), torch.bfloat16),    # H2O-Danube-3: head_dim 120
+    ((1, 32, 8, 8, 120), torch.float32),     # fp32: 4 x 128 (the instance) = 512
+    ((1, 4, 2, 8, 8), torch.float32),        # the smallest head_dim
+])
+def test_kernel_checks_take_any_bf16_group_and_head_dims_of_8s(shape, dtype):
+    """bf16 runs one query head per block: no group limit.  head_dim is any
+    multiple of 8 up to 256 (the kernel's instance is the next of 64, 128,
+    256)."""
+    b, h, kv, s, d = shape
+    q = torch.zeros(b, h, s, d, dtype=dtype)
+    k = torch.zeros(b, kv, s, d, dtype=dtype)
+    fa._check(q, k, k.clone(), True, None, None)
 
 
 def test_kernel_checks_take_strided_views_and_refuse_a_strided_head_dim():

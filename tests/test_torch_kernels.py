@@ -74,6 +74,7 @@ def _close(a, b, dtype):
     (2, 8, 2, 64, 16, 4),    # GQA
     (3, 4, 4, 64, 32, 2),    # MHA
     (1, 8, 1, 128, 16, 6),   # MQA
+    (2, 32, 8, 120, 16, 3),  # H2O-Danube-3's heads, head_dim 120
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_decode_attention_sweep(b, h, kv, d, page_size, pages_per_seq,
@@ -107,7 +108,16 @@ def test_paged_decode_attention_softcap_and_masked_rows(softcap, masked_row,
 
 
 def test_paged_ref_dequantizes_int8_pages_like_the_jax_oracle():
-    q, kp, vp, bt, lengths = _inputs(2, 2, 8, 2, 64, 16, 4)
+    _int8_ref_against_the_oracle(_inputs(2, 2, 8, 2, 64, 16, 4))
+
+
+def test_paged_ref_dequantizes_int8_pages_at_head_dim_120():
+    """H2O-Danube-3's head_dim: int8 rows of 120 bytes, 8-byte aligned."""
+    _int8_ref_against_the_oracle(_inputs(5, 2, 32, 8, 120, 16, 3))
+
+
+def _int8_ref_against_the_oracle(arrays):
+    q, kp, vp, bt, lengths = arrays
     rng = np.random.default_rng(3)
     kc = rng.integers(-127, 128, kp.shape).astype(np.int8)
     vc = rng.integers(-127, 128, vp.shape).astype(np.int8)
@@ -125,9 +135,10 @@ def test_paged_ref_dequantizes_int8_pages_like_the_jax_oracle():
 
 @pytest.mark.parametrize("dtype,h,kv,d,page_size,exc", [
     (torch.float16, 8, 2, 64, 16, TypeError),       # dtype
-    (torch.float32, 8, 2, 48, 16, ValueError),      # head_dim
+    (torch.float32, 8, 2, 44, 16, ValueError),      # head_dim % 8
     (torch.float32, 8 * 33, 8, 64, 16, ValueError), # group > 32
     (torch.float32, 8, 2, 64, 1024, ValueError),    # tiles beyond shared memory
+    (torch.float32, 8, 2, 264, 16, ValueError),     # head_dim > 256
 ])
 def test_kernel_checks_refuse_what_the_kernel_does_not_take(dtype, h, kv, d,
                                                             page_size, exc):
@@ -136,6 +147,21 @@ def test_kernel_checks_refuse_what_the_kernel_does_not_take(dtype, h, kv, d,
     bt = torch.zeros(2, 2, dtype=torch.int32)
     with pytest.raises(exc):
         pda._check(q, kp, kp.clone(), bt, torch.ones(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 120), (torch.float32, 120),
+                                     (torch.int8, 120), (torch.bfloat16, 8),
+                                     (torch.int8, 248)])
+def test_kernel_checks_take_head_dims_of_8s(dtype, d):
+    """Any multiple of 8 up to 256; an int8 pool's rows need 8-byte
+    alignment (a row of 120 codes is 120 bytes), fp/bf16 pools' 16-byte."""
+    int8 = dtype == torch.int8
+    q = torch.zeros(2, 32, d, dtype=torch.bfloat16 if int8 else dtype)
+    kp = torch.zeros(5, 16, 8, d, dtype=dtype)
+    scales = (dict(k_scales=torch.zeros(5, 16, 8), v_scales=torch.zeros(5, 16, 8))
+              if int8 else {})
+    pda._check(q, kp, kp.clone(), torch.zeros(2, 2, dtype=torch.int32),
+               torch.ones(2, dtype=torch.int32), **scales)
 
 
 def test_wrapper_refuses_devices_other_than_cpu_and_cuda():
@@ -195,12 +221,31 @@ def test_decode_attention_ref_matches_the_oracle_at_ragged_s(g, window):
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("h,kv,window", [(32, 8, None), (32, 8, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_at_head_dim_120(h, kv, window, dtype):
+    """H2O-Danube-3's heads (32 over 8, head_dim 120) against the Pallas
+    kernel and the oracle, lengths 0, 1, S and above S."""
+    s = 128
+    q, k, v, lengths = _dense_inputs(11, 4, h, kv, s, 120, [0, 1, s, s + 9])
+    jdt, tdt, _ = DTYPES[dtype]
+    got = da.decode_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                              torch.from_numpy(lengths), window=window)
+    assert got.shape == (4, h, 120)
+    jx = [jnp.asarray(x, jdt) for x in (q, k, v)]
+    _close(jax_decode_attention(*jx, jnp.asarray(lengths), window=window, block_k=128,
+                                interpret=True), got, dtype)
+    _close(jref.decode_attention_ref(*jx, jnp.asarray(lengths), window=window), got,
+           dtype)
+
+
 @pytest.mark.parametrize("kw,exc", [
     (dict(dtype=torch.float16), TypeError),
-    (dict(d=48), ValueError),                       # head_dim
+    (dict(d=44), ValueError),                       # head_dim % 8
     (dict(h=8 * 33, kv=8), ValueError),             # group > 32
     (dict(window=0), ValueError),
     (dict(lengths=3), ValueError),                  # lengths not (B,)
+    (dict(d=264), ValueError),                      # head_dim > 256
 ])
 def test_decode_kernel_checks_refuse_what_the_kernel_does_not_take(kw, exc):
     a = dict(dtype=torch.float32, h=8, kv=2, d=64, window=None, lengths=2)
@@ -349,6 +394,7 @@ def cuda_device():
     (16, 32, 8, 128, 16, 64),   # the serving slice's shape
     (3, 12, 3, 64, 8, 5),       # odd
     (2, 8, 1, 128, 16, 6),      # MQA
+    (4, 32, 8, 120, 16, 8),     # head_dim 120 (H2O-Danube-3)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(cuda_device, b, h, kv, d,
@@ -365,23 +411,36 @@ def test_cuda_kernel_matches_plain_version(cuda_device, b, h, kv, d,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,kv,s,d,window,softcap", [
-    (2, 16, 8, 512, 128, None, None),   # the trainer's shape (Qwen3-1.7B), fewer rows
-    (1, 8, 2, 300, 64, 128, 30.0),      # odd: ragged S, G = 4, window, softcap
-    (1, 2, 1, 77, 256, None, None),     # head_dim 256
-])
+@pytest.mark.parametrize("d", [128, 120])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_kernels_match_plain_versions(cuda_device, b, h, kv, s, d,
-                                                 window, softcap, dtype):
+def test_cuda_int8_pool_matches_plain_version(cuda_device, d, dtype):
+    """int8 pools with scales, as the port's ``quantize_kv`` makes them; at
+    head_dim 120 a row is 120 bytes, 8-byte aligned."""
+    from repro_torch.models.paged import quantize_kv
+
+    _, tx = _both(_inputs(12, 4, 32, 8, d, 16, 8, masked_row=True), dtype)
+    q, kp, vp, bt, lengths = [t.to(cuda_device) for t in tx]
+    (kc, ks), (vc, vs) = quantize_kv(kp.float()), quantize_kv(vp.float())
+    before = (pda.paged_decode_attention.launches, pda.paged_decode_attention.launches_int8)
+    got = pda.paged_decode_attention(q, kc, vc, bt, lengths, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert (pda.paged_decode_attention.launches,
+            pda.paged_decode_attention.launches_int8) == (before[0] + 1, before[1] + 1)
+    want = ref.paged_decode_attention_ref(q, kc, vc, bt, lengths, k_scales=ks,
+                                          v_scales=vs)
+    tol = DTYPES[dtype][2]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _flash_against_plain(device, b, h, kv, s, d, window, softcap, dtype):
     from repro_torch.kernels import flash_attention as fa
 
     tdt, tol = DTYPES[dtype][1], DTYPES[dtype][2]
     rng = np.random.default_rng(5)
     # q/k/v as the trainer has them: (B, S, heads, D) seen as (B, heads, S, D)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(np.float32))
-                   .to(cuda_device, tdt).transpose(1, 2) for n in (h, kv, kv, h))
+                   .to(device, tdt).transpose(1, 2) for n in (h, kv, kv, h))
     before = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd)
     o, lse = fa.flash_attention_fwd(q, k, v, window=window, softcap=softcap)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window, softcap=softcap)
@@ -402,10 +461,35 @@ def test_cuda_flash_kernels_match_plain_versions(cuda_device, b, h, kv, s, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,window,softcap", [
+    (2, 16, 8, 512, 128, None, None),   # the trainer's shape (Qwen3-1.7B), fewer rows
+    (1, 8, 2, 300, 64, 128, 30.0),      # odd: ragged S, G = 4, window, softcap
+    (1, 2, 1, 77, 256, None, None),     # head_dim 256
+    (2, 32, 8, 300, 120, 128, 30.0),    # head_dim 120 (H2O-Danube-3), window, softcap
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_kernels_match_plain_versions(cuda_device, b, h, kv, s, d,
+                                                 window, softcap, dtype):
+    _flash_against_plain(cuda_device, b, h, kv, s, d, window, softcap, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (1, 32, 2, 512, 128),   # G x D = 2,048 (Qwen3-MoE's group)
+    (1, 8, 1, 512, 256),    # PaliGemma's group, G x D = 2,048
+    (1, 48, 8, 200, 128),   # DBRX's group of 6
+])
+def test_cuda_bf16_flash_takes_groups_beyond_the_fp32_limit(cuda_device, b, h, kv, s, d):
+    """The tensor-core route holds one query head per block: no G x D limit."""
+    _flash_against_plain(cuda_device, b, h, kv, s, d, None, None, "bfloat16")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kv,s,d,window", [
     (16, 32, 8, 1024, 128, None),   # the slot engine's serve shape (Qwen3-4B)
     (3, 8, 2, 300, 64, 128),        # odd: ragged S, G = 4, a window
     (2, 8, 8, 77, 256, None),       # MHA, head_dim 256
+    (4, 32, 8, 300, 120, 128),      # head_dim 120 (H2O-Danube-3), a window
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_decode_kernel_matches_plain_version(cuda_device, b, h, kv, s, d,
