@@ -78,6 +78,15 @@ no result):
    over ``DecodeEngine``, the ``serve`` task mix, exact launch counts
    (decode attention: attention layers x decode steps; the scan: RG-LRU
    layers x (prefills + decode steps)), then ``profile_slot``.
+   Slice 7 redesigns both decode kernels (keys split over blocks with an
+   in-launch combine, tensor cores for bf16): ``kernels`` also holds their
+   edge cases at the four slice shapes (dense Qwen3-4B and
+   RecurrentGemma-9B, paged bf16 and int8 pools) -- lengths on and around
+   the chunk boundaries, one row per split count, empty splits, rows with
+   no valid key, windows across a chunk boundary and past S, -1 entries in
+   and after the live range, a softcap -- with each shape's split plan
+   printed, one launch per wrapper call, and both wrappers run under
+   ``torch.cuda.set_sync_debug_mode("error")``.
 9. ``train_model``: fp32 Qwen3-1.7B at full width, 4 layers: one train step
    with ``attn_impl="kernel"`` against ``"ref"`` (loss, grad norm, params).
 10. ``train``: the slice-3 main path — full-width, full-depth Qwen3-1.7B in
@@ -306,6 +315,8 @@ def _kernel_row(name, main, page_size, variant):
     timed) at the slice shape; the bound from these inputs."""
     torch = _torch()
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels.paged_decode_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_decode_attention_ref
 
@@ -333,6 +344,8 @@ def _kernel_row(name, main, page_size, variant):
         qd, kd, vd, attn_mask=mask, enable_gqa=True))
     bound_ms, bound_by = _paged_bound(q, kp, tables, lengths, quantized=bool(scales))
     pool = "int8 pool + fp32 scales" if scales else "bf16 pool"
+    splits, chunk, tp, mma = pda.plan(tables.shape[1], page_size, b * kv,
+                                      da.sm_count(q.device), h // kv, q.dtype, kp.dtype, d)
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:146",
@@ -344,6 +357,8 @@ def _kernel_row(name, main, page_size, variant):
                             "dense view gathered (and dequantized) beforehand, not timed",
             "shape": f"B={b} H={h} KV={kv} D={d} page={page_size} "
                      f"P={tables.shape[1]} bf16 q, {pool}",
+            "split": {"splits": splits, "chunk_entries": chunk, "pages_per_tile": tp,
+                      "route": "tensor cores" if mma else "CUDA cores"},
             "registers": _ptxas_registers("paged_decode_attention")}
 
 
@@ -632,6 +647,7 @@ def phase_slot_kernels() -> list:
     an all-fp32 case.  Then the rows' times."""
     torch = _torch()
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref, rwkv6_scan_ref
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -700,6 +716,7 @@ def phase_slot_kernels() -> list:
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True))
     bound_ms, bound_by, detail = _decode_bound(q, k, lengths, None)
+    splits, chunk, mma = da.plan(s, b * kv, da.sm_count(q.device), h // kv, q.dtype, d)
     rows = [{"name": "decode_attention", "route": "cuda",
              "source": "src/repro_torch/csrc/decode_attention.cu",
              "replaces": "src/repro/kernels/decode_attention.py:85",
@@ -709,7 +726,9 @@ def phase_slot_kernels() -> list:
              "library_call": "F.scaled_dot_product_attention(enable_gqa=True) with a "
                              "boolean length mask, on (B, KV, S, D) views of the cache",
              "shape": f"B={b} H={h} KV={kv} S={s} D={d} bf16, ragged lengths 1..{s} "
-                      "and above S"}]
+                      "and above S",
+             "split": {"splits": splits, "chunk": chunk,
+                       "route": "tensor cores" if mma else "CUDA cores"}}]
 
     (args, y, err) = main["decode_bf16rkv"]
     pargs, py, perr = main["prefill_bf16rkv"]
@@ -799,6 +818,7 @@ def phase_hybrid_kernels():
     fields)."""
     torch = _torch()
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref, rglru_scan_ref
     from repro_torch.kernels.rglru_scan import rglru_scan
@@ -898,6 +918,8 @@ def phase_hybrid_kernels():
     mask = ((pos < lengths[:, None]) & (pos >= lengths[:, None] - window))[:, None, None, :]
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     bound_ms, bound_by, detail = _decode_bound(q, k, lengths, window)
+    splits, chunk, mma = da.plan(s, q.shape[0] * k.shape[2], da.sm_count(q.device),
+                                 q.shape[1] // k.shape[2], q.dtype, q.shape[2])
     extra = {"hybrid_ms": _time_ms(lambda: decode_attention(q, k, v, lengths, window=window)),
              "hybrid_plain_ms": _time_ms(lambda: decode_attention_ref(q, k, v, lengths,
                                                                       window=window)),
@@ -907,11 +929,155 @@ def phase_hybrid_kernels():
              "hybrid_bound_detail": detail, "hybrid_max_abs_err": err,
              "hybrid_shape": "RecurrentGemma-9B: B=16 H=16 KV=1 D=256 S=1024 bf16, "
                              "window 2048, ragged lengths 1..1024 and above S",
+             "hybrid_split": {"splits": splits, "chunk": chunk,
+                              "route": "tensor cores" if mma else "CUDA cores"},
              "registers": _ptxas_registers("decode_attention")}
     emit("kernels", kernel="decode_attention", case="hybrid_times",
          **{k: v for k, v in extra.items() if k != "registers"})
     emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
     return row, extra
+
+
+# ---------------------------------------------------------------------------
+# kernels: the split decode kernels' edge cases at the slice shapes (slice 7)
+# ---------------------------------------------------------------------------
+
+def _split_lengths(b: int, keys: int, chunk: int, splits: int, window=None) -> list:
+    """Row lengths that put the split kernels' edges at the slice shape:
+    0, 1, chunk - 1, chunk, chunk + 1 (keys), the last key, past it (with a
+    window: past S by more than the window, so no key is valid), then one
+    row ending in each split count, as many as the other rows allow."""
+    fixed = [0, 1, chunk - 1, chunk, chunk + 1, keys, keys + (window or 0) + 37]
+    rest = b - len(fixed)
+    spread = [(1 + i * (splits - 1) // max(rest - 1, 1)) * chunk - i % 3 for i in range(rest)]
+    return (fixed + spread)[:b]
+
+
+def _split_tables(gen, b, p, page_size, n_pages, lengths, chunk):
+    """Block tables for ``lengths``: distinct pages below each length, -1
+    tails; row 0 all -1, row 1 every entry assigned (give it length 0),
+    row 2 a -1 entry inside its live range, and the first row that reaches
+    a third chunk of ``chunk`` entries its whole second chunk -1 (an empty
+    split between live ones)."""
+    torch = _torch()
+    perm = torch.randperm(n_pages - 1, generator=gen, device=DEVICE).to(torch.int32) + 1
+    tables = perm[:b * p].view(b, p).clone()
+    for i, length in enumerate(lengths):
+        if i != 1:
+            tables[i, max(0, -(-length // page_size)):] = -1
+    tables[0] = -1
+    tables[2, 0] = -1
+    middle = next(i for i, n in enumerate(lengths)
+                  if i > 2 and n > 2 * chunk * page_size and n <= p * page_size)
+    tables[middle, chunk:2 * chunk] = -1
+    return tables
+
+
+def phase_split_kernels() -> None:
+    """The split decode kernels at the four slice shapes (dense Qwen3-4B,
+    dense RecurrentGemma-9B, paged bf16 and int8 pools) with the rows of
+    ``_split_lengths``: an empty split, rows with no valid key, lengths at
+    chunk boundaries and above S, windows across a chunk boundary and past
+    S, -1 entries in and after the live range, a softcap; bf16 and fp32
+    against the plain versions.  Each shape's plan (splits and chunk per
+    (row, KV head)) is printed, each wrapper call must launch once, and both
+    wrappers run once under ``torch.cuda.set_sync_debug_mode("error")``:
+    neither may wait for the device."""
+    torch = _torch()
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels.ref import decode_attention_ref, paged_decode_attention_ref
+    from repro_torch.models.paged import quantize_kv
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 70)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    sms = da.sm_count(torch.device(DEVICE, torch.cuda.current_device()))
+    b, s = 16, 1024
+
+    def once(wrapper, counter, *args, **kw):
+        before = getattr(wrapper, counter)
+        out = wrapper(*args, **kw)
+        if getattr(wrapper, counter) - before != 1:
+            raise AssertionError(f"{wrapper.__name__}: {getattr(wrapper, counter) - before} "
+                                 "launches in one call")
+        return out
+
+    last = {}
+    for label, h, kv, d, window, dtypes in [
+            ("qwen3", 32, 8, 128, None, (bf16, fp32)),
+            ("qwen3_window", 32, 8, 128, "chunk", (fp32,)),
+            ("hybrid", 16, 1, 256, 2048, (bf16, fp32)),
+            ("hybrid_window", 16, 1, 256, "chunk", (fp32,))]:
+        for dtype in dtypes:
+            name = str(dtype).split(".")[-1]
+            splits, chunk, mma = da.plan(s, b * kv, sms, h // kv, dtype, d)
+            win = chunk + 5 if window == "chunk" else window   # across a chunk boundary
+            lengths = torch.tensor(_split_lengths(b, s, chunk, splits, win),
+                                   dtype=torch.int32, device=DEVICE)
+            emit("kernels", kernel="decode_attention", case=f"split_plan_{label}_{name}",
+                 shape=[b, h, kv, s, d], window=win, sms=sms, splits=splits, chunk=chunk,
+                 route="tensor cores" if mma else "CUDA cores", lengths=lengths.tolist())
+            q = torch.randn(b, h, d, generator=gen, device=DEVICE).to(dtype)
+            k = torch.randn(b, s, kv, d, generator=gen, device=DEVICE).to(dtype)
+            v = torch.randn(b, s, kv, d, generator=gen, device=DEVICE).to(dtype)
+            out = once(da.decode_attention, "launches", q, k, v, lengths, window=win)
+            torch.cuda.synchronize()
+            want = decode_attention_ref(q, k, v, lengths, window=win)
+            _check_close(f"split_{label}_{name}", "decode_attention", [out], [want], TOL[name])
+            last["dense"] = (q, k, v, lengths, win)
+
+    h, kv, d = 32, 8, 128
+    page_size = SERVE["page_size"]
+    p = SERVE["max_total_len"] // page_size
+    n_pages = 1 + b * p
+    for label, dtype, softcap, int8 in [
+            ("bf16", bf16, None, False), ("fp32", fp32, None, False),
+            ("softcap_fp32", fp32, 30.0, False), ("int8_bf16q", bf16, None, True),
+            ("int8_fp32q", fp32, None, True), ("softcap_int8_fp32q", fp32, 30.0, True)]:
+        splits, chunk, tp, mma = pda.plan(p, page_size, b * kv, sms, h // kv, dtype,
+                                          torch.int8 if int8 else dtype, d)
+        keys = chunk * page_size
+        lengths = _split_lengths(b, p * page_size, keys, splits)
+        lengths[0] = 5 * page_size + 3      # all -1 entries with a length
+        lengths[1] = 0                      # every entry assigned, no length
+        lengths[2] = max(lengths[2], 3 * page_size)
+        tables = _split_tables(gen, b, p, page_size, n_pages, lengths, chunk)
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+        emit("kernels", kernel="paged_decode_attention", case=f"split_plan_{label}",
+             shape=[b, h, kv, d, page_size, p], sms=sms, splits=splits, chunk_entries=chunk,
+             pages_per_tile=tp, route="tensor cores" if mma else "CUDA cores",
+             lengths=lengths.tolist())
+        q = torch.randn(b, h, d, generator=gen, device=DEVICE).to(dtype)
+        kp = torch.randn(n_pages, page_size, kv, d, generator=gen, device=DEVICE).to(dtype)
+        vp = torch.randn(n_pages, page_size, kv, d, generator=gen, device=DEVICE).to(dtype)
+        scales = {}
+        if int8:
+            (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+            scales = {"k_scales": ks, "v_scales": vs}
+        out = once(pda.paged_decode_attention, "launches", q, kp, vp, tables, lengths,
+                   softcap=softcap, **scales)
+        torch.cuda.synchronize()
+        want = paged_decode_attention_ref(q, kp, vp, tables, lengths, softcap=softcap,
+                                          **scales)
+        _check_close(f"split_{label}", "paged_decode_attention", [out], [want],
+                     TOL[str(dtype).split(".")[-1]])
+        last["paged_int8" if int8 else "paged"] = (q, kp, vp, tables, lengths, scales)
+
+    # neither wrapper may read a device value on the host: a sync raises
+    q, k, v, lengths, window = last["dense"]
+    qp, kp, vp, tables, plens, _ = last["paged"]
+    qi, ki, vi, ti, ilens, scales = last["paged_int8"]
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        da.decode_attention(q, k, v, lengths, window=window)
+        pda.paged_decode_attention(qp, kp, vp, tables, plens)
+        pda.paged_decode_attention(qi, ki, vi, ti, ilens, **scales)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    emit("kernels", case="split_sync_debug", sync_debug_mode="error", ok=True,
+         launches_per_call=1)
 
 
 # ---------------------------------------------------------------------------
@@ -2241,6 +2407,7 @@ def main() -> int:
         rows += phase_slot_kernels()
         scan_row, decode_extra = phase_hybrid_kernels()
         rows[4].update(decode_extra)
+        phase_split_kernels()
         rows.append(scan_row)
         phase_model()
         phase_model_danube()

@@ -6,7 +6,8 @@
 // both variants: one query token per sequence, GQA, against a shared page
 // pool addressed through per-sequence block tables.
 //
-//   q            (B, H, D)            fp32 or bf16, contiguous
+//   q            (B, H, D)            fp32 or bf16, contiguous, 16-byte
+//                                     aligned
 //   k/v pages    (N, page, KV, D)     q's dtype, or int8 codes; read in
 //                                     place by strides
 //   k/v scales   (N, page, KV) fp32   int8 pools only: per-(slot, kv-head)
@@ -14,266 +15,491 @@
 //   block_tables (B, P) int32         physical page ids, -1 = unassigned
 //   lengths      (B,)   int32         tokens written so far
 //   out          (B, H, D)            q's dtype
+//   ws           fp32 workspace       (B * KV, splits, G, Dp) partial
+//                                     accumulators, then (B * KV, splits,
+//                                     G, 2) partial (m, l); unused with
+//                                     one split
+//   counters     (B * KV,) int32      zero between launches; unused with
+//                                     one split
 //
 // head_dim is any multiple of 8 up to 256: the kernel is instantiated at
-// the next of 32, 64, 128, 256 and takes the true head_dim at run time.
-// Columns past it are zeros in the shared tiles and in q, and the lanes
-// that hold them store nothing (the lane loop's bound), so D=120 runs the
-// D=128 instance with the tail of the last lanes idle.
+// Dp, the next of 32, 64, 128, 256, and takes the true head_dim at run
+// time.  Columns past it are zero-filled in the shared tiles and in q, and
+// nothing past it is stored, so D=120 runs the D=128 instance.
 //
-// int8 pools (the TPU kernel's `quantized=True`): each code row is widened
-// to fp32 and multiplied by its (slot, kv-head) scale as it lands in the
-// shared-memory tile, so QK^T and PV see k * k_scale and v * v_scale in
-// fp32, exactly as the reference dequantizes; a -1 table entry reads page
-// 0's codes AND scales, like the TPU kernel's `scale_map`.
+// int8 pools (the TPU kernel's `quantized=True`): codes and their fp32
+// (slot, kv-head) scales land in shared memory as they are stored, and each
+// element is dequantized in registers as k * k_scale, v * v_scale in fp32,
+// exactly as the reference does (codes widen by integer ops, not the
+// conversion unit); a -1 table entry reads page 0's codes AND scales, like
+// the TPU kernel's `scale_map`.
 //
-// Semantics are those of the TPU kernel: every one of the P table entries is
-// visited (a -1 entry reads page 0 and is masked), scores are fp32 with the
-// 1/sqrt(D) scale applied to q, an optional tanh softcap, masked scores are
-// -1e30 (a fully masked row averages V uniformly), the online softmax starts
-// from m = -1e30, l = 0, and the output is acc / max(l, 1e-30).
-//
-// Design.  The TPU grid (B, KV, P) ran its page axis in order and carried
-// the softmax state in scratch; here one thread block owns one
-// (sequence, KV head) and loops over the pages itself.  Per page, the whole
-// block loads that page's (page, D) K and V tiles for its KV head into
-// shared memory with 16-byte loads (8-byte for int8 rows whose head_dim is
-// not a multiple of 16), once for all G query heads of the group
-// (the GQA saving).  Each warp then runs the online-softmax update for one
-// query head (or several, when G exceeds the warps): each lane holds D/32
-// elements of q and of the fp32 accumulator, and dot products are reduced
-// with warp shuffles.
+// Semantics are those of the TPU kernel: scores are fp32 with the
+// 1/sqrt(D) scale, then an optional tanh softcap, then the mask (position <
+// length and an assigned entry), masked scores -1e30, fp32 online softmax,
+// output acc / max(l, 1e-30).
 //
 // Bound.  Decode attention does ~2 flops per byte read: it is bound by the
-// bytes of K/V it reads from device memory (an int8 pool: D + 4 bytes per
-// (slot, kv-head) row instead of 2D for bf16).  This first version keeps one
-// page in flight per block and loops over all P entries; splitting the
-// pages of a long sequence over several blocks, double-buffering the tiles
-// with cp.async/TMA, and stopping at ceil(length / page) are later work.
+// bytes of live K/V it reads from device memory, at 3.35 TB/s (an int8
+// pool: D + 4 bytes per (slot, kv-head) row instead of 2D for bf16).  The
+// card needs every SM streaming to reach that, with tens of KB in flight on
+// each, and the arithmetic on each tile short enough to hide behind the
+// next tile's copy.
+//
+// Design.  The TPU grid (B, KV, P) visited every table entry in order and
+// carried the softmax state in scratch.  Here the P entries of each
+// (sequence, KV head) are cut into `splits` chunks of `chunk` entries,
+// chosen on the host from static shapes (P, page, B * KV, G, the SM count)
+// so that the grid (B, KV, splits) fills the card.  A block walks only the
+// entries its softmax can weigh: j < ceil(min(len, P * page) / page), and
+// within them it reads no -1 entry (zeros land instead) and no slot past
+// the length.  Their weight is exactly 0 once the row has one live key
+// (exp(-1e30 - m) = 0), so skipping them is exact; a block whose chunk holds
+// no live entry exits at once with an empty partial (m = -1e30, l = 0, its
+// accumulator neither written nor read).  Whether the row has a live key at
+// all every block reads from the row's whole table (P int32, one warp
+// vote).  A row with none (length <= 0, or every live entry -1) keeps the
+// reference's meaning, the uniform average of V over all P entries with -1
+// reading page 0: every split then sums its V rows with weight 1 and reads
+// no K, so those rows stay cheap.
+//
+// Inside a block, tiles of `tp` whole pages (32 keys at page 16) land in
+// shared memory in their storage type (bf16, or int8 codes with their
+// scales) through a two-stage cp.async ring, so the next tile loads
+// while this one is used; K and V rows are padded by 16 bytes so that rows
+// read at one column hit distinct banks.  The G query heads of the KV head
+// share each tile, by one of two routes:
+//
+// * CUDA cores (fp32 q, int8 pools, and bf16 with G > 16, D = 32 or tiles
+//   other than 32 keys).  Each warp owns up to four heads with q
+//   (pre-scaled, fp32) in shared memory, and each lane scores one key of the
+//   tile -- a dot product in registers, four partial sums, no shuffle per
+//   key.  Then one max and one sum over the warp per tile, and the lanes
+//   split the head dim for P V, widening (and dequantizing) each V row in
+//   registers.  P stays fp32, as in the TPU kernel.
+// * Tensor cores (bf16 q and pool, G <= 16, D >= 64, 32-key tiles):
+//   `mma.sync.m16n8k16` with the G heads as the 16 rows (padded with
+//   zeros).  Every one of the four warps computes S = q K^T for the whole
+//   tile (q unscaled in bf16, exact; the scale and softcap are applied to S
+//   in fp32), the softmax runs on the C fragments (quad shuffles per row),
+//   and each warp multiplies P by its quarter of V's columns.  P is split
+//   into two bf16 terms, hi + lo, so that P V keeps ~16 bits of P where one
+//   bf16 rounding would keep 8.
+//
+// Combine, in the same launch: each block of a split row writes its
+// (m, l, acc) in fp32, fences, and bumps the row's counter; the block that
+// bumps it last resets it to 0 and merges the splits:
+// m* = max m_s, l* = sum l_s e^(m_s - m*), out = sum acc_s e^(m_s - m*) /
+// max(l*, 1e-30), reading the partials through L2 (ld.global.cg), 16
+// loads in flight per thread.  So one launch per call, and the counters
+// are zero again when it ends: launches on one stream may share them,
+// launches on two streams at once may not.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kMaxWarps = 8;
-constexpr int kMinWarps = 4;
-constexpr int kMaxHeadsPerWarp = 4;
+constexpr int kMmaKeys = 32;  // keys per tensor-core tile
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// Bytes of one ring stage of `tk`-key tiles: K and V rows (padded), for
+// int8 pools the keys' k and v scales, and a live flag per key.  A block's
+// shared memory: two stages, q (q_bytes), each warp's scores, and with
+// splits the combine's weights.
+__host__ __device__ __forceinline__ int stage_bytes(int tk, int d, int es, bool quant) {
+  const int bytes = 2 * tk * (d * es + kPad) + (quant ? 8 * tk : 0) + tk;
+  return (bytes + 15) / 16 * 16;
 }
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float x, float* dst) { *dst = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* dst) { *dst = __float2bfloat16(x); }
-// Four floats into shared memory as one 16-byte store (dst 16-byte aligned).
-__device__ __forceinline__ void store4(const float* x, float* dst) {
-  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-// One vector of BYTES bytes of T, widened to floats (into registers).
-template <typename T, int BYTES>
-struct Vec;
-
-template <>
-struct Vec<float, 16> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* src, float* dst) {
-    const float4 x = *reinterpret_cast<const float4*>(src);
-    dst[0] = x.x;
-    dst[1] = x.y;
-    dst[2] = x.z;
-    dst[3] = x.w;
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* src, float* dst) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-};
-
-template <>
-struct Vec<int8_t, 16> {
-  static constexpr int N = 16;
-  __device__ __forceinline__ static void load(const int8_t* src, float* dst) {
-    const int4 raw = *reinterpret_cast<const int4*>(src);
-    const int words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dst[4 * w + j] = static_cast<float>(static_cast<int8_t>(words[w] >> (8 * j)));
-    }
-  }
-};
-
-// int8 rows of a head_dim that is a multiple of 8 but not of 16 (120) are
-// 8-byte aligned only: their codes move 8 at a time.
-template <>
-struct Vec<int8_t, 8> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const int8_t* src, float* dst) {
-    const int2 raw = *reinterpret_cast<const int2*>(src);
-    const int words[2] = {raw.x, raw.y};
-#pragma unroll
-    for (int w = 0; w < 2; ++w) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dst[4 * w + j] = static_cast<float>(static_cast<int8_t>(words[w] >> (8 * j)));
-    }
-  }
-};
 
 // Tq: q and out; Tpool: the pages; QUANT: int8 pages with fp32 scales; VB:
-// bytes per vector load of the pages (16, or 8 for int8 rows of 8 bytes'
-// alignment).
-template <typename Tq, typename Tpool, bool QUANT, int D, int VB>
-__global__ void paged_decode_kernel(const Tq* __restrict__ q, const Tpool* __restrict__ k_pages,
-                                    const Tpool* __restrict__ v_pages,
-                                    const float* __restrict__ k_scales,
-                                    const float* __restrict__ v_scales,
-                                    const int* __restrict__ block_tables,
-                                    const int* __restrict__ lengths, Tq* __restrict__ out,
-                                    int num_heads, int num_kv, int head_dim,
-                                    int pages_per_seq, int page_size,
-                                    long long stride_page, long long stride_slot,
-                                    long long stride_head, long long scale_stride_page,
-                                    long long scale_stride_slot, long long scale_stride_head,
-                                    float scale, float softcap) {
-  constexpr int EPL = D / 32;          // head_dim elements per lane
-  constexpr int VN = Vec<Tpool, VB>::N;  // pool elements per vector load
-  constexpr int VPR = D / VN;          // vector loads per (slot, head) row
+// bytes per copy from the pages (16, or 8 for int8 rows of 8 bytes'
+// alignment); MMA: the tensor-core route.
+template <typename Tq, typename Tpool, bool QUANT, int D, int VB, bool MMA>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    paged_decode_kernel(const Tq* __restrict__ q, const Tpool* __restrict__ k_pages,
+                        const Tpool* __restrict__ v_pages, const float* __restrict__ k_scales,
+                        const float* __restrict__ v_scales, const int* __restrict__ block_tables,
+                        const int* __restrict__ lengths, Tq* __restrict__ out, float* ws,
+                        int* counters, int num_heads, int num_kv, int head_dim, int pages_per_seq,
+                        int page_size, int chunk, int tp, long long stride_page,
+                        long long stride_slot, long long stride_head,
+                        long long scale_stride_page, long long scale_stride_slot,
+                        long long scale_stride_head, float scale, float softcap) {
+  constexpr int ES = (int)sizeof(Tpool);
+  constexpr int CN = VB / ES;            // pool elements per copy
+  constexpr int CPR = D / CN;            // copies per row
+  constexpr int VN = 16 / ES;            // pool elements per 16-byte shared read
+  constexpr int ROW = D * ES + kPad;     // bytes per K or V row in shared memory
+  constexpr int PITCH = ROW / ES;        // the same, in elements
+  constexpr int EPL = D / 32;            // CUDA cores: output columns per lane
+  constexpr int NT = D / 32;             // tensor cores: n tiles of 8 columns per warp
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
   const int group = num_heads / num_kv;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nthreads = blockDim.x;
+  const int nwarps = nthreads >> 5;
+  const int tk = tp * page_size;         // keys per tile
+  const int stage = stage_bytes(tk, D, ES, QUANT);
 
-  extern __shared__ float smem[];
-  float* k_tile = smem;                           // (page_size, D)
-  float* v_tile = k_tile + page_size * D;         // (page_size, D)
-  float* my_scores = v_tile + page_size * D + warp * page_size;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* q_raw = smem + kStages * stage;
+  float* q_s = reinterpret_cast<float*>(q_raw);                    // CUDA cores: (group, D)
+  bf16* q_b = reinterpret_cast<bf16*>(q_raw);                      // tensor cores: (16, D + 8)
+  float* p_all = reinterpret_cast<float*>(q_raw + q_bytes(group, D));
+  float* p_s = p_all + warp * (kMaxHeadsPerWarp * tk);             // this warp's scores
+  float* comb = p_all + nwarps * (kMaxHeadsPerWarp * tk);          // (group, splits + 1)
 
-  // Per query head of this warp: q (pre-scaled), running max, sum, acc.
-  float qr[kMaxHeadsPerWarp][EPL];
+  // Whether the row has a live key: an assigned entry below the length.
+  const int length = lengths[b];
+  const int* table = block_tables + (long long)b * pages_per_seq;
+  bool any = false;
+  for (int j = lane; j < pages_per_seq; j += 32)
+    any |= table[j] >= 0 && j * page_size < length;
+  const bool uniform = !__any_sync(0xffffffffu, any);
+  // live rows: the entries below the length; uniform rows: all P
+  const int span = pages_per_seq * page_size;
+  const int len_eff = uniform ? span : (length < span ? length : span);
+  const int nlive = (len_eff + page_size - 1) / page_size;
+  // this block's part of them
+  const int e_lo = split * chunk;
+  const int e_hi = nlive < e_lo + chunk ? nlive : e_lo + chunk;
+  const int ntiles = e_hi > e_lo ? (e_hi - e_lo + tp - 1) / tp : 0;
+
+  auto tile_keys = [&](int i) {
+    const int j0 = e_lo + i * tp;
+    const int j1 = j0 + tp < e_hi ? j0 + tp : e_hi;
+    const int n = (j1 - j0) * page_size;
+    const int left = len_eff - j0 * page_size;
+    return n < left ? n : left;
+  };
+  auto load_tile = [&](int i) {
+    if (i < ntiles) {
+      const int j0 = e_lo + i * tp;
+      const int keys = tile_keys(i);
+      // the tensor cores read every row of the tile: zeros past the keys
+      const int n = MMA ? tk : keys;
+      unsigned char* st = smem + (i % kStages) * stage;
+      unsigned char* kt = st;
+      unsigned char* vt = st + tk * ROW;
+      float* ks_t = reinterpret_cast<float*>(st + 2 * tk * ROW);
+      unsigned char* live_t = reinterpret_cast<unsigned char*>(ks_t) + (QUANT ? 8 * tk : 0);
+#pragma unroll 4
+      for (int x = tid; x < n * CPR; x += nthreads) {
+        const int t = x / CPR;
+        const int c = x - t * CPR;
+        const int pi = (t < keys ? t : 0) / page_size;
+        const int u = (t < keys ? t : 0) - pi * page_size;
+        const int entry = table[j0 + pi];
+        // a -1 entry: zeros (masked) in a live row, page 0 in a uniform one
+        const bool read = t < keys && (uniform || entry >= 0);
+        const int phys = entry >= 0 ? entry : 0;
+        const long long row = (long long)phys * stride_page + (long long)u * stride_slot +
+                              (long long)kvh * stride_head;
+        const bool in = read && c * CN < head_dim;  // zeros past head_dim
+        const long long off = in ? row + c * CN : row;
+        if (!uniform) cp_async<VB>(kt + t * ROW + c * VB, k_pages + off, in ? VB : 0);
+        cp_async<VB>(vt + t * ROW + c * VB, v_pages + off, in ? VB : 0);
+        if (c == 0) {
+          if constexpr (QUANT) {
+            const long long soff = (long long)phys * scale_stride_page +
+                                   (long long)u * scale_stride_slot +
+                                   (long long)kvh * scale_stride_head;
+            if (!uniform) cp_async<4>(ks_t + t, k_scales + soff, read ? 4 : 0);
+            cp_async<4>(ks_t + tk + t, v_scales + soff, read ? 4 : 0);
+          }
+          live_t[t] = read;
+        }
+      }
+    }
+    cp_async_commit();  // an empty group past the last tile keeps the count
+  };
+
+  // CUDA cores: per head of the warp, running max, sum and EPL columns
   float acc[kMaxHeadsPerWarp][EPL];
   float m[kMaxHeadsPerWarp];
   float l[kMaxHeadsPerWarp];
+  // tensor cores: rows g, g + 8 of the C fragments (running max and sum),
+  // NT n tiles of this warp's quarter of the columns
+  float o[NT][4];
+  float mr[2] = {kNegInf, kNegInf};
+  float lr[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < kMaxHeadsPerWarp; ++i) {
-    const int g = warp + i * nwarps;
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int h = 0; h < kMaxHeadsPerWarp; ++h) {
+    m[h] = kNegInf;
+    l[h] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      acc[i][e] = 0.f;
-      qr[i][e] = g < group && lane + 32 * e < head_dim
-                     ? to_float(q[((long long)b * num_heads + kvh * group + g) * head_dim + lane +
-                                  32 * e]) *
-                           scale
-                     : 0.f;
-    }
+    for (int e = 0; e < EPL; ++e) acc[h][e] = 0.f;
   }
-
-  const int length = lengths[b];
-  const int* row = block_tables + (long long)b * pages_per_seq;
-  for (int j = 0; j < pages_per_seq; ++j) {
-    const int entry = row[j];
-    const bool assigned = entry >= 0;
-    const int phys = assigned ? entry : 0;  // -1 reads page 0 (codes and scales)
-    const long long base = (long long)phys * stride_page + (long long)kvh * stride_head;
-    const long long scale_base =
-        (long long)phys * scale_stride_page + (long long)kvh * scale_stride_head;
-    __syncthreads();  // every warp is done with the previous page's tiles
-    for (int i = threadIdx.x; i < page_size * VPR; i += blockDim.x) {
-      const int t = i / VPR;
-      const int c = (i - t * VPR) * VN;
-      const long long off = base + t * stride_slot + c;
-      float kr[VN] = {}, vr[VN] = {};   // zeros past head_dim
-      if (c < head_dim) {
-        Vec<Tpool, VB>::load(k_pages + off, kr);
-        Vec<Tpool, VB>::load(v_pages + off, vr);
-      }
-      if constexpr (QUANT) {
-        const long long soff = scale_base + t * scale_stride_slot;
-        const float ks = k_scales[soff];
-        const float vs = v_scales[soff];
 #pragma unroll
-        for (int e = 0; e < VN; ++e) {
-          kr[e] *= ks;
-          vr[e] *= vs;
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  if (ntiles > 0) {
+    load_tile(0);
+    // q while the first tiles land: fp32 and pre-scaled for the CUDA cores,
+    // bf16 as it is (the scale goes on S) for the tensor cores
+    const Tq* qb = q + ((long long)b * num_heads + (long long)kvh * group) * head_dim;
+    if constexpr (MMA)
+      load_q<Tq, bf16, D + 8>(qb, q_b, group, kMmaRows, head_dim, [](Tq x) { return x; });
+    else
+      load_q<Tq, float, D>(qb, q_s, group, group, head_dim,
+                           [scale](Tq x) { return to_float(x) * scale; });
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    load_tile(i + 1);
+    cp_async_wait<1>();  // tile i has landed
+    __syncthreads();                // for every warp (and q with it)
+    const unsigned char* st = smem + (i % kStages) * stage;
+    const float* ks_t = reinterpret_cast<const float*>(st + 2 * tk * ROW);
+    const unsigned char* live_t =
+        reinterpret_cast<const unsigned char*>(ks_t) + (QUANT ? 8 * tk : 0);
+    const int n = tile_keys(i);
+
+    if constexpr (MMA) {
+      const bf16* kt = reinterpret_cast<const bf16*>(st);
+      const bf16* vt = reinterpret_cast<const bf16*>(st + tk * ROW);
+      const int gq = lane >> 2;
+      const int cq = lane & 3;
+      // S = q K^T: 16 head rows x 32 keys, in every warp
+      float s[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      if (!uniform) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t a[4], bk[4];
+          load_a<D + 8>(a, q_b, kk * 16, lane);
+          load_b<PITCH>(bk, kt, 0, kk * 16, lane);
+          mma16816(s[0], a, bk[0], bk[1]);
+          mma16816(s[1], a, bk[2], bk[3]);
+          load_b<PITCH>(bk, kt, 16, kk * 16, lane);
+          mma16816(s[2], a, bk[0], bk[1]);
+          mma16816(s[3], a, bk[2], bk[3]);
         }
       }
+      // the softmax on the fragments: rows gq (e < 2) and gq + 8, keys
+      // 8j + 2cq + (e & 1); masked keys -1e30, weight 0
+      bool live[4][2];
+      float mt[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int e = 0; e < VN; e += 4) {
-        store4(kr + e, k_tile + t * D + c + e);
-        store4(vr + e, v_tile + t * D + c + e);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * j + 2 * cq + (e & 1);
+          if (e < 2) live[j][e] = key < n && live_t[key];
+          float sc = s[j][e] * scale;
+          if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
+          s[j][e] = live[j][e & 1] ? sc : kNegInf;  // uniform rows: score 0
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+        }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float m_new = fmaxf(mr[r], mt[r]);
+        alpha[r] = expf(mr[r] - m_new);
+        mr[r] = m_new;
       }
-    }
-    __syncthreads();
-
 #pragma unroll
-    for (int i = 0; i < kMaxHeadsPerWarp; ++i) {
-      if (warp + i * nwarps >= group) break;  // uniform across the warp
-      float m_page = kNegInf;
-      for (int t = 0; t < page_size; ++t) {
-        float part = 0.f;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) part += qr[i][e] * k_tile[t * D + lane + 32 * e];
-        float s = warp_sum(part);
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        if (!(assigned && j * page_size + t < length)) s = kNegInf;
-        if (lane == 0) my_scores[t] = s;
-        m_page = fmaxf(m_page, s);
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = live[j][e & 1] ? expf(s[j][e] - mr[e >> 1]) : 0.f;
+          rs[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        lr[r] = lr[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+      // O += P V over this warp's columns, P as hi + lo bf16 terms
+      const int col0 = warp * (D / 4);
+#pragma unroll
+      for (int k2 = 0; k2 < 2; ++k2) {
+        uint32_t ph[4], pl[4];
+        ph[0] = pack_bf16(s[2 * k2][0], s[2 * k2][1]);
+        ph[1] = pack_bf16(s[2 * k2][2], s[2 * k2][3]);
+        ph[2] = pack_bf16(s[2 * k2 + 1][0], s[2 * k2 + 1][1]);
+        ph[3] = pack_bf16(s[2 * k2 + 1][2], s[2 * k2 + 1][3]);
+        pl[0] = pack_bf16_rest(s[2 * k2][0], s[2 * k2][1], ph[0]);
+        pl[1] = pack_bf16_rest(s[2 * k2][2], s[2 * k2][3], ph[1]);
+        pl[2] = pack_bf16_rest(s[2 * k2 + 1][0], s[2 * k2 + 1][1], ph[2]);
+        pl[3] = pack_bf16_rest(s[2 * k2 + 1][2], s[2 * k2 + 1][3], ph[3]);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bv[4];
+          load_b_trans<PITCH>(bv, vt, 16 * k2, col0 + 16 * np, lane);
+          mma16816(o[2 * np], ph, bv[0], bv[1]);
+          mma16816(o[2 * np + 1], ph, bv[2], bv[3]);
+          mma16816(o[2 * np], pl, bv[0], bv[1]);
+          mma16816(o[2 * np + 1], pl, bv[2], bv[3]);
+        }
+      }
+    } else {
+      const Tpool* vt = reinterpret_cast<const Tpool*>(st + tk * ROW);
+      // scores: one key per lane (tiles of more than 32 keys: several), for
+      // each of the warp's heads in four partial sums; masked keys -1e30
+      float m_tile[kMaxHeadsPerWarp];
+#pragma unroll
+      for (int h = 0; h < kMaxHeadsPerWarp; ++h) m_tile[h] = kNegInf;
+      for (int t = lane; t < n; t += 32) {
+        float s[kMaxHeadsPerWarp][4];
+#pragma unroll
+        for (int h = 0; h < kMaxHeadsPerWarp; ++h)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) s[h][r] = 0.f;
+        const bool live = live_t[t];
+        if (!uniform && live) {
+          const Tpool* krow = reinterpret_cast<const Tpool*>(st + t * ROW);
+          float ks = 1.f;
+          if constexpr (QUANT) ks = ks_t[t];
+#pragma unroll 2
+          for (int c = 0; c < D / VN; ++c) {
+            float kf[VN];
+            load_floats<Tpool, VN>(krow + c * VN, kf);
+            if constexpr (QUANT) {
+#pragma unroll
+              for (int e = 0; e < VN; ++e) kf[e] *= ks;  // k * k_scale, as the reference
+            }
+#pragma unroll
+            for (int h = 0; h < kMaxHeadsPerWarp; ++h) {
+              if (warp + h * nwarps >= group) break;  // uniform across the warp
+#pragma unroll
+              for (int e0 = 0; e0 < VN; e0 += 4) {
+                const float4 qv = *reinterpret_cast<const float4*>(
+                    q_s + (warp + h * nwarps) * D + c * VN + e0);
+                s[h][0] = fmaf(qv.x, kf[e0], s[h][0]);
+                s[h][1] = fmaf(qv.y, kf[e0 + 1], s[h][1]);
+                s[h][2] = fmaf(qv.z, kf[e0 + 2], s[h][2]);
+                s[h][3] = fmaf(qv.w, kf[e0 + 3], s[h][3]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < kMaxHeadsPerWarp; ++h) {
+          if (warp + h * nwarps >= group) break;
+          float sc = (s[h][0] + s[h][1]) + (s[h][2] + s[h][3]);
+          if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
+          sc = live ? sc : kNegInf;  // uniform rows: live, score 0
+          p_s[h * tk + t] = sc;
+          m_tile[h] = fmaxf(m_tile[h], sc);
+        }
+      }
+      float alpha[kMaxHeadsPerWarp];
+#pragma unroll
+      for (int h = 0; h < kMaxHeadsPerWarp; ++h) alpha[h] = 1.f;
+#pragma unroll
+      for (int h = 0; h < kMaxHeadsPerWarp; ++h) {
+        if (warp + h * nwarps >= group) break;
+        const float m_new = fmaxf(m[h], warp_max(m_tile[h]));
+        alpha[h] = expf(m[h] - m_new);
+        float p_sum = 0.f;
+        for (int t = lane; t < n; t += 32) {
+          const float p = live_t[t] ? expf(p_s[h * tk + t] - m_new) : 0.f;
+          p_s[h * tk + t] = p;
+          p_sum += p;
+        }
+        l[h] = l[h] * alpha[h] + warp_sum(p_sum);
+        m[h] = m_new;
       }
       __syncwarp();
-      const float m_new = fmaxf(m[i], m_page);
-      const float alpha = expf(m[i] - m_new);
-      float p_sum = 0.f;
-      float pv[EPL];
+      // P V: the lanes split the head dim, EPL columns each
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) pv[e] = 0.f;
-      for (int t = 0; t < page_size; ++t) {
-        const float p = expf(my_scores[t] - m_new);
-        p_sum += p;
+      for (int h = 0; h < kMaxHeadsPerWarp; ++h)
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) pv[e] += p * v_tile[t * D + lane + 32 * e];
+        for (int e = 0; e < EPL; ++e) acc[h][e] *= alpha[h];
+#pragma unroll 4
+      for (int t = 0; t < n; ++t) {
+        float vf[EPL];
+        load_floats<Tpool, EPL>(vt + t * PITCH + lane * EPL, vf);
+        if constexpr (QUANT) {
+          const float vs = ks_t[tk + t];
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) vf[e] *= vs;  // v * v_scale, as the reference
+        }
+#pragma unroll
+        for (int h = 0; h < kMaxHeadsPerWarp; ++h) {
+          if (warp + h * nwarps >= group) break;
+          const float p = p_s[h * tk + t];
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[h][e] = fmaf(p, vf[e], acc[h][e]);
+        }
       }
-      l[i] = l[i] * alpha + p_sum;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[i][e] = acc[i][e] * alpha + pv[e];
-      m[i] = m_new;
-      __syncwarp();  // my_scores is rewritten for the next head
     }
+    __syncthreads();  // every warp is done with this stage before it refills
   }
 
+  // the output (one split) or this split's partial: (m, l) per head, and
+  // acc where l > 0
+  const long long rowkv = (long long)b * num_kv + kvh;
+  const long long rows = (long long)gridDim.x * num_kv;
+  Tq* ob = out + ((long long)b * num_heads + (long long)kvh * group) * head_dim;
+  float* ws_ml = ws + rows * splits * group * D;
+  const long long part0 = (rowkv * splits + split) * group;
+  if constexpr (MMA) {
+    const int gq = lane >> 2;
+    const int col0 = warp * (D / 4) + 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < kMaxHeadsPerWarp; ++i) {
-    const int g = warp + i * nwarps;
-    if (g >= group) break;
-    const float denom = fmaxf(l[i], 1e-30f);
-    Tq* o = out + ((long long)b * num_heads + kvh * group + g) * head_dim;
+    for (int r = 0; r < 2; ++r) {
+      const int g = gq + 8 * r;
+      if (g >= group) continue;
+      if (splits == 1) {
+        const float denom = fmaxf(lr[r], 1e-30f);
 #pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      if (lane + 32 * e < head_dim) store(acc[i][e] / denom, o + lane + 32 * e);
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = col0 + 8 * j + e;
+            if (col < head_dim) store(o[j][2 * r + e] / denom, ob + g * head_dim + col);
+          }
+        continue;
+      }
+      if (warp == 0 && (lane & 3) == 0) {
+        const float ml[2] = {mr[r], lr[r]};
+        store_cg<2>(ml, ws_ml + (part0 + g) * 2);
+      }
+      if (lr[r] > 0.f) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float x[2] = {o[j][2 * r], o[j][2 * r + 1]};
+          store_cg<2>(x, ws + (part0 + g) * D + col0 + 8 * j);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < kMaxHeadsPerWarp; ++h) {
+      const int g = warp + h * nwarps;
+      if (g >= group) break;
+      if (splits == 1) {
+        const float denom = fmaxf(l[h], 1e-30f);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          if (lane * EPL + e < head_dim)
+            store(acc[h][e] / denom, ob + g * head_dim + lane * EPL + e);
+        continue;
+      }
+      const float ml[2] = {m[h], l[h]};
+      if (lane == 0) store_cg<2>(ml, ws_ml + (part0 + g) * 2);
+      if (l[h] > 0.f) store_cg<EPL>(acc[h], ws + (part0 + g) * D + lane * EPL);
+    }
   }
+  if (splits > 1)
+    merge<Tq, D>(ws, counters, ob, comb, rows, rowkv, splits, group, head_dim);
 }
 
 struct Args {
@@ -285,43 +511,64 @@ struct Args {
   const void* block_tables;
   const void* lengths;
   void* out;
-  int batch, num_heads, num_kv, head_dim, pages_per_seq, page_size;
+  void* ws;
+  void* counters;
+  int batch, num_heads, num_kv, head_dim, pages_per_seq, page_size, splits, chunk, tp, mma;
   long long stride_page, stride_slot, stride_head;
   long long scale_stride_page, scale_stride_slot, scale_stride_head;
   float scale, softcap;
   cudaStream_t stream;
 };
 
-template <typename Tq, typename Tpool, bool QUANT, int D, int VB>
+template <typename Tq, typename Tpool, bool QUANT, int D, int VB, bool MMA>
 int launch(const Args& a) {
   const int group = a.num_heads / a.num_kv;
-  int nwarps = group < kMinWarps ? kMinWarps : group;
-  if (nwarps > kMaxWarps) nwarps = kMaxWarps;
-  if (group > nwarps * kMaxHeadsPerWarp) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * a.page_size * D + (size_t)nwarps * a.page_size);
-  auto kernel = paged_decode_kernel<Tq, Tpool, QUANT, D, VB>;
+  const int tk = a.tp * a.page_size;
+  int nwarps = (group + kMaxHeadsPerWarp - 1) / kMaxHeadsPerWarp;
+  if (nwarps < kMinWarps || MMA) nwarps = kMinWarps;  // tensor cores: a quarter of D each
+  if (nwarps > kMaxWarps || (MMA && (group > kMmaRows || tk != kMmaKeys)))
+    return (int)cudaErrorInvalidValue;
+  if (a.splits < 1 || a.splits > kMaxSplits || a.chunk < 1 || a.tp < 1 || (long long)(a.splits - 1) * a.chunk >= a.pages_per_seq ||
+      (long long)a.splits * a.chunk < a.pages_per_seq ||
+      (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kStages * stage_bytes(tk, D, (int)sizeof(Tpool), QUANT) +
+                      q_bytes(group, D) +
+                      sizeof(float) * ((size_t)nwarps * kMaxHeadsPerWarp * tk +
+                                       (a.splits > 1 ? (size_t)group * (a.splits + 1) : 0));
+  auto kernel = paged_decode_kernel<Tq, Tpool, QUANT, D, VB, MMA>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<dim3(a.batch, a.num_kv), nwarps * 32, smem, a.stream>>>(
+  kernel<<<dim3(a.batch, a.num_kv, a.splits), nwarps * 32, smem, a.stream>>>(
       static_cast<const Tq*>(a.q), static_cast<const Tpool*>(a.k_pages),
       static_cast<const Tpool*>(a.v_pages), static_cast<const float*>(a.k_scales),
       static_cast<const float*>(a.v_scales), static_cast<const int*>(a.block_tables),
-      static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), a.num_heads, a.num_kv,
-      a.head_dim, a.pages_per_seq, a.page_size, a.stride_page, a.stride_slot, a.stride_head,
+      static_cast<const int*>(a.lengths), static_cast<Tq*>(a.out), static_cast<float*>(a.ws),
+      static_cast<int*>(a.counters), a.num_heads, a.num_kv, a.head_dim, a.pages_per_seq,
+      a.page_size, a.chunk, a.tp, a.stride_page, a.stride_slot, a.stride_head,
       a.scale_stride_page, a.scale_stride_slot, a.scale_stride_head, a.scale, a.softcap);
   return (int)cudaGetLastError();
 }
 
+// The tensor cores take bf16 q and pool at head_dim instances of 64 and up.
+template <typename Tq, typename Tpool, bool QUANT, int D, int VB>
+int dispatch_route(const Args& a) {
+  if constexpr (std::is_same<Tq, bf16>::value && std::is_same<Tpool, bf16>::value && D >= 64) {
+    if (a.mma) return launch<Tq, Tpool, QUANT, D, VB, true>(a);
+  }
+  if (a.mma) return (int)cudaErrorInvalidValue;
+  return launch<Tq, Tpool, QUANT, D, VB, false>(a);
+}
+
 template <typename Tq, typename Tpool, bool QUANT, int VB>
 int dispatch_instance(int head_dim, const Args& a) {
-  if (head_dim <= 32) return launch<Tq, Tpool, QUANT, 32, VB>(a);
-  if (head_dim <= 64) return launch<Tq, Tpool, QUANT, 64, VB>(a);
-  if (head_dim <= 128) return launch<Tq, Tpool, QUANT, 128, VB>(a);
-  return launch<Tq, Tpool, QUANT, 256, VB>(a);
+  if (head_dim <= 32) return dispatch_route<Tq, Tpool, QUANT, 32, VB>(a);
+  if (head_dim <= 64) return dispatch_route<Tq, Tpool, QUANT, 64, VB>(a);
+  if (head_dim <= 128) return dispatch_route<Tq, Tpool, QUANT, 128, VB>(a);
+  return dispatch_route<Tq, Tpool, QUANT, 256, VB>(a);
 }
 
 // The instance for head_dim: the next of 32, 64, 128, 256 (any multiple of
@@ -340,26 +587,32 @@ int dispatch_head_dim(int head_dim, const Args& a) {
 // q_dtype: 0 = float32, 1 = bfloat16.  pool_dtype: q_dtype (k/v scales
 // unused, may be null), or 2 = int8 codes with fp32 k/v scales.  Strides
 // are in elements; the last (head_dim) stride of the pools must be 1.
-// head_dim: a multiple of 8 up to 256.
-// softcap <= 0 means none.  Returns cudaGetLastError() after the launch
-// (0 = launched).
+// head_dim: a multiple of 8 up to 256.  softcap <= 0 means none.  The P
+// table entries are cut into `splits` chunks of `chunk` entries,
+// (splits - 1) * chunk < P <= splits * chunk, walked in tiles of `tp`
+// pages; `mma` != 0 takes the
+// tensor cores (bf16 q and pool, G <= 16, head_dim > 32, tp * page = 32).
+// With splits > 1, `ws` holds B * KV * splits * G * (Dp + 2) floats (Dp:
+// head_dim's instance) and `counters` B * KV int32 zeros, left zero.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
-    const void* v_scales, const void* block_tables, const void* lengths, void* out,
-    int q_dtype, int pool_dtype, int batch, int num_heads, int num_kv, int head_dim,
-    int pages_per_seq, int page_size, long long stride_page, long long stride_slot,
-    long long stride_head, long long scale_stride_page, long long scale_stride_slot,
-    long long scale_stride_head, float scale, float softcap, void* stream) {
-  const Args a{q,           k_pages,     v_pages,     k_scales,          v_scales,
-               block_tables, lengths,     out,         batch,             num_heads,
-               num_kv,      head_dim,    pages_per_seq, page_size, stride_page,       stride_slot,
-               stride_head, scale_stride_page, scale_stride_slot, scale_stride_head, scale,
-               softcap,     static_cast<cudaStream_t>(stream)};
+    const void* v_scales, const void* block_tables, const void* lengths, void* out, void* ws,
+    void* counters, int q_dtype, int pool_dtype, int batch, int num_heads, int num_kv,
+    int head_dim, int pages_per_seq, int page_size, int splits, int chunk, int tp, int mma,
+    long long stride_page, long long stride_slot, long long stride_head,
+    long long scale_stride_page, long long scale_stride_slot, long long scale_stride_head,
+    float scale, float softcap, void* stream) {
+  const Args a{q,          k_pages,     v_pages,      k_scales,          v_scales,
+               block_tables, lengths,   out,          ws,                counters,
+               batch,      num_heads,   num_kv,       head_dim,          pages_per_seq,
+               page_size,  splits,      chunk,        tp,                mma,
+               stride_page, stride_slot, stride_head, scale_stride_page,
+               scale_stride_slot, scale_stride_head, scale, softcap,
+               static_cast<cudaStream_t>(stream)};
   if (q_dtype == 0 && pool_dtype == 0) return dispatch_head_dim<float, float, false>(head_dim, a);
-  if (q_dtype == 1 && pool_dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16, __nv_bfloat16, false>(head_dim, a);
+  if (q_dtype == 1 && pool_dtype == 1) return dispatch_head_dim<bf16, bf16, false>(head_dim, a);
   if (q_dtype == 0 && pool_dtype == 2) return dispatch_head_dim<float, int8_t, true>(head_dim, a);
-  if (q_dtype == 1 && pool_dtype == 2)
-    return dispatch_head_dim<__nv_bfloat16, int8_t, true>(head_dim, a);
+  if (q_dtype == 1 && pool_dtype == 2) return dispatch_head_dim<bf16, int8_t, true>(head_dim, a);
   return (int)cudaErrorInvalidValue;
 }

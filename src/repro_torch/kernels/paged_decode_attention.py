@@ -10,14 +10,27 @@ for both, built for ``sm_90a`` at first use (``kernels/build.py``) and
 called through ``ctypes``.
 
 What bounds it on an H100: decode attention does about two flops per byte
-of K/V it reads, so it is bound by device-memory bandwidth.  The design
+of K/V it reads, so it is bound by device-memory bandwidth (3.35 TB/s),
+which only a full card of blocks with loads in flight reaches.  The kernel
 reads the pool in its native ``(N, page, KV, D)`` layout in place, by
 strides (the Pallas wrapper transposed the whole pool on every call), and
-each thread block loads a page's K/V tile for its KV head once for all G
-query heads of the group (int8 codes are dequantized as they land in
-shared memory, so an int8 pool reads about half the bytes of a bf16 one).
-It keeps one page in flight per block; splitting long sequences across
-blocks and double-buffering the loads are later work.
+walks only the table entries its softmax can weigh: those below
+``ceil(min(len, P * page) / page)``, skipping -1 entries (their weight is
+exactly 0 once the row has a live key).  Each (sequence, KV head)'s entries
+are split over ``splits`` blocks of ``chunk`` entries (flash-decoding),
+chosen here from static shapes only (``plan``): never from the tables or
+lengths, so the wrapper never waits for the device.  The last block of each
+(sequence, KV head) to finish merges the fp32 partials in the same launch.
+Inside a block, tiles of whole pages (32 keys at page 16) stay in their
+storage type in a ``cp.async`` ring (int8 codes with their scales, so an
+int8 pool reads about half the bytes of a bf16 one), each lane scores one
+key, and the G query heads of a KV head share every tile.  A row with no
+live key keeps the reference's uniform average over all P entries; the
+splits spread it too.
+
+The combine's counters and the partials' workspace are shared with the
+dense kernel: one of each per device and stream (``split_scratch``), the
+counters zero between launches.
 
 head_dim is any multiple of 8 up to 256 (H2O-Danube-3's 120 among them):
 the kernel runs its instance at the next of 32, 64, 128, 256 with the true
@@ -35,25 +48,60 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import (HEAD_DIM_INSTANCES, MAX_SPLITS,
+                                                  MMA_ROWS, TILE, min_split_tiles,
+                                                  sm_count, split_plan,
+                                                  split_scratch, tensor_cores)
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_INT8 = 2
-# the kernel's instances: head_dim (a multiple of 8 up to 256) runs the next
-# one up, its lanes past head_dim idle
-_HEAD_DIM_INSTANCES = (32, 64, 128, 256)
 _MAX_GROUP = 32          # 8 warps x 4 query heads per warp
 _MAX_SMEM = 232_448      # bytes of shared memory a block may use on Hopper
-_MAX_WARPS = 8
+_STAGES = 2              # tiles in a block's cp.async ring
+_K_PAD = 16              # bytes after each K and V row in shared memory
+_HEADS_PER_WARP = 4      # CUDA cores: query heads per warp
 _MIN_WARPS = 4
+
+
+def plan(pages_per_seq: int, page_size: int, rows: int, sms: int, group: int,
+         q_dtype: torch.dtype, pool_dtype: torch.dtype, head_dim: int) -> tuple:
+    """(splits, chunk entries, pages per tile, tensor cores) for block
+    tables of ``pages_per_seq`` entries: tiles of whole pages, ``TILE`` keys
+    where the page divides it (one page where it is larger); the tensor
+    cores take bf16 q and pool in 32-key tiles; then the split of
+    ``split_plan`` over the tiles."""
+    tp = max(1, TILE // page_size)
+    dp = next(x for x in HEAD_DIM_INSTANCES if x >= head_dim)
+    mma = (pool_dtype == q_dtype and tp * page_size == TILE
+           and tensor_cores(q_dtype, dp, group))
+    splits, per = split_plan(-(-pages_per_seq // tp), rows, sms,
+                             min_split_tiles(group, pool_dtype.itemsize, tp * page_size),
+                             mma)
+    return splits, per * tp, tp, mma
+
+
+def _smem_bytes(page_size, head_dim, element_size, quantized, group, splits=MAX_SPLITS):
+    """Shared memory of one CUDA-core block, as the kernel lays it out (by
+    default for the most splits; a tensor-core block needs no more): two
+    ring stages, each a tile's K and V rows (padded), for int8 pools the k
+    and v scales, and a live flag per key; q (fp32 G x Dp, or bf16
+    16 x (Dp + 8), room for the larger); each warp's scores; with splits
+    the combine's weights (G x (splits + 1))."""
+    tk = max(1, TILE // page_size) * page_size
+    dp = next(x for x in HEAD_DIM_INSTANCES if x >= head_dim)
+    stage = 2 * tk * (dp * element_size + _K_PAD) + (8 * tk if quantized else 0) + tk
+    nwarps = max(-(-group // _HEADS_PER_WARP), _MIN_WARPS)
+    return (_STAGES * (-(-stage // 16) * 16) + max(4 * group * dp, 2 * MMA_ROWS * (dp + 8))
+            + 4 * (nwarps * _HEADS_PER_WARP * tk + (group * (splits + 1) if splits > 1 else 0)))
 
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.paged_decode_attention
     if fn.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ll, f, f, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       i, i, i, i, ll, ll, ll, ll, ll, ll, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -110,9 +158,8 @@ def _check(q, k_pages, v_pages, block_tables, lengths, k_scales=None,
             or k_pages.data_ptr() % align or v_pages.data_ptr() % align):
         raise ValueError(f"paged_decode_attention: pool rows must be "
                          f"{align}-byte aligned")
-    nwarps = min(max(h // kv, _MIN_WARPS), _MAX_WARPS)
-    instance = next(x for x in _HEAD_DIM_INSTANCES if x >= d)
-    smem = 4 * (2 * page_size * instance + nwarps * page_size)
+    smem = _smem_bytes(page_size, d, k_pages.element_size(),
+                       k_pages.dtype == torch.int8, h // kv)
     if smem > _MAX_SMEM:
         raise ValueError(f"paged_decode_attention: page_size {page_size} needs "
                          f"{smem} bytes of shared memory (max {_MAX_SMEM})")
@@ -142,7 +189,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
         raise ValueError(f"paged_decode_attention: softcap {softcap} must be > 0")
     b, h, d = q.shape
     page_size, kv = k_pages.shape[1], k_pages.shape[2]
+    p = block_tables.shape[1]
     q = q.contiguous()
+    if q.data_ptr() % 16:        # the kernel reads q 16 bytes at a time
+        q = q.clone()
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -155,10 +205,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     fn = _bind(build.library("paged_decode_attention"))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        splits, chunk, tp, mma = plan(p, page_size, b * kv, sm_count(q.device), h // kv,
+                                      q.dtype, k_pages.dtype, d)
+        ws = counters = None
+        if splits > 1:
+            dp = next(x for x in HEAD_DIM_INSTANCES if x >= d)
+            counters, ws = split_scratch(q.device, stream, b * kv,
+                                         b * kv * splits * (h // kv) * (dp + 2))
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 *scale_ptrs, tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(),
                 _DTYPES[q.dtype], _POOL_INT8 if quantized else _DTYPES[q.dtype],
-                b, h, kv, d, tables.shape[1], page_size,
+                b, h, kv, d, p, page_size, splits, chunk, tp, int(mma),
                 k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
                 *scale_strides,
                 d ** -0.5, 0.0 if softcap is None else float(softcap), stream)

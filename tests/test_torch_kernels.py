@@ -509,6 +509,114 @@ def test_cuda_decode_kernel_matches_plain_version(cuda_device, b, h, kv, s, d,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _split_lengths(b, keys, chunk, splits, window=None):
+    """0, 1, chunk - 1, chunk, chunk + 1, the last key, past it (with a
+    window: past S by more than the window), then rows ending in each split
+    count."""
+    fixed = [0, 1, chunk - 1, chunk, chunk + 1, keys, keys + (window or 0) + 37]
+    rest = b - len(fixed)
+    return fixed + [(1 + i * (splits - 1) // max(rest - 1, 1)) * chunk - i % 3
+                    for i in range(rest)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,d,window", [
+    (32, 8, 128, None),      # Qwen3-4B's heads
+    (16, 1, 256, 2048),      # RecurrentGemma-9B's: one KV head, a window past S
+    (16, 1, 256, "chunk"),   # a window across a chunk boundary
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_split_decode_kernel_at_chunk_boundaries(cuda_device, h, kv, d, window,
+                                                      dtype):
+    """The split dense kernel (both routes) at the slice shapes, lengths on
+    and around its chunk boundaries and empty splits."""
+    b, s = 16, 1024
+    tdt, tol = DTYPES[dtype][1], DTYPES[dtype][2]
+    splits, chunk, _ = da.plan(s, b * kv, da.sm_count(cuda_device), h // kv, tdt, d)
+    window = chunk + 5 if window == "chunk" else window
+    q, k, v, _ = _dense_inputs(31, b, h, kv, s, d, [0] * b)
+    tx = [torch.from_numpy(x).to(cuda_device, tdt) for x in (q, k, v)]
+    lens = torch.tensor(_split_lengths(b, s, chunk, splits, window), dtype=torch.int32,
+                        device=cuda_device)
+    got = da.decode_attention(*tx, lens, window=window)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(*tx, lens, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,pool,softcap", [("bfloat16", "bfloat16", None),
+                                                  ("float32", "float32", 30.0),
+                                                  ("bfloat16", "int8", None),
+                                                  ("float32", "int8", 30.0)])
+def test_cuda_split_paged_kernel_at_chunk_boundaries(cuda_device, q_dtype, pool, softcap):
+    """The split paged kernel (both routes) at the serving shape: a row of
+    -1 entries with a length, a length-0 row with every entry assigned, a -1
+    entry inside a live range, an all -1 chunk between live ones, lengths
+    on and around the chunk boundaries and past P * page."""
+    from repro_torch.models.paged import quantize_kv
+
+    b, h, kv, d, page, p_seq = 16, 32, 8, 128, 16, 64
+    tdt, tol = DTYPES[q_dtype][1], DTYPES[q_dtype][2]
+    pool_dtype = torch.int8 if pool == "int8" else DTYPES[pool][1]
+    splits, chunk, _, _ = pda.plan(p_seq, page, b * kv, da.sm_count(cuda_device), h // kv,
+                                   tdt, pool_dtype, d)
+    lengths = _split_lengths(b, p_seq * page, chunk * page, splits)
+    lengths[0], lengths[1] = 5 * page + 3, 0
+    q, kp, vp, bt, _ = _inputs(32, b, h, kv, d, page, p_seq)
+    bt = np.random.default_rng(33).permutation(np.arange(1, kp.shape[0]))[:b * p_seq]
+    bt = bt.reshape(b, p_seq).astype(np.int32)
+    for i, length in enumerate(lengths):
+        if i != 1:
+            bt[i, -(-length // page):] = -1
+    bt[0] = -1
+    bt[2, 0] = -1
+    middle = next(i for i, n in enumerate(lengths) if 2 * chunk * page < n <= p_seq * page)
+    bt[middle, chunk:2 * chunk] = -1
+    tq = torch.from_numpy(q).to(cuda_device, tdt)
+    kp, vp = (torch.from_numpy(x).to(cuda_device) for x in (kp, vp))
+    scales = {}
+    if pool == "int8":
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        scales = {"k_scales": ks, "v_scales": vs}
+    else:
+        kp, vp = kp.to(pool_dtype), vp.to(pool_dtype)
+    tables = torch.from_numpy(bt).to(cuda_device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    got = pda.paged_decode_attention(tq, kp, vp, tables, lens, softcap=softcap, **scales)
+    torch.cuda.synchronize()
+    want = ref.paged_decode_attention_ref(tq, kp, vp, tables, lens, softcap=softcap,
+                                          **scales)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_split_wrappers_never_wait_for_the_device(cuda_device):
+    """The splits come from static shapes: neither wrapper reads lengths or
+    tables on the host (a sync raises under the "error" debug mode), and
+    each launch leaves the combine's counters at zero."""
+    q, k, v, lengths = _dense_inputs(34, 4, 16, 1, 512, 256, [0, 1, 300, 600])
+    dense = [torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v)]
+    dense.append(torch.from_numpy(lengths).to(cuda_device))
+    _, paged = _both(_inputs(35, 4, 32, 8, 128, 16, 64, masked_row=True), "bfloat16")
+    paged = [t.to(cuda_device) for t in paged]
+    da.decode_attention(*dense, window=100)         # built and warm
+    pda.paged_decode_attention(*paged)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        da.decode_attention(*dense, window=100)
+        pda.paged_decode_attention(*paged)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    device = paged[0].device                          # the wrappers' key: cuda:N
+    counters, _ = da.split_scratch(device, torch.cuda.current_stream(device).cuda_stream,
+                                   4 * 8, 0)
+    assert int(counters.abs().sum()) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,h,d", [(1, 512, 40, 64), (16, 1, 40, 64), (2, 300, 3, 32),
                                      (1, 17, 2, 128)])
