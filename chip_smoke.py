@@ -87,6 +87,19 @@ no result):
    and after the live range, a softcap -- with each shape's split plan
    printed, one launch per wrapper call, and both wrappers run under
    ``torch.cuda.set_sync_debug_mode("error")``.
+   Slice 8 gives both scans a chunked route for prefill (T cut into chunks
+   spread over the card; the wrappers plan the route from static shapes):
+   ``kernels`` also holds each scan's routes, forced, against its plain
+   version (T in {2, L - 1, L, L + 1, 300, 512, 2048}, B in {1, 3, 16},
+   head_dim 32 / 64 / 128, strong decays down to 1e-4, a state carried
+   across two calls, strided views, bf16 and fp32 inputs), the prefill
+   shape's times by route and chunk length, and both wrappers under
+   ``set_sync_debug_mode("error")``.  ``model_slot`` (RWKV-6 3B, all 32
+   layers) and ``model_hybrid`` (all 26 RG-LRU layers) add a float64
+   witness: each layer's captured scan inputs recomputed in float64 on the
+   card, every route of the kernel held to ``WITNESS_FACTOR`` times the
+   plain fp32 path's distance from it.  ``serve_rwkv`` / ``serve_hybrid``
+   count the chunked launches too (one per layer and prefill).
 9. ``train_model``: fp32 Qwen3-1.7B at full width, 4 layers: one train step
    with ``attn_impl="kernel"`` against ``"ref"`` (loss, grad norm, params).
 10. ``train``: the slice-3 main path — full-width, full-depth Qwen3-1.7B in
@@ -140,6 +153,10 @@ RWKV_LOGIT_BOUND = 1.5
 # runs its first two pattern groups (a cut of depth: six of 38 layers).
 HYBRID_LOGIT_BOUND = 1e-3
 HYBRID_WITNESS_LAYERS = 6
+# the float64 witness of every recurrent layer (RWKV-6 3B's 32, RecurrentGemma-
+# 9B's 26 RG-LRU layers): each route of the scan kernel may stray from the
+# float64 recurrence at most this many times as far as the plain fp32 path
+WITNESS_FACTOR = 2.0
 
 # the serving configuration the main path runs
 SERVE = dict(num_slots=16, max_total_len=1024, page_size=16, prefill_chunk=128)
@@ -627,6 +644,126 @@ def _wkv_bound(r, k, v, w, y):
             {"flops": flops, "bytes": nbytes})
 
 
+def _strong_decays(gen, shape):
+    """Decays log-uniform in [1e-4, 1]: -log w up to 9.2 a step (RWKV-6's
+    w = exp(-exp(x)) reaches ~7)."""
+    torch = _torch()
+    return 10.0 ** (-4.0 * torch.rand(*shape, generator=gen, device=DEVICE))
+
+
+def _route_errors(label, kernel, run, routes, want) -> dict:
+    """Each forced route (``run(route, chunk)``) against the plain version's
+    outputs ``want`` at the fp32 tolerance (fp32 arithmetic on both sides;
+    bf16 inputs widen exactly).  One line per case; raises on a miss."""
+    torch = _torch()
+    tol = TOL["float32"]
+    errs, ok = {}, True
+    for route, chunk in routes:
+        got = run(route, chunk)
+        torch.cuda.synchronize()
+        key = f"{route}{chunk or ''}"
+        errs[key] = max((g - w).abs().max().item() for g, w in zip(got, want))
+        ok &= all(torch.allclose(g, w, **tol) for g, w in zip(got, want))
+    emit("kernels", case=label, kernel=kernel, max_abs_err=errs, tol=tol, ok=ok)
+    if not ok:
+        raise AssertionError(f"{kernel} {label}: max abs err by route {errs}")
+    return errs
+
+
+def _wkv_route_cases(gen) -> dict:
+    """The WKV scan's two routes, forced, against the plain version: T in
+    {2, L - 1, L, L + 1, 300, 512, 2048} for the chunk length L = 16, B in
+    {1, 3, 16}, head_dim 32, 64 and 128, strong decays (w down to 1e-4) and
+    the milder U(0.3, 1), bf16 r/k/v with fp32 w and all fp32, a state
+    carried across two chunked calls, strided views, and a NaN in w, which
+    every route passes on to the same outputs.  Then the prefill shape's
+    times by route and a sweep over T and B.  Returns {"errors": worst
+    error, "times": ..., "plan": ...}."""
+    torch = _torch()
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels.ref import rwkv6_scan_ref
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+
+    def inputs(b, t, h, d, rkv_dtype, strong):
+        r, k, v = (torch.randn(b, t, h, d, generator=gen, device=DEVICE).to(rkv_dtype)
+                   for _ in range(3))
+        w = (_strong_decays(gen, (b, t, h, d)) if strong
+             else torch.rand(b, t, h, d, generator=gen, device=DEVICE) * 0.7 + 0.3)
+        u = torch.randn(h, d, generator=gen, device=DEVICE) * 0.5
+        st = torch.randn(b, h, d, d, generator=gen, device=DEVICE) * 0.3
+        return r, k, v, w, u, st
+
+    routes = [("step", 0), ("chunked", wkv.CHUNK)]
+    edges = [wkv.CHUNK - 1, wkv.CHUNK, wkv.CHUNK + 1]
+    cases = ([(f"route_T{t}_strong", 1, t, 40, 64, bf16, True)
+              for t in [2, *edges, 300, 512, 2048]]
+             + [(f"route_B3_T{t}_D32", 3, t, 8, 32, bf16, True) for t in [*edges, 300]]
+             + [(f"route_D128_T{t}", 1, t, 16, 128, bf16, True) for t in [*edges, 300]]
+             + [("route_B16_T300_mild", 16, 300, 40, 64, bf16, False),
+                ("route_B16_T33_fp32", 16, 33, 40, 64, fp32, True),
+                ("route_T512_fp32_mild", 1, 512, 40, 64, fp32, False)])
+    worst = 0.0
+    for label, b, t, h, d, dtype, strong in cases:
+        args = inputs(b, t, h, d, dtype, strong)
+        want = rwkv6_scan_ref(*args)
+        errs = _route_errors(label, "rwkv6_scan", lambda route, c: wkv.run(*args, route),
+                             routes, want)
+        worst = max(worst, *errs.values())
+
+    # two chunked calls, the second from the first's state, equal one call;
+    # strided views: time stride 2, head stride 2 D
+    r, k, v, w, u, st = inputs(2, 600, 4, 128, fp32, True)
+    r, k, v, w = (x[:, ::2, :, lo:lo + 64] for x, lo in ((r, 0), (k, 64), (v, 0), (w, 64)))
+    want = rwkv6_scan_ref(r, k, v, w, u[:, :64].contiguous(), st[:, :, :64, :64].contiguous())
+    u, st = u[:, :64].contiguous(), st[:, :, :64, :64].contiguous()
+
+    def split(route, c):
+        y1, s1 = wkv.run(r[:, :101], k[:, :101], v[:, :101], w[:, :101], u, st, route)
+        y2, s2 = wkv.run(r[:, 101:], k[:, 101:], v[:, 101:], w[:, 101:], u, s1, route)
+        return torch.cat([y1, y2], 1), s2
+    errs = _route_errors("route_continuation_strided", "rwkv6_scan", split, routes, want)
+    worst = max(worst, *errs.values())
+
+    # a NaN in w at step 37, row 5 of one head: every route makes NaN the same
+    # outputs as the plain version (the later steps, and that state row)
+    args = inputs(1, 100, 4, 64, bf16, True)
+    args[3][0, 37, 2, 5] = float("nan")
+    want = rwkv6_scan_ref(*args)
+    masks = {route: [torch.equal(g.isnan(), x.isnan()) for g, x in
+                     zip(wkv.run(*args, route), want)] for route, _ in routes}
+    finite = {route: [torch.allclose(g.nan_to_num(), x.nan_to_num(), **TOL["float32"])
+                      for g, x in zip(wkv.run(*args, route), want)] for route, _ in routes}
+    ok = all(all(m) for m in masks.values()) and all(all(f) for f in finite.values())
+    emit("kernels", case="route_nan_decay", kernel="rwkv6_scan", same_nans=masks,
+         finite_close=finite, nan_outputs=int(want[0].isnan().sum()), ok=ok)
+    if not ok:
+        raise AssertionError(f"rwkv6_scan route_nan_decay: NaN masks {masks}, "
+                             f"finite values {finite}")
+
+    # times at the prefill shape (RWKV-6 3B, one sequence of 512 tokens), by
+    # route; the chunked route's kernels (profiler, L2 warm)
+    args = inputs(1, 512, 40, 64, bf16, True)
+    plan = wkv.plan(*args[0].shape)
+    times = {f"{route}{c or ''}": _time_ms(lambda: wkv.run(*args, route))
+             for route, c in routes}
+    kernels = _device_busy(lambda: wkv.run(*args, plan[0]), 20,
+                           kernel=("wkv_chunk_state", "wkv_carry", "wkv_chunk_out"))[1]
+    # where the plan's thresholds sit: both routes over T at one sequence,
+    # and at batches whose heads begin to fill the card
+    sweep = {}
+    for b, t in ((1, 16), (1, 32), (1, 64), (1, 128), (1, 2048), (4, 512), (5, 512),
+                 (6, 512), (8, 512), (12, 512), (16, 512)):
+        a = inputs(b, t, 40, 64, bf16, True)
+        sweep[f"B{b}_T{t}"] = {"plan": wkv.plan(*a[0].shape),
+                               **{f"{route}{c or ''}": _time_ms(lambda: wkv.run(*a, route))
+                                  for route, c in routes}}
+    emit("kernels", case="wkv_route_times", kernel="rwkv6_scan", shape=[1, 512, 40, 64],
+         plan=plan, ms_by_route=times, chunked_kernels_ms=kernels, sweep_ms=sweep,
+         min_t_chunked=wkv.CHUNKED_MIN_T, step_min_heads=wkv.STEP_MIN_HEADS)
+    return {"errors": worst, "times": times, "plan": plan}
+
+
 def _check_close(label, kernel, got, want, tol) -> float:
     torch = _torch()
     err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
@@ -644,11 +781,13 @@ def phase_slot_kernels() -> list:
     D=64, window 128, a length-0 row), bf16 and fp32; the WKV scan at the
     RWKV-6 3B prefill (B=1, T=512, H=40, D=64) and decode (B=16, T=1)
     shapes and an odd one (T=300, D=32), with bf16 r/k/v and fp32 w, plus
-    an all-fp32 case.  Then the rows' times."""
+    an all-fp32 case; the WKV scan's routes forced (``_wkv_route_cases``).
+    Then the rows' times."""
     torch = _torch()
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels import rwkv6_scan as wkv
     from repro_torch.kernels.ref import decode_attention_ref, rwkv6_scan_ref
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
@@ -739,6 +878,7 @@ def phase_slot_kernels() -> list:
         pass
     else:
         raise AssertionError("rwkv6_scan ran on inputs that need a gradient")
+    routes = _wkv_route_cases(gen)
     times = {}
     for key, a, out in (("decode", args, y), ("prefill", pargs, py)):
         # the plain prefill is a 512-step host loop that no device sleep
@@ -756,10 +896,16 @@ def phase_slot_kernels() -> list:
                  "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "bound_detail": detail, "library_ms": None,
                  "library_call": "none: no PyTorch call computes the WKV recurrence",
-                 "shape": "decode: B=16 T=1 H=40 D=64, bf16 r/k/v, fp32 w and state",
+                 "shape": "decode: B=16 T=1 H=40 D=64, bf16 r/k/v, fp32 w and state "
+                          "(the step route)",
                  "prefill_ms": p_ms, "prefill_plain_wall_ms": p_plain,
                  "prefill_bound_ms": p_bound, "prefill_bound_by": p_by,
                  "prefill_bound_detail": p_detail,
+                 "prefill_route": routes["plan"][0], "prefill_chunk": routes["plan"][1],
+                 "prefill_kernels_per_call": wkv.KERNELS_PER_CALL[routes["plan"][0]],
+                 "prefill_ms_by_route": routes["times"],
+                 "route_cases_max_abs_err": routes["errors"],
+                 "registers": _ptxas_registers("rwkv6_scan"),
                  "prefill_shape": "B=1 T=512 H=40 D=64, bf16 r/k/v, fp32 w and state"})
     for row in rows:
         emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
@@ -805,6 +951,122 @@ def _ptxas_registers(name: str) -> dict:
     return out
 
 
+def _rglru_route_cases(gen) -> dict:
+    """The RG-LRU scan's two routes, forced, against the plain version: T in
+    {2, L - 1, L, L + 1, 300, 512, 2048} for L in 16, 32, 64 (and the
+    plan's L), B in {1, 3, 16}, W 4096 and an odd 96, fp32 and bf16 a/b,
+    decays a log-uniform in [1e-4, 1) and a near 1 (long memory), a nonzero
+    h0, a state carried across two chunked calls, and strided views.  Then
+    the prefill shape's times by route and L.  Returns {"errors": worst
+    error, "times": ..., "plan": ...}."""
+    torch = _torch()
+    from repro_torch.kernels import rglru_scan as lru
+    from repro_torch.kernels.ref import rglru_scan_ref
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    chunks = sorted({16, 32, 64, lru.plan(1, 512, 4096)[1]})
+    routes = [("direct", 0)] + [("chunked", c) for c in chunks]
+
+    def inputs(b, t, w, dtype, decays):
+        a = (_strong_decays(gen, (b, t, w)).clamp(max=0.9999) if decays == "strong"
+             else 1.0 - 10.0 ** (-1.0 - 3.0 * torch.rand(b, t, w, generator=gen, device=DEVICE)))
+        bb = torch.randn(b, t, w, generator=gen, device=DEVICE) * 0.5
+        h0 = torch.randn(b, w, generator=gen, device=DEVICE)
+        return a.to(dtype), bb.to(dtype), h0
+
+    edges = sorted({t for c in chunks for t in (c - 1, c, c + 1)})
+    cases = ([(f"route_T{t}_strong", 1, t, 4096, fp32, "strong") for t in [2, *edges, 300, 512]]
+             + [("route_T2048_long", 1, 2048, 4096, bf16, "long"),
+                ("route_T512_long_bf16", 1, 512, 4096, bf16, "long"),
+                ("route_B3_T300_W96", 3, 300, 96, fp32, "long"),
+                ("route_B3_T300_bf16", 3, 300, 4096, bf16, "strong"),
+                ("route_B16_T300", 16, 300, 4096, fp32, "long")])
+    worst = 0.0
+    for label, b, t, w, dtype, decays in cases:
+        a, bb, h0 = inputs(b, t, w, dtype, decays)
+        want = rglru_scan_ref(a, bb, h0)
+        errs = _route_errors(label, "rglru_scan", lambda route, c: lru.run(a, bb, h0, route, c),
+                             routes, want)
+        worst = max(worst, *errs.values())
+
+    # two chunked calls equal one; strided views: time stride 2, batch rows
+    # of a wider buffer
+    a, bb, h0 = inputs(2, 1200, 8192, fp32, "long")
+    a, bb = a[:, ::2, :4096], bb[:, ::2, 4096:]
+    want = rglru_scan_ref(a, bb, h0[:, :4096].contiguous())
+    h0 = h0[:, :4096].contiguous()
+
+    def split(route, c):
+        hs1, h1 = lru.run(a[:, :257], bb[:, :257], h0, route, c)
+        hs2, h2 = lru.run(a[:, 257:], bb[:, 257:], h1, route, c)
+        return torch.cat([hs1, hs2], 1), h2
+    errs = _route_errors("route_continuation_strided", "rglru_scan", split, routes, want)
+    worst = max(worst, *errs.values())
+
+    times = {}
+    for dtype in (fp32, bf16):
+        a, bb, h0 = inputs(1, 512, 4096, dtype, "long")
+        times[str(dtype).split(".")[-1]] = {
+            f"{route}{c or ''}": _time_ms(lambda: lru.run(a, bb, h0, route, c))
+            for route, c in routes}
+    plan = lru.plan(1, 512, 4096)
+    kernels = _device_busy(lambda: lru.run(a, bb, h0, *plan), 20,
+                           kernel=("rglru_chunk_aggregate", "rglru_chunk_finish"))[1]
+    # where the plan's thresholds sit (fp32 a/b)
+    sweep = {}
+    for b, t in ((1, 32), (1, 64), (1, 128), (1, 2048), (3, 512), (4, 512), (5, 512),
+                 (6, 512), (8, 512), (12, 512), (16, 512)):
+        a, bb, h0 = inputs(b, t, 4096, fp32, "long")
+        sweep[f"B{b}_T{t}"] = {"plan": lru.plan(*a.shape),
+                               **{f"{route}{c or ''}": _time_ms(lambda: lru.run(a, bb, h0,
+                                                                                route, c))
+                                  for route, c in routes}}
+    emit("kernels", case="rglru_route_times", kernel="rglru_scan", shape=[1, 512, 4096],
+         plan=plan, ms_by_route=times, chunked_kernels_ms_bf16=kernels, sweep_ms=sweep,
+         min_t_chunked=lru.CHUNKED_MIN_T, direct_min_threads=lru.DIRECT_MIN_THREADS)
+    return {"errors": worst, "times": times, "plan": plan}
+
+
+def _scan_sync_check() -> None:
+    """Both scan wrappers at their prefill shapes (the chunked route) and at
+    decode (step / direct) under ``set_sync_debug_mode("error")``: the
+    routes come from static shapes, so no call may read a device value on
+    the host.  One launch counted per call."""
+    torch = _torch()
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    def wkv_args(b, t):
+        return [torch.rand(b, t, 40, 64, device=DEVICE) for _ in range(4)] + [
+            torch.zeros(40, 64, device=DEVICE), torch.zeros(b, 40, 64, 64, device=DEVICE)]
+
+    def lru_args(b, t):
+        return [torch.rand(b, t, 4096, device=DEVICE) for _ in range(2)] + [
+            torch.zeros(b, 4096, device=DEVICE)]
+    calls = [(rwkv6_scan, wkv_args(1, 512)), (rwkv6_scan, wkv_args(16, 1)),
+             (rglru_scan, lru_args(1, 512)), (rglru_scan, lru_args(16, 1))]
+    for fn, args in calls:                       # built and warm
+        fn(*args)
+    torch.cuda.synchronize()
+    before = [(fn.launches, fn.launches_chunked) for fn, _ in calls]
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn, args in calls:
+            fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    wkv_counts = (rwkv6_scan.launches - before[0][0], rwkv6_scan.launches_chunked - before[0][1])
+    lru_counts = (rglru_scan.launches - before[2][0], rglru_scan.launches_chunked - before[2][1])
+    emit("kernels", case="scan_sync_debug", sync_debug_mode="error", ok=True,
+         routes={"rwkv6_scan": ["chunked", "step"], "rglru_scan": ["chunked", "direct"]},
+         launches={"rwkv6_scan": wkv_counts, "rglru_scan": lru_counts})
+    if wkv_counts != (2, 1) or lru_counts != (2, 1):
+        raise AssertionError(f"scan wrappers counted {wkv_counts} / {lru_counts} launches "
+                             "(calls, chunked) for two calls each, one at a prefill shape")
+
+
 def phase_hybrid_kernels():
     """The hybrid's kernels against their plain versions: the RG-LRU scan
     at RecurrentGemma-9B's prefill (B=1, T=512, W=4096) and decode (B=16,
@@ -813,12 +1075,15 @@ def phase_hybrid_kernels():
     prefill, and the refusal of inputs that need a gradient; decode
     attention at the hybrid's serve shape (B=16, H=16, KV=1, D=256,
     S=1024, ragged lengths, window 2048) and an odd one (S=300, window
-    128, a length-0 row), bf16 and fp32.  Every scan case is timed.
+    128, a length-0 row), bf16 and fp32.  Every scan case is timed; the
+    scan's routes forced (``_rglru_route_cases``), and both scan wrappers
+    under the sync debug mode (``_scan_sync_check``).
     Returns (the ``rglru_scan`` row, the decode-attention row's hybrid
     fields)."""
     torch = _torch()
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import rglru_scan as lru
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref, rglru_scan_ref
     from repro_torch.kernels.rglru_scan import rglru_scan
@@ -874,6 +1139,8 @@ def phase_hybrid_kernels():
                             max_abs_err=err, shape=list(a.shape), dtype=str(a.dtype))
         emit("kernels", case=label, kernel="rglru_scan", **times[label])
     registers = _ptxas_registers("rglru_scan")
+    routes = _rglru_route_cases(gen)
+    _scan_sync_check()
     dec, pre = times["decode_fp32"], times["prefill_fp32"]
     row = {"name": "rglru_scan", "route": "cuda",
            "source": "src/repro_torch/csrc/rglru_scan.cu",
@@ -883,10 +1150,15 @@ def phase_hybrid_kernels():
            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
            "bound_detail": dec["bound_detail"], "library_ms": None,
            "library_call": "none: no PyTorch call computes the linear recurrence",
-           "shape": "decode: B=16 T=1 W=4096, fp32 a/b and h0 (the model's gates)",
+           "shape": "decode: B=16 T=1 W=4096, fp32 a/b and h0 (the model's gates; the "
+                    "direct route)",
            "prefill_ms": pre["ms"], "prefill_plain_wall_ms": pre["plain_ms"],
            "prefill_bound_ms": pre["bound_ms"], "prefill_bound_by": pre["bound_by"],
            "prefill_shape": "B=1 T=512 W=4096, fp32 a/b",
+           "prefill_route": routes["plan"][0], "prefill_chunk": routes["plan"][1],
+           "prefill_kernels_per_call": lru.KERNELS_PER_CALL[routes["plan"][0]],
+           "prefill_ms_by_route": routes["times"],
+           "route_cases_max_abs_err": routes["errors"],
            "cases": times, "registers": registers}
 
     def dense_case(b, h, kv, s, d, dtype, fixed):
@@ -1346,6 +1618,97 @@ def _max_diffs(xs, ys) -> list:
     return [(x - y).abs().max().item() for x, y in zip(xs, ys)]
 
 
+def _wkv_f64(r, k, v, w, u, state):
+    """The WKV recurrence in float64 on the card (``ref.py``'s plain version
+    works in fp32)."""
+    torch = _torch()
+    rf, kf, vf, wf = (x.double() for x in (r, k, v, w))
+    ud, s = u.double(), state.double()
+    ys = []
+    for t in range(rf.shape[1]):
+        a = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s + ud[..., None] * a))
+        s = wf[:, t, :, :, None] * s + a
+    return torch.stack(ys, dim=1), s
+
+
+def _rglru_f64(a, b, h0):
+    """The RG-LRU recurrence in float64 on the card."""
+    torch = _torch()
+    ad, bd, h = a.double(), b.double(), h0.double()
+    hs = []
+    for t in range(ad.shape[1]):
+        h = ad[:, t] * h + bd[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def _scan_witness(api, params, prompts) -> list:
+    """The float64 witness of each recurrent layer: every prompt's plain
+    forward runs on the card with its scan's inputs captured layer by layer;
+    each layer's recurrence is recomputed in float64 on the card, and the
+    plain fp32 version (``ref.py``: the kernels' plain versions) and every
+    route of the kernel (forced: step / direct and each chunk length) are
+    held to it.  Per layer, the largest over the prompts of the max abs
+    error of the outputs and the final state.  A route passes a layer when
+    its error is at most ``WITNESS_FACTOR`` times the plain fp32 path's.
+    For the hybrid the model's own plain scan (the doubling scan) is
+    printed beside them."""
+    torch = _torch()
+    from repro_torch.kernels import rglru_scan as lru
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels.ref import rglru_scan_ref
+    from repro_torch.models import rglru, rwkv6
+
+    ssm = api.cfg.family == "ssm"
+    layers: list = []
+    calls = [0]                       # scan calls so far in this forward: the layer
+
+    def record(outs, f64):
+        i = calls[0]
+        calls[0] += 1
+        errs = {key: max((o.double() - x).abs().max().item() for o, x in zip(out, f64))
+                for key, out in outs.items()}
+        if i == len(layers):
+            layers.append({"layer": i, **errs})
+        else:
+            layers[i] = {key: max(e, errs.get(key, e)) for key, e in layers[i].items()}
+
+    if ssm:
+        module, name = rwkv6, "rwkv6_scan_ref"
+        real = rwkv6.rwkv6_scan_ref
+
+        def shim(r, k, v, w, u, state):
+            out = real(r, k, v, w, u, state)
+            outs = {"plain": out}
+            outs.update({route: wkv.run(r, k, v, w, u, state, route)
+                         for route in ("step", "chunked")})
+            record(outs, _wkv_f64(r, k, v, w, u, state))
+            return out
+    else:
+        module, name = rglru, "doubling_scan"
+        real = rglru.doubling_scan
+
+        def shim(a, b, h0):
+            hs = real(a, b, h0)
+            chunks = sorted({16, 32, 64, lru.plan(*a.shape)[1]} - {0})
+            outs = {"plain": rglru_scan_ref(a, b, h0), "doubling_scan": (hs, hs[:, -1])}
+            outs.update({f"{route}{c or ''}": lru.run(a, b, h0, route, c)
+                         for route, c in [("direct", 0)] + [("chunked", c) for c in chunks]})
+            record(outs, _rglru_f64(a, b, h0))
+            return hs
+    setattr(module, name, shim)
+    try:
+        with torch.no_grad():
+            for prompt in prompts:
+                calls[0] = 0
+                api.apply(params, {"tokens": torch.tensor(prompt, device=DEVICE)[None]},
+                          attn_impl="ref")
+    finally:
+        setattr(module, name, real)
+    return layers
+
+
 def _slot_kernel_vs_ref(arch, api, params, prompts, max_new, phase=None) -> None:
     """The slot engine's kernel path against its plain one at full width:
     prefill and first decode logits, then greedy tokens through two engines
@@ -1357,9 +1720,13 @@ def _slot_kernel_vs_ref(arch, api, params, prompts, max_new, phase=None) -> None
     (the hybrid's witness covers its first ``HYBRID_WITNESS_LAYERS``
     layers, and the kernel is held to it over those layers); the
     accumulated logit difference (prefill, first decode, every position of
-    a forward) within ``RWKV_LOGIT_BOUND`` / ``HYBRID_LOGIT_BOUND``; and a
-    divergence is tolerated only at a top-2 gap below that bound."""
+    a forward) within ``RWKV_LOGIT_BOUND`` / ``HYBRID_LOGIT_BOUND``; a
+    divergence is tolerated only at a top-2 gap below that bound; and the
+    float64 witness of every recurrent layer (``_scan_witness``) holds
+    each route of the scan kernel within ``WITNESS_FACTOR`` times the plain
+    fp32 path's distance from float64."""
     torch = _torch()
+    from repro_torch.models import transformer
     family = api.cfg.family
     ssm = family == "ssm"
     pk, dk, ck = _slot_first_logits(api, params, prompts, "kernel")
@@ -1422,11 +1789,27 @@ def _slot_kernel_vs_ref(arch, api, params, prompts, max_new, phase=None) -> None
          tokens_identical=not divergences, divergences=divergences,
          tolerated_top2_gap_below=tol, rounding_witness=witness,
          layer_divergence=layers)
+    worst = {}
+    if layers is not None:
+        f64 = _scan_witness(api, params, prompts)
+        kernel_keys = [k for k in f64[0] if k not in ("layer", "plain", "doubling_scan")]
+        worst = {k: max(ly[k] / ly["plain"] for ly in f64) for k in kernel_keys}
+        emit(phase or ("model_hybrid" if family == "hybrid" else "model_slot"), arch=arch,
+             check="float64_witness", layers=len(f64), factor=WITNESS_FACTOR,
+             worst_ratio_to_plain=worst, per_layer_max_abs_err_vs_float64=f64)
+        want = (api.cfg.num_layers if ssm
+                else sum(kind != "attn" for kind, _ in transformer.layer_kinds(api.cfg)))
+        if len(f64) != want:
+            raise AssertionError(f"{arch}: the float64 witness saw {len(f64)} of {want} "
+                                 "recurrent layers")
     bad = [dv for dv in divergences if not dv["top2_gap"] < tol]
     if bad:
         raise AssertionError(f"{arch}: slot kernel and ref greedy tokens diverge: {bad}")
     if layers is None:
         return
+    if not all(r <= WITNESS_FACTOR for r in worst.values()):
+        raise AssertionError(f"{arch}: a scan route strays from float64 more than "
+                             f"{WITNESS_FACTOR}x the plain fp32 path: {worst}")
     if any(not ly["one_layer_diff"] <= 1e-5 * ly["scale"] for ly in layers):
         raise AssertionError(f"{arch}: the scan kernel's error in a layer exceeds 1e-5 "
                              f"of its scale: {layers}")
@@ -1734,7 +2117,8 @@ def phase_serve_slot(kernel_row: dict, arch: str, kernel: str) -> None:
     wrapper = {"decode_attention": decode_attention, "rwkv6_scan": rwkv6_scan}[kernel]
     counters = {"kernel_launches": (wrapper, "launches"),
                 "decode_attention_launches": (decode_attention, "launches"),
-                "rwkv6_scan_launches": (rwkv6_scan, "launches")}
+                "rwkv6_scan_launches": (rwkv6_scan, "launches"),
+                "rwkv6_scan_chunked_launches": (rwkv6_scan, "launches_chunked")}
     tasks = _serve_tasks(cfg.vocab_size)
     run = _serve_run(eng, tasks, cfg.vocab_size, counters=counters)
     run.pop("results")
@@ -1747,11 +2131,15 @@ def phase_serve_slot(kernel_row: dict, arch: str, kernel: str) -> None:
     other = ("rwkv6_scan_launches" if kernel == "decode_attention"
              else "decode_attention_launches")
     kernel_row["launches"] = run["kernel_launches"]
-    if run["kernel_launches"] != want or run[other] or not want:
+    # RWKV-6: every prompt of the mix (64-512 tokens) takes the chunked route
+    want_chunked = cfg.num_layers * prefills if kernel == "rwkv6_scan" else 0
+    if (run["kernel_launches"] != want or run[other] or not want
+            or run["rwkv6_scan_chunked_launches"] != want_chunked):
         raise AssertionError(f"{arch}: {run['kernel_launches']} {kernel} launches "
-                             f"({run[other]} {other}), expected {want}: "
-                             f"{run['decode_steps']} decode steps, {prefills} prefills, "
-                             f"{cfg.num_layers} layers")
+                             f"({run[other]} {other}, "
+                             f"{run['rwkv6_scan_chunked_launches']} chunked), expected {want} "
+                             f"({want_chunked} chunked): {run['decode_steps']} decode steps, "
+                             f"{prefills} prefills, {cfg.num_layers} layers")
     extra = {}
     if cfg.family == "ssm":
         extra["state_bytes_per_slot"] = cache_bytes / SERVE_SLOT["num_slots"]
@@ -1759,7 +2147,7 @@ def phase_serve_slot(kernel_row: dict, arch: str, kernel: str) -> None:
         extra["kv_cache_bytes"] = cache_bytes
     emit("serve_rwkv" if cfg.family == "ssm" else "serve_slot", arch=arch,
          dtype=cfg.dtype, family=cfg.family, engine="DecodeEngine", prefills=prefills,
-         expected_launches=want, **run, **extra)
+         expected_launches=want, expected_chunked_launches=want_chunked, **run, **extra)
     _profile_decode(eng, phase="profile_slot",
                     kernel="wkv_kernel" if kernel == "rwkv6_scan" else "decode_kernel",
                     arch=arch, engine="DecodeEngine")
@@ -1907,6 +2295,7 @@ def phase_serve_hybrid(scan_row: dict, decode_row: dict) -> None:
     state_bytes = sum(t.numel() * t.element_size() for t in _tensors(eng.cache.rglru))
     _warm(eng)
     counters = {"kernel_launches": (rglru_scan, "launches"),
+                "rglru_scan_chunked_launches": (rglru_scan, "launches_chunked"),
                 "decode_attention_launches": (decode_attention, "launches"),
                 "rwkv6_scan_launches": (rwkv6_scan, "launches")}
     tasks = _serve_tasks(cfg.vocab_size)
@@ -1919,18 +2308,24 @@ def phase_serve_hybrid(scan_row: dict, decode_row: dict) -> None:
     n_rglru = len(kinds) - n_attn
     want_scan = n_rglru * (prefills + run["decode_steps"])
     want_decode = n_attn * run["decode_steps"]
+    # every prompt of the mix (64-512 tokens) takes the chunked route
+    want_chunked = n_rglru * prefills
     scan_row["launches"] = run["kernel_launches"]
     decode_row["hybrid_launches"] = run["decode_attention_launches"]
     if (run["kernel_launches"] != want_scan or run["decode_attention_launches"] != want_decode
+            or run["rglru_scan_chunked_launches"] != want_chunked
             or run["rwkv6_scan_launches"] or not run["decode_steps"]):
         raise AssertionError(f"serve_hybrid: {run['kernel_launches']} scan launches "
-                             f"(expected {want_scan}), {run['decode_attention_launches']} "
+                             f"(expected {want_scan}; "
+                             f"{run['rglru_scan_chunked_launches']} chunked, expected "
+                             f"{want_chunked}), {run['decode_attention_launches']} "
                              f"decode-attention launches (expected {want_decode}): "
                              f"{run['decode_steps']} decode steps, {prefills} prefills, "
                              f"{n_rglru} RG-LRU and {n_attn} attention layers")
     emit("serve_hybrid", arch=HYBRID_ARCH, dtype=cfg.dtype, family=cfg.family,
          engine="DecodeEngine", layers={"rglru": n_rglru, "attn": n_attn},
          prefills=prefills, expected_launches={"rglru_scan": want_scan,
+                                               "rglru_scan_chunked": want_chunked,
                                                "decode_attention": want_decode},
          **run, weight_bytes=weight_bytes, kv_cache_bytes=kv_bytes,
          rglru_state_bytes_per_slot=state_bytes / SERVE_SLOT["num_slots"])

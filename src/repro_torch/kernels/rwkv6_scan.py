@@ -2,19 +2,31 @@
 ``S <- w_t * S + k_t v_t^T`` per (batch, head), over any number of steps.
 
 Replaces the Pallas TPU kernel ``_wkv_kernel`` behind
-``repro.kernels.rwkv6_scan.rwkv6_scan``.  The CUDA kernel is
+``repro.kernels.rwkv6_scan.rwkv6_scan``.  The CUDA kernels are in
 ``src/repro_torch/csrc/rwkv6_scan.cu``, built for ``sm_90a`` at first use
 (``kernels/build.py``) and called through ``ctypes``.
 
-What bounds it on an H100: at decode (T = 1) the bytes of the two fp32
-states; over a prompt, the serial dependence on t.  One thread block owns a
-(batch, head) pair and keeps its (D, D) state in registers, one column per
-thread, from the first read to the last write; r/k/v/w are read in their
-own dtypes by strides (no transposed fp32 copies, which the Pallas wrapper
-made), and any T is taken (the TPU kernel needed ``T % block_t == 0``).
+Two routes, picked by ``plan`` from static shapes only (no host sync):
+
+- ``"step"`` (decode and short prompts): one launch; one thread block per
+  (batch, head) keeps its (D, D) state in registers over every step.  At
+  decode the bytes of the two fp32 states bound it.
+- ``"chunked"`` (prefill): three launches over (batch, head, chunk of L
+  steps): each chunk's decayed state from zero and total decay, the carry
+  of the states across chunks, then each chunk's outputs.  A one-sequence
+  prefill runs H x T / L blocks instead of H (``ref.rwkv6_scan_chunked_ref``
+  is the same three passes in plain torch).  It takes w in [0, 1], as the
+  model makes it (w = exp(-exp(x))).  L is 16 for every head_dim
+  (``CHUNK``).
+
+r/k/v/w are read in their own dtypes by strides (no transposed fp32
+copies, which the Pallas wrapper made), and any T is taken (the TPU kernel
+needed ``T % block_t == 0``).  ``rwkv6_scan.launches`` counts wrapper calls
+that launched (one call is one or three kernel launches),
+``rwkv6_scan.launches_chunked`` those that took the chunked route.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
-tensor it launches the kernel or raises.  The kernel has no backward: on
+tensor it launches a route or raises.  The kernels have no backward: on
 either device the wrapper refuses inputs that need a gradient, so a
 trainer cannot take its forward for a differentiable one (``attn_impl=
 "ref"`` runs the plain scan, which autograd differentiates).
@@ -30,13 +42,30 @@ from repro_torch.kernels.ref import rwkv6_scan_ref
 
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128)
+# the chunk length L of the chunked route, built for every head_dim
+CHUNK = 16
+# the shortest T the plan sends to the chunked route, and the batch x heads
+# from which the step route's one block per (batch, head) fills the card:
+# at T=512, H=40 on an H100 the chunked route wins at B=4 and the step
+# route from B=6 (chip_smoke.py's sweep)
+CHUNKED_MIN_T = 32
+STEP_MIN_HEADS = 240
+KERNELS_PER_CALL = {"step": 1, "chunked": 3}
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.rwkv6_scan
+def plan(b: int, t: int, h: int, d: int):
+    """(route, chunk L) for r of shape (b, t, h, d): from static shapes
+    only, so the wrapper never reads a device value."""
+    if t < CHUNKED_MIN_T or b * h >= STEP_MIN_HEADS:
+        return "step", 0
+    return "chunked", CHUNK
+
+
+def _bind(lib: ctypes.CDLL, route: str):
+    fn = getattr(lib, "rwkv6_scan_chunked" if route == "chunked" else "rwkv6_scan")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
+        fn.argtypes = ([p] * 9 if route == "chunked" else [p] * 8) + [i] * 5 + [p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -68,6 +97,42 @@ def _check(r, k, v, w, u, state):
         raise ValueError(f"rwkv6_scan: tensors on {devices}")
 
 
+def run(r, k, v, w, u, state, route: str):
+    """Launch a route forced by a check on CUDA tensors.  Counts nothing.
+    Returns (y, new state)."""
+    _check(r, k, v, w, u, state)
+    return _launch(r, k, v, w, u, state, route)
+
+
+def _launch(r, k, v, w, u, state, route):
+    b, t, h, d = r.shape
+    if route not in KERNELS_PER_CALL:
+        raise ValueError(f"rwkv6_scan: unknown route {route!r}")
+    u = u.float().contiguous()
+    state = state.contiguous()
+    y = torch.empty((b, t, h, d), dtype=torch.float32, device=r.device)
+    new_state = torch.empty_like(state)
+    xs = (r, k, v, w)
+    dtypes = sum(1 << n for n, x in enumerate(xs) if x.dtype == torch.bfloat16)
+    strides = (ctypes.c_longlong * 12)(*(s for x in xs for s in x.stride()[:3]))
+    args = [x.data_ptr() for x in xs] + [u.data_ptr(), state.data_ptr(), y.data_ptr(),
+                                         new_state.data_ptr()]
+    ints = [dtypes, b, t, h, d]
+    if route == "chunked":
+        # the chunk states (B, H, chunks, D, D) and decays (B, H, chunks, D)
+        workspace = torch.empty(b * h * -(-t // CHUNK) * d * (d + 1), dtype=torch.float32,
+                                device=r.device)
+        args.append(workspace.data_ptr())
+    fn = _bind(build.library("rwkv6_scan"), route)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = fn(*args, *ints, ctypes.cast(strides, ctypes.c_void_p), stream)
+    if rc != 0:
+        raise RuntimeError(f"rwkv6_scan: CUDA launch failed (cudaError {rc}, "
+                           f"route {route})")
+    return y, new_state
+
+
 def rwkv6_scan(r, k, v, w, u, state):
     """r/k/v/w: (B, T, H, D) fp32 or bf16 each; u: (H, D); state: (B, H, D,
     D) fp32.  Returns (y (B, T, H, D) fp32, new state (B, H, D, D) fp32)."""
@@ -79,24 +144,13 @@ def rwkv6_scan(r, k, v, w, u, state):
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: device {r.device} not supported")
     _check(r, k, v, w, u, state)
-    b, t, h, d = r.shape
-    u = u.float().contiguous()
-    state = state.contiguous()
-    y = torch.empty((b, t, h, d), dtype=torch.float32, device=r.device)
-    new_state = torch.empty_like(state)
-    xs = (r, k, v, w)
-    dtypes = sum(1 << n for n, x in enumerate(xs) if x.dtype == torch.bfloat16)
-    strides = (ctypes.c_longlong * 12)(*(s for x in xs for s in x.stride()[:3]))
-    fn = _bind(build.library("rwkv6_scan"))
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        rc = fn(*(x.data_ptr() for x in xs), u.data_ptr(), state.data_ptr(),
-                y.data_ptr(), new_state.data_ptr(), dtypes, b, t, h, d,
-                ctypes.cast(strides, ctypes.c_void_p), stream)
-    if rc != 0:
-        raise RuntimeError(f"rwkv6_scan: CUDA launch failed (cudaError {rc})")
+    route, _ = plan(*r.shape)
+    out = _launch(r, k, v, w, u, state, route)
     rwkv6_scan.launches += 1
-    return y, new_state
+    if route == "chunked":
+        rwkv6_scan.launches_chunked += 1
+    return out
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.launches_chunked = 0

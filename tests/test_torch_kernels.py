@@ -664,3 +664,99 @@ def test_cuda_rglru_kernel_matches_plain_version(cuda_device, b, t, w, dtype):
     # fp32 arithmetic on both sides (bf16 inputs are widened exactly)
     torch.testing.assert_close(hs, want_hs, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(h_last, want_last, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the chunked scan routes (prefill), on the card
+# ---------------------------------------------------------------------------
+
+def _strong_decays(seed, shape):
+    """w log-uniform in [1e-4, 1]: -log w up to 9.2 a step."""
+    return (10.0 ** (-4.0 * np.random.default_rng(seed).uniform(size=shape))).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d", [(1, 512, 40, 64), (1, 2, 4, 64), (1, 31, 4, 64),
+                                     (1, 33, 4, 64), (3, 300, 8, 32), (16, 65, 40, 64),
+                                     (1, 300, 8, 128), (1, 2048, 4, 64)])
+@pytest.mark.parametrize("strong", [False, True])
+def test_cuda_chunked_wkv_matches_plain_version(cuda_device, b, t, h, d, strong):
+    """The chunked route (L = 16), bf16 r/k/v with fp32 w (the model's
+    dtypes); strong decays reach w = 1e-4."""
+    r, k, v, w, u, s0 = _wkv_inputs(11, b, t, h, d)
+    if strong:
+        w = _strong_decays(12, w.shape)
+    rkv = [torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (r, k, v)]
+    rest = [torch.from_numpy(x).to(cuda_device) for x in (w, u, s0)]
+    want_y, want_state = ref.rwkv6_scan_ref(*rkv, *rest)
+    y, state = wkv.run(*rkv, *rest, "chunked")
+    torch.cuda.synchronize()
+    # fp32 arithmetic on both sides, in another order
+    torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(state, want_state, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_wkv_continues_and_reads_strided_views(cuda_device):
+    """Two chunked calls equal one, and r/k/v/w may be views with time and
+    head strides of their own."""
+    g = np.random.default_rng(13)
+    big = [torch.from_numpy(g.normal(size=(2, 600, 4, 128)).astype(np.float32)).to(cuda_device)
+           for _ in range(3)]
+    wbig = torch.from_numpy(_strong_decays(14, (2, 600, 4, 128))).to(cuda_device)
+    r, k, v = (x[:, ::2, :, :64] for x in big)
+    w = wbig[:, ::2, :, 64:]
+    u = torch.randn(4, 64, device=cuda_device) * 0.5
+    s0 = torch.randn(2, 4, 64, 64, device=cuda_device) * 0.3
+    want_y, want_state = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    y1, s1 = wkv.run(r[:, :101], k[:, :101], v[:, :101], w[:, :101], u, s0, "chunked")
+    y2, s2 = wkv.run(r[:, 101:], k[:, 101:], v[:, 101:], w[:, 101:], u, s1, "chunked")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([y1, y2], 1), want_y, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(s2, want_state, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,w", [(1, 512, 4096), (1, 2, 64), (3, 300, 96), (16, 65, 256),
+                                   (1, 2048, 1024)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_chunked_rglru_matches_plain_version(cuda_device, b, t, w, dtype):
+    """Chunk lengths 1, 16, 33 and longer than T; a in (1e-4, 1)."""
+    a, bb, h0 = _lru_inputs(15, b, t, w)
+    a = np.clip(_strong_decays(16, a.shape), 1e-4, 0.9999)
+    tdt = DTYPES[dtype][1]
+    ta, tb = (torch.from_numpy(x).to(cuda_device, tdt) for x in (a, bb))
+    th0 = torch.from_numpy(h0).to(cuda_device)
+    want_hs, want_last = ref.rglru_scan_ref(ta, tb, th0)
+    for chunk in (1, 16, 33, t + 5):
+        hs, h_last = lru.run(ta, tb, th0, "chunked", chunk)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(hs, want_hs, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(h_last, want_last, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_wrappers_take_the_planned_route_without_waiting(cuda_device):
+    """At a prefill shape both wrappers take the chunked route, count one
+    launch per call, and read no device value on the host (a sync raises
+    under the "error" debug mode)."""
+    r, k, v, w, u, s0 = (torch.from_numpy(x).to(cuda_device)
+                         for x in _wkv_inputs(17, 1, 512, 8, 64))
+    a, bb, h0 = (torch.from_numpy(x).to(cuda_device) for x in _lru_inputs(18, 1, 512, 1024))
+    assert wkv.plan(1, 512, 8, 64)[0] == "chunked" and lru.plan(1, 512, 1024)[0] == "chunked"
+    wkv.rwkv6_scan(r, k, v, w, u, s0)                # built and warm
+    lru.rglru_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    counts = (wkv.rwkv6_scan.launches, wkv.rwkv6_scan.launches_chunked,
+              lru.rglru_scan.launches, lru.rglru_scan.launches_chunked)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wkv.rwkv6_scan(r, k, v, w, u, s0)
+        lru.rglru_scan(a, bb, h0)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    assert (wkv.rwkv6_scan.launches, wkv.rwkv6_scan.launches_chunked,
+            lru.rglru_scan.launches, lru.rglru_scan.launches_chunked) == tuple(
+                c + 1 for c in counts)
