@@ -21,7 +21,10 @@ no result):
    window 128, softcap 30), G x D = 2,048 (H=32 over KV=2), PaliGemma's
    group (G=8, D=256) and head_dim 120 (window 128, softcap 30) in bf16
    and fp32; the bf16 kernels must show tensor-core MMAs (HMMA) in their
-   SASS, and the build's registers and spills are printed.
+   SASS, and the build's registers and spills are printed.  Both kernels
+   also at the shapes the pipeline phases give them (``_pipeline_shapes``:
+   Qwen3-1.7B's replicas of 8 slots over 4 pages and its 16 x 64 train
+   step; the command line's rl_100m with an int8 pool).
 4. ``model``: full-width Qwen3-4B in fp32, the same requests through two
    engines sharing one set of weights, ``attn_impl="kernel"`` and ``"ref"``,
    with a full-precision and with an int8 KV pool: greedy tokens must
@@ -109,6 +112,17 @@ no result):
    whose logits must follow the trainer's.  Exact flash and paged-decode
    launch counts.  Then ``profile_train``: one ``train_on_samples`` under
    ``torch.profiler``.
+11. Slice 9, the asynchronous pipeline through its entry points:
+   ``pipeline_rlvr`` (``build_rlvr_pipeline(...).run``, full-width,
+   full-depth Qwen3-1.7B in bf16, two replicas of 8 slots behind the
+   ``ProxyRouter``, 16 samples a step; alpha = 1 with overlapped weight
+   sync, then alpha = 0, 4 steps each; exact paged-decode and flash
+   launches, staleness <= alpha, the engines hold the trainer's final
+   tree, clean page audits; then a traced run of each mode: device idle
+   share and the threads' CPU seconds), ``pipeline_agentic``
+   (``build_agentic_pipeline`` with ``GridTargetEnv``) and ``train_cli``
+   (``python -m repro_torch.launch.train`` on rl_100m with int8 weights
+   and int8 KV pages, two replicas).
 
 Then the card's name and power limit again, one line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Weights are random, drawn from a seed
@@ -405,6 +419,12 @@ def phase_kernels() -> list:
         ("d120_bf16", 4, 32, 8, 120, page_size, 8, bf16, None, False),
         ("d120_int8_bf16q", 4, 32, 8, 120, page_size, 8, bf16, None, True),
     ]
+    # the pipeline phases' shapes (Qwen3-1.7B: G=2, B=8, P=4; the command
+    # line's rl_100m: G=3, D=64, int8 pool, P=2)
+    for phase, shape in _pipeline_shapes().items():
+        bb, hh, kvv, dd, ps, pp, dtype, int8 = shape["paged"]
+        cases.append((f"{phase}_{'int8' if int8 else dtype}", bb, hh, kvv, dd, ps, pp,
+                      getattr(torch, dtype), None, int8))
     main = {}
     for label, bb, hh, kvv, dd, ps, pp, dtype, softcap, int8 in cases:
         q, kp, vp, tables, lengths, scales = _paged_inputs(gen, bb, hh, kvv, dd, ps, pp,
@@ -534,8 +554,9 @@ def phase_flash_kernels() -> list:
     (G x D = 2,048), PaliGemma's group (G=8, D=256) and H2O-Danube-3's
     head_dim 120 (window 128, softcap 30) in bf16 and fp32.  The bf16
     kernels must compute with tensor-core MMAs (HMMA in their SASS);
-    registers and spills from the build's report.  Then the times of the
-    bf16 trainer-shape case."""
+    registers and spills from the build's report.  The pipeline phases'
+    train steps (``_pipeline_shapes``) in their dtype.  Then the times of
+    the bf16 trainer-shape case."""
     torch = _torch()
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -552,7 +573,11 @@ def phase_flash_kernels() -> list:
             ("gqa16_bf16", 1, 32, 2, 512, 128, bf16, None, None),
             ("g8d256_bf16", 1, 8, 1, 512, 256, bf16, None, None),
             ("d120_bf16", 2, 32, 8, 300, 120, bf16, 128, 30.0),
-            ("d120_fp32", 2, 32, 8, 300, 120, fp32, 128, 30.0)]:
+            ("d120_fp32", 2, 32, 8, 300, 120, fp32, 128, 30.0)] + [
+            # the pipeline phases' train steps (B=16 / 8, S=64; rl_100m:
+            # B=16, H=12, KV=4, S=32, D=64)
+            (phase, *shape["flash"][:5], getattr(torch, shape["flash"][5]), None, None)
+            for phase, shape in _pipeline_shapes().items()]:
         case = _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap)
         if label == "train_bf16":
             main = case
@@ -2159,29 +2184,29 @@ def phase_serve_slot(kernel_row: dict, arch: str, kernel: str) -> None:
 def phase_passk(api, params) -> None:
     """``evaluate_passk`` through the port's slot engine on full-width bf16
     Qwen3-4B: 16 prompts x 4 candidates, 6 new tokens, ``max_total_len``
-    32.  With random weights pass@k is about 0: the phase proves the entry
-    point runs on the card, one decode-kernel launch per layer and step."""
+    32.  With random weights pass@k is about 0: the call proves the entry
+    point runs on the card, with exactly one decode-kernel launch per layer
+    and decode step of its engine (``EvalResult.decode_steps``)."""
     torch = _torch()
     from repro_torch.eval import evaluate_passk
     from repro_torch.kernels.decode_attention import decode_attention
 
+    kw = dict(num_slots=16, max_total_len=32, temperature=1.0, seed=SEED)
     decode_attention.launches = 0
     t0 = time.perf_counter()
     with torch.no_grad():
         res = evaluate_passk(api, params, num_prompts=16, n_per_prompt=4, ks=(1, 4),
-                             max_new_tokens=6, num_slots=16, max_total_len=32,
-                             temperature=1.0, seed=SEED, device=DEVICE)
+                             max_new_tokens=6, device=DEVICE, **kw)
     wall = time.perf_counter() - t0
     launches = decode_attention.launches
-    layers = api.cfg.num_layers
+    layers, steps = api.cfg.num_layers, res.decode_steps
     emit("passk", arch=ARCH, dtype=api.cfg.dtype, num_prompts=res.num_prompts,
          n_per_prompt=res.n_per_prompt, pass_at_1=res.pass_at_1,
-         pass_at_k=res.pass_at_k, wall_s=wall, decode_steps=launches / layers,
+         pass_at_k=res.pass_at_k, wall_s=wall, decode_steps=steps,
          decode_attention_launches=launches)
-    # one launch per layer and decode step: a whole, positive number of steps
-    if not launches or launches % layers:
-        raise AssertionError(f"passk: {launches} decode-attention launches is no "
-                             f"positive multiple of {layers} layers")
+    if launches != layers * steps or not steps:
+        raise AssertionError(f"passk: {launches} decode-attention launches for {steps} "
+                             f"decode steps x {layers} layers")
     if not (0.0 <= res.pass_at_1 <= 1.0 and res.num_prompts == 16):
         raise AssertionError(f"passk: bad result {res}")
 
@@ -2707,6 +2732,418 @@ def phase_profile_train(shared: dict) -> None:
         raise AssertionError("profile_train: the profiler saw no device time")
 
 
+# ---------------------------------------------------------------------------
+# pipeline_rlvr / pipeline_agentic / train_cli: the asynchronous pipeline
+# through its entry points (slice 9)
+# ---------------------------------------------------------------------------
+
+# the RLVR pipeline on full-width, full-depth Qwen3-1.7B: two replicas of 8
+# slots behind the ProxyRouter, 16 samples a step in groups of 4
+PIPE = dict(num_slots=16, rollout_batch_size=16, num_return_sequences_in_group=4,
+            max_new_tokens=32, max_seq_len=64, page_size=16, prefill_chunk=16,
+            pg_variant="decoupled_ppo", num_rollout_replicas=2,
+            weight_sync="overlapped", seed=SEED)
+PIPE_STEPS = 4
+TRACE_STEPS = 3         # the traced runs: steps 1 and 2 under the profiler
+# the agentic pipeline: 2 env groups of 4 GridTargetEnvs (3 turns at most),
+# 2 steps of 8 trajectories
+AGENTIC = dict(num_env_groups=2, group_size=4, max_env_steps=3, steps=2)
+AGENTIC_PIPE = dict(PIPE, rollout_batch_size=8, max_new_tokens=8,
+                    async_generation_ratio=1)
+
+
+# ``train_cli``'s command line (``launch/train.py`` fixes ``max_seq_len``
+# at 32)
+CLI = dict(preset="rl_100m", replicas=2, slots=16, batch=16, max_seq_len=32)
+
+
+def _pipeline_shapes() -> dict:
+    """{phase: {"paged": (B, H, KV, D, page, P, q dtype, int8 pool),
+    "flash": (B, H, KV, S, D, dtype)}}: what the pipeline phases give the
+    paged decode kernel (B = one replica's slots, P = pages per sequence)
+    and the flash kernels (B = samples a train step, S = ``max_seq_len``).
+    ``phase_kernels`` and ``phase_flash_kernels`` hold the kernels against
+    their plain versions at these shapes; ``_run_pipeline`` checks that its
+    engines and trainer have them."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.pipeline import PipelineSettings
+    from repro_torch.launch.train import build_model_cfg
+
+    def shapes(cfg, slots, replicas, max_seq_len, page, batch, int8):
+        return {"paged": (-(-slots // replicas), cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim, page, -(-max_seq_len // page), cfg.dtype, int8),
+                "flash": (batch, cfg.num_heads, cfg.num_kv_heads, max_seq_len,
+                          cfg.head_dim, cfg.dtype)}
+
+    cfg = get_config(TRAIN_ARCH)
+    out = {phase: shapes(cfg, pipe["num_slots"], pipe["num_rollout_replicas"],
+                         pipe["max_seq_len"], pipe["page_size"],
+                         pipe["rollout_batch_size"], False)
+           for phase, pipe in (("pipeline_rlvr", PIPE), ("pipeline_agentic", AGENTIC_PIPE))}
+    out["train_cli"] = shapes(build_model_cfg(TRAIN_ARCH, CLI["preset"]), CLI["slots"],
+                              CLI["replicas"], CLI["max_seq_len"],
+                              PipelineSettings().page_size, CLI["batch"], True)
+    return out
+
+
+def _free_device() -> None:
+    """Release an earlier pipeline's tensors: its objects hold reference
+    cycles (the producer's client calls back into the producer), so only
+    the cycle collector frees them."""
+    import gc
+    gc.collect()
+    _torch().cuda.empty_cache()
+
+
+def _pipeline_reward(sample) -> float:
+    """A seeded synthetic reward (random weights never solve the task):
+    1 when more than half the response's tokens are even."""
+    import numpy as np
+    return float(np.mean(np.asarray(sample.response_tokens) % 2 == 0) > 0.5)
+
+
+def _flash_per_train(layers: int, s) -> tuple:
+    """(forward, backward) flash launches of one ``train_on_samples``
+    (``train/trainer.py``): a forward per layer for the proximal pass
+    (``decoupled_ppo``, or minibatches > 1), a forward and a backward per
+    layer for each minibatch step of each epoch; no reference pass (the
+    pipeline's trainer holds no reference policy)."""
+    steps = s.ppo_epochs * s.minibatches
+    prox = int(s.pg_variant == "decoupled_ppo" or s.minibatches > 1)
+    return layers * (steps + prox), layers * steps
+
+
+def _run_pipeline(phase: str, pipe, steps: int, gpu: str, **fields) -> dict:
+    """``pipe.run(steps)`` with the paged decode and flash counts set to 0
+    just before and read just after; holds launches, staleness, versions,
+    the engines' weights and page audits."""
+    import numpy as np
+    torch = _torch()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention as pda
+
+    cfg, s = pipe.trainer.api.cfg, pipe.settings
+    alpha = s.async_generation_ratio
+    flash = fa.flash_attention
+    per_train = []          # only the trainer (this thread) launches flash
+    batch_sizes = []
+    train = pipe.controller.train_fn
+
+    def counted(samples):
+        f0, b0 = flash.launches_fwd, flash.launches_bwd
+        metrics = train(samples)
+        per_train.append((flash.launches_fwd - f0, flash.launches_bwd - b0))
+        batch_sizes.append(len(samples))
+        return metrics
+
+    pipe.controller.train_fn = counted
+    pda.launches = pda.launches_int8 = 0
+    flash.launches_fwd = flash.launches_bwd = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = pipe.run(steps, timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paged, paged_int8 = pda.launches, pda.launches_int8
+    fwd, bwd = flash.launches_fwd, flash.launches_bwd
+    decode_steps = [e.total_decode_steps for e in pipe.engines]
+
+    # the kernels ran at the shapes phase_kernels / phase_flash_kernels held
+    want = _pipeline_shapes()[phase]
+    paged_shapes = [(e.num_slots, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                     e.page_size, e.pages_per_seq, cfg.dtype, e.kv_quant == "int8")
+                    for e in pipe.engines]
+    flash_shapes = {(n // s.minibatches, cfg.num_heads, cfg.num_kv_heads,
+                     pipe.trainer.tcfg.max_seq_len, cfg.head_dim, cfg.dtype)
+                    for n in batch_sizes}
+    if set(paged_shapes) != {want["paged"]} or flash_shapes != {want["flash"]}:
+        raise AssertionError(f"{phase}: kernel shapes {paged_shapes} / {flash_shapes}, "
+                             f"checked {want}")
+
+    want_paged = cfg.num_layers * sum(decode_steps)
+    if paged != want_paged or not paged or paged_int8:
+        raise AssertionError(f"{phase}: {paged} paged decode launches ({paged_int8} int8) "
+                             f"for decode steps {decode_steps} x {cfg.num_layers} layers")
+    want_train = _flash_per_train(cfg.num_layers, s)
+    if per_train != [want_train] * steps or (fwd, bwd) != (steps * want_train[0],
+                                                           steps * want_train[1]):
+        raise AssertionError(f"{phase}: flash launches per train_on_samples {per_train} "
+                             f"(total {fwd}, {bwd}), expected {want_train} x {steps}")
+    stale = max(st.staleness_max for st in stats)
+    if len(stats) != steps or stale > alpha:
+        raise AssertionError(f"{phase}: {len(stats)} steps, staleness max {stale} > {alpha}")
+    if pipe.buffer.version != steps or \
+            pipe.buffer.total_consumed != steps * s.rollout_batch_size:
+        raise AssertionError(f"{phase}: version {pipe.buffer.version}, consumed "
+                             f"{pipe.buffer.total_consumed}")
+    final = pipe.trainer.get_weights()
+    if not all(e.params is final for e in pipe.engines):
+        raise AssertionError(f"{phase}: an engine does not hold the trainer's final tree")
+    for e in pipe.engines:
+        e.audit_pages()
+    if pipe.router is None or pipe.router.replicas_alive != len(pipe.engines):
+        raise AssertionError(f"{phase}: replicas alive {pipe.router and pipe.router.replicas_alive}")
+    if not all(np.isfinite(st.loss) for st in stats):
+        raise AssertionError(f"{phase}: non-finite loss {[st.loss for st in stats]}")
+
+    step_wall = [st.wait_time + st.train_time + st.sync_time for st in stats]
+    out = dict(
+        gpu=gpu, arch=cfg.arch_id, dtype=cfg.dtype, layers=cfg.num_layers, alpha=alpha,
+        weight_sync="blocking (alpha=0)" if alpha == 0 else s.weight_sync,
+        replicas=len(pipe.engines), slots_per_replica=pipe.engines[0].num_slots,
+        batch=s.rollout_batch_size, steps=steps, wall_s=wall, wall_per_step_s=wall / steps,
+        step_wall_s=step_wall,
+        steady_wall_per_step_s=(sum(step_wall[1:]) / (steps - 1) if steps > 1
+                                else step_wall[0]),
+        per_step=[dict(step=st.step, wait_s=st.wait_time, train_s=st.train_time,
+                       sync_s=st.sync_time, staleness_mean=st.staleness_mean,
+                       staleness_max=st.staleness_max, reward_mean=st.reward_mean,
+                       loss=st.loss, queue_depth=st.queue_depth,
+                       active_per_replica=st.active_per_replica) for st in stats],
+        decode_steps_per_replica=decode_steps, paged_launches=paged,
+        paged_launches_per_step=paged / steps, flash_launches=[fwd, bwd],
+        flash_launches_per_train_on_samples=list(want_train),
+        samples_produced=pipe.buffer.total_produced,
+        samples_consumed=pipe.buffer.total_consumed,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), **fields)
+    emit(phase, **out)
+    return out
+
+
+class _ThreadCPU:
+    """CPU seconds of each thread of this process (``/proc/self/task``),
+    read every ``period`` s by a thread of its own and named by
+    ``threading``'s native ids ("native" for threads Python did not
+    start).  A thread that ends loses at most one period.  At each read
+    also where each Python thread is: its innermost frame in the port's
+    code (``sys._current_frames``), a sample of wall time, not of CPU."""
+
+    def __init__(self, period: float = 0.1):
+        self.period, self.cpu, self.names = period, {}, {}
+        self._base: dict = {}
+        self.where: dict = {}
+        self._halt = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="cpu_sampler", daemon=True)
+
+    def _sample_frames(self) -> None:
+        names = {t.ident: t.name for t in threading.enumerate()}
+        for ident, frame in sys._current_frames().items():
+            name = names.get(ident)
+            if name in (None, "cpu_sampler"):
+                continue
+            inner = frame
+            while frame is not None and "repro_torch" not in frame.f_code.co_filename:
+                frame = frame.f_back
+            frame = frame or inner
+            key = (f"{os.path.basename(frame.f_code.co_filename)}:"
+                   f"{frame.f_code.co_name}:{frame.f_lineno}")
+            counts = self.where.setdefault(name, {})
+            counts[key] = counts.get(key, 0) + 1
+
+    def _read(self) -> None:
+        tick = os.sysconf("SC_CLK_TCK")
+        names = {t.native_id: t.name for t in threading.enumerate()}
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                with open(f"/proc/self/task/{tid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            self.cpu[int(tid)] = (int(fields[11]) + int(fields[12])) / tick  # utime + stime
+            self.names.setdefault(int(tid), names.get(int(tid), "native"))
+
+    def _loop(self) -> None:
+        while not self._halt.wait(self.period):
+            self._read()
+            self._sample_frames()
+
+    def top_frames(self, k: int = 6) -> dict:
+        """{thread name: [[frame, share of its samples], ...]}, the ``k``
+        most sampled frames of each Python thread."""
+        out = {}
+        for name, counts in self.where.items():
+            n = sum(counts.values())
+            out[name] = [[key, c / n] for key, c in
+                         sorted(counts.items(), key=lambda kv: -kv[1])[:k]]
+        return out
+
+    def start(self) -> None:
+        self._read()
+        self._base = dict(self.cpu)
+        self._thread.start()
+
+    def stop(self) -> dict:
+        """{thread name: CPU seconds since ``start``}, summed over threads
+        of one name, the sampler itself left out."""
+        self._halt.set()
+        self._thread.join()
+        self._read()
+        out: dict = {}
+        for tid, sec in self.cpu.items():
+            name = self.names[tid]
+            if name != "cpu_sampler":
+                out[name] = out.get(name, 0.0) + sec - self._base.get(tid, 0.0)
+        return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _busy_us(events) -> float:
+    """Microseconds in which the device ran at least one of ``events``."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def _trace_pipeline(phase: str, pipe, steps: int, gpu: str) -> dict:
+    """Where a pipeline step's time goes: ``pipe.run(steps)`` with steps
+    1.. (from the end of the first train call) under ``torch.profiler``
+    (CUDA activity only) and ``_ThreadCPU``.  Device busy against wall
+    gives the idle share; the process's CPU seconds against wall say how
+    many cores the host kept busy (about 1 when the threads take turns on
+    the interpreter lock), the threads' CPU seconds say who kept them
+    busy, and the sampled frames where each thread spent its wall time.  A separate run: the wall numbers of ``_run_pipeline`` are not
+    profiled."""
+    torch = _torch()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof, cpu, marks = profile(activities=[ProfilerActivity.CUDA]), _ThreadCPU(), {}
+    train = pipe.controller.train_fn
+
+    def traced(samples):
+        metrics = train(samples)
+        if not marks:
+            torch.cuda.synchronize()
+            cpu.start()
+            prof.start()
+            marks.update(t0=time.perf_counter(), p0=time.process_time())
+        return metrics
+
+    pipe.controller.train_fn = traced
+    stats = pipe.run(steps, timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - marks["t0"]
+    process_cpu = time.process_time() - marks["p0"]
+    threads = cpu.stop()            # before the profiler's own processing
+    prof.stop()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _busy_us(device) / 1e6
+    n = steps - 1
+    out = dict(gpu=gpu, alpha=pipe.settings.async_generation_ratio, traced_steps=n,
+               window="from the end of step 0's train call to the end of the run",
+               wall_s=wall, wall_per_step_s=wall / n, device_busy_s=busy,
+               device_busy_per_step_s=busy / n, device_idle_share=max(0.0, 1 - busy / wall),
+               device_ops_per_step=len(device) / n,
+               process_cpu_s=process_cpu, cores_busy=process_cpu / wall,
+               thread_cpu_s={k: v for k, v in list(threads.items())[:10]},
+               thread_frames=cpu.top_frames(),
+               per_step=[dict(step=st.step, wait_s=st.wait_time, train_s=st.train_time,
+                              sync_s=st.sync_time) for st in stats[1:]])
+    emit(phase + "_trace", **out)
+    if not device:
+        raise AssertionError(f"{phase}: the profiler saw no device work")
+    return out
+
+
+def phase_pipeline_rlvr(gpu: str) -> dict:
+    """``build_rlvr_pipeline(...).run`` on full-width, full-depth Qwen3-1.7B,
+    bf16: two replicas, overlapped weight sync at alpha = 1, then the
+    synchronous baseline (alpha = 0, the paper's switch), 4 steps each.
+    Then one traced run of 3 steps in each mode (``_trace_pipeline``)."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.pipeline import PipelineSettings, build_rlvr_pipeline
+
+    cfg = get_config(TRAIN_ARCH)
+    runs = {}
+    for alpha in (1, 0):
+        _free_device()
+        torch.cuda.reset_peak_memory_stats()
+        pipe = build_rlvr_pipeline(cfg, PipelineSettings(async_generation_ratio=alpha,
+                                                         **PIPE),
+                                   reward_fn=_pipeline_reward, device=DEVICE)
+        runs[alpha] = _run_pipeline("pipeline_rlvr", pipe, PIPE_STEPS, gpu)
+        del pipe
+    emit("pipeline_rlvr_summary", gpu=gpu,
+         wall_per_step_s={"alpha1": runs[1]["wall_per_step_s"],
+                          "alpha0": runs[0]["wall_per_step_s"]},
+         steady_wall_per_step_s={"alpha1": runs[1]["steady_wall_per_step_s"],
+                                 "alpha0": runs[0]["steady_wall_per_step_s"]},
+         alpha1_over_alpha0=runs[1]["wall_per_step_s"] / runs[0]["wall_per_step_s"])
+    for alpha in (1, 0):
+        _free_device()
+        pipe = build_rlvr_pipeline(cfg, PipelineSettings(async_generation_ratio=alpha,
+                                                         **PIPE),
+                                   reward_fn=_pipeline_reward, device=DEVICE)
+        runs[alpha]["trace"] = _trace_pipeline("pipeline_rlvr", pipe, TRACE_STEPS, gpu)
+        del pipe
+    return runs
+
+
+def phase_pipeline_agentic(gpu: str) -> dict:
+    """``build_agentic_pipeline(...).run`` on the same model: GridTargetEnv
+    managers behind two replicas, 2 steps of 8 trajectories."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.envs import GridTargetEnv
+    from repro_torch.launch.pipeline import PipelineSettings, build_agentic_pipeline
+
+    _free_device()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = build_agentic_pipeline(
+        get_config(TRAIN_ARCH), PipelineSettings(**AGENTIC_PIPE),
+        make_env=lambda i: GridTargetEnv(i, max_steps=AGENTIC["max_env_steps"]),
+        num_env_groups=AGENTIC["num_env_groups"], group_size=AGENTIC["group_size"],
+        max_env_steps=AGENTIC["max_env_steps"], device=DEVICE)
+    run = _run_pipeline("pipeline_agentic", pipe, AGENTIC["steps"], gpu,
+                        env="GridTargetEnv", **{k: v for k, v in AGENTIC.items()
+                                                if k != "steps"})
+    if any(m.is_alive() for m in pipe.pool.managers):
+        raise AssertionError("pipeline_agentic: env managers outlived the run")
+    del pipe
+    _free_device()
+    return run
+
+
+def phase_train_cli(gpu: str) -> None:
+    """``python -m repro_torch.launch.train`` as a user runs it, on the card:
+    a 100M-parameter Qwen3 (rl_100m), two replicas, int8 rollout weights
+    and int8 KV pages (the int8 paged kernel), 3 steps."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "chip_smoke", "train_cli.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    cmd = ["-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--preset", CLI["preset"],
+           "--steps", "3", "--rollout-replicas", str(CLI["replicas"]),
+           "--num-slots", str(CLI["slots"]), "--rollout-batch-size", str(CLI["batch"]),
+           "--rollout-quant", "int8", "--kv-quant", "int8", "--tis-clip", "2", "--out", out]
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, *cmd], env=env, cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"train_cli: exit {run.returncode}\n{run.stdout[-2000:]}\n"
+                             f"{run.stderr[-4000:]}")
+    with open(out) as f:
+        stats = json.load(f)
+    if len(stats) != 3 or [st["step"] for st in stats] != [0, 1, 2]:
+        raise AssertionError(f"train_cli: wrote {len(stats)} steps")
+    if not all(st["quant_modes"] == {"int8": CLI["batch"]} for st in stats):
+        raise AssertionError(f"train_cli: batches by quant mode "
+                             f"{[st['quant_modes'] for st in stats]}")
+    emit("train_cli", gpu=gpu, command="python " + " ".join(cmd[:-2]), exit=run.returncode,
+         seconds=seconds, steps=len(stats),
+         step_wall_s=[st["wait_time"] + st["train_time"] + st["sync_time"] for st in stats],
+         staleness_max=[st["staleness_max"] for st in stats],
+         quant_modes=stats[-1]["quant_modes"], replicas_alive=stats[-1]["replicas_alive"],
+         stdout=run.stdout.strip().splitlines()[-6:])
+
+
 def _device_us(evt) -> float:
     for name in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, name):
@@ -2821,6 +3258,16 @@ def main() -> int:
             row["launches"] = sum(st[key] for st in shared["steps"])
             row["launches_per_train_on_samples"] = shared["steps"][0][key]
         phase_profile_train(shared)
+        del shared
+        rlvr = phase_pipeline_rlvr(gpu)
+        runs = {"rlvr_alpha1": rlvr[1], "rlvr_alpha0": rlvr[0],
+                "agentic": phase_pipeline_agentic(gpu)}
+        # the slice-9 paths' own counts, beside each row's earlier path
+        for row, count in ((rows[0], lambda r: r["paged_launches"]),
+                           (rows[2], lambda r: r["flash_launches"][0]),
+                           (rows[3], lambda r: r["flash_launches"][1])):
+            row["pipeline_launches"] = {k: count(r) for k, r in runs.items()}
+        phase_train_cli(gpu)
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -4,7 +4,9 @@ port of the JAX package's ``eval/passk.py``.
 Drives the slot ``DecodeEngine`` directly — the same serving path the
 rollout uses — with k sampled candidates per prompt (temperature 1) plus a
 greedy Pass@1 mode, and the unbiased Chen et al. (2021) Pass@k estimator.
-``device`` and ``attn_impl`` go to the engine.
+``device`` and ``attn_impl`` go to the engine.  Unlike the JAX result, an
+``EvalResult`` also carries the engine's decode steps (``decode_steps``),
+against which a caller can hold the kernels' launch counts.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ class EvalResult:
     n_per_prompt: int
     pass_at_1: float
     pass_at_k: dict
+    decode_steps: int = 0
 
 
 def evaluate_passk(api: ModelAPI, params, *, task: Optional[ArithmeticTask] = None,
@@ -75,4 +78,4 @@ def evaluate_passk(api: ModelAPI, params, *, task: Optional[ArithmeticTask] = No
     pk = {k: float(np.mean([pass_at_k_estimator(n_per_prompt, int(ci), k)
                             for ci in c]))
           for k in ks if k <= n_per_prompt}
-    return EvalResult(num_prompts, n_per_prompt, p1, pk)
+    return EvalResult(num_prompts, n_per_prompt, p1, pk, engine.total_decode_steps)

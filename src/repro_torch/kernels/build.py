@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def sources() -> Dict[str, Path]:
@@ -80,6 +81,17 @@ def build_all() -> Dict[str, float]:
     if failed:
         raise RuntimeError("nvcc failed: " + ", ".join(failed))
     return built
+
+
+def count_launch(wrapper, *counters: str) -> None:
+    """Add one to each of ``wrapper``'s launch counters ``counters``.  The
+    wrappers run on several threads at once (rollout replicas and the
+    trainer), and ``+= 1`` on a function attribute is a read-modify-write
+    that can lose an update between threads: every count goes through this
+    one lock."""
+    with _count_lock:
+        for name in counters:
+            setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -36,6 +36,7 @@ tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -96,6 +97,7 @@ def plan(seq_len: int, rows: int, sms: int, group: int, dtype: torch.dtype,
 
 _SMS: dict = {}
 _SCRATCH: dict = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
 def sm_count(device: torch.device) -> int:
@@ -112,14 +114,19 @@ def split_scratch(device: torch.device, stream: int, rows: int, floats: int) -> 
     zeros, one per (row, KV head), which each launch leaves at zero, and
     ``floats`` fp32 for the partials.  Launches run in order on one stream,
     so they share both (the dense and the paged kernel too); another stream
-    gets its own.  Allocated once, grown when a call needs more."""
+    gets its own.  Allocated once, grown when a call needs more.  Threads
+    launching on one stream (rollout replicas) share them too: a buffer one
+    thread replaces stays referenced by the other until its launch is
+    queued, and the stream runs that launch before any later use of the
+    freed memory."""
     key = (device.index, stream)
-    counters, ws = _SCRATCH.get(key, (None, None))
-    if counters is None or counters.numel() < rows:
-        counters = torch.zeros(rows, dtype=torch.int32, device=device)
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(floats, dtype=torch.float32, device=device)
-    _SCRATCH[key] = (counters, ws)
+    with _SCRATCH_LOCK:
+        counters, ws = _SCRATCH.get(key, (None, None))
+        if counters is None or counters.numel() < rows:
+            counters = torch.zeros(rows, dtype=torch.int32, device=device)
+        if ws is None or ws.numel() < floats:
+            ws = torch.empty(floats, dtype=torch.float32, device=device)
+        _SCRATCH[key] = (counters, ws)
     return counters, ws
 
 
@@ -199,7 +206,7 @@ def decode_attention(q, k, v, lengths, *, window=None):
                 0 if window is None else int(window), d ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention: CUDA launch failed (cudaError {rc})")
-    decode_attention.launches += 1
+    build.count_launch(decode_attention, "launches")
     return out
 
 

@@ -151,7 +151,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
                  c, w, d ** -0.5, cap, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention forward: CUDA launch failed (cudaError {rc})")
-    flash_attention.launches_fwd += 1
+    build.count_launch(flash_attention, "launches_fwd")
     return o, lse
 
 
@@ -186,7 +186,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
                  k.shape[1], s, d, strides, c, w, d ** -0.5, cap, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: CUDA launch failed (cudaError {rc})")
-    flash_attention.launches_bwd += 1
+    build.count_launch(flash_attention, "launches_bwd")
     return dq, dk, dv
 
 

@@ -224,9 +224,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA launch failed "
                            f"(cudaError {rc})")
-    paged_decode_attention.launches += 1
-    if quantized:
-        paged_decode_attention.launches_int8 += 1
+    build.count_launch(paged_decode_attention,
+                       *(("launches", "launches_int8") if quantized else ("launches",)))
     return out
 
 

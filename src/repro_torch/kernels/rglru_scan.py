@@ -133,7 +133,8 @@ def rglru_scan(a, b, h0):
     (hs (B, T, W) fp32, h_last (B, W) fp32)."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (a, b, h0)):
         raise RuntimeError("rglru_scan: the RG-LRU kernel has no backward; "
-                           "differentiate through attn_impl='ref' (the plain scan)")
+                           "differentiate through the plain scan (scan_impl='ref', "
+                           "as make_train_step does)")
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
     if a.device.type != "cuda":
@@ -141,9 +142,8 @@ def rglru_scan(a, b, h0):
     _check(a, b, h0)
     route, chunk = plan(*a.shape)
     out = _launch(a, b, h0, route, chunk)
-    rglru_scan.launches += 1
-    if route == "chunked":
-        rglru_scan.launches_chunked += 1
+    build.count_launch(rglru_scan, *(("launches", "launches_chunked")
+                                     if route == "chunked" else ("launches",)))
     return out
 
 

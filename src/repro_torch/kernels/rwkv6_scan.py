@@ -138,7 +138,8 @@ def rwkv6_scan(r, k, v, w, u, state):
     D) fp32.  Returns (y (B, T, H, D) fp32, new state (B, H, D, D) fp32)."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, w, u, state)):
         raise RuntimeError("rwkv6_scan: the WKV kernel has no backward; "
-                           "differentiate through attn_impl='ref' (the plain scan)")
+                           "differentiate through the plain scan (scan_impl='ref', "
+                           "as make_train_step does)")
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, w, u, state)
     if r.device.type != "cuda":
@@ -146,9 +147,8 @@ def rwkv6_scan(r, k, v, w, u, state):
     _check(r, k, v, w, u, state)
     route, _ = plan(*r.shape)
     out = _launch(r, k, v, w, u, state, route)
-    rwkv6_scan.launches += 1
-    if route == "chunked":
-        rwkv6_scan.launches_chunked += 1
+    build.count_launch(rwkv6_scan, *(("launches", "launches_chunked")
+                                     if route == "chunked" else ("launches",)))
     return out
 
 

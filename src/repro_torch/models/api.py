@@ -3,7 +3,7 @@
 
     api = get_api(cfg, device=)            # the card unless device= says otherwise
     params = api.init(seed)
-    logits, aux = api.apply(params, batch, attn_impl=)   # kernel | ref
+    logits, aux = api.apply(params, batch, attn_impl=, scan_impl=)   # kernel | ref
     cache = api.init_cache(batch_size, max_len)          # KVCache | RWKVState | HybridCache
     logits, cache = api.prefill(params, batch, cache, attn_impl=)
     logits, cache = api.decode_step(params, token, pos, cache, attn_impl=)
@@ -35,7 +35,7 @@ class ModelAPI:
     cfg: ModelConfig
     device: torch.device
     init: Callable[..., Any]              # (seed) -> params on device
-    apply: Callable[..., Any]             # (params, batch, return_features=, attn_impl=) -> (logits, aux)
+    apply: Callable[..., Any]             # (params, batch, return_features=, attn_impl=, scan_impl=) -> (logits, aux)
     prefill: Callable[..., Any]           # (params, batch, cache, attn_impl=) -> (logits, cache)
     decode_step: Callable[..., Any]       # (params, token, pos, cache, attn_impl=) -> (logits, cache)
     init_cache: Callable[..., Any]        # (batch, max_len) -> KVCache | RWKVState | HybridCache
@@ -56,10 +56,11 @@ def get_api(cfg: ModelConfig, *, device=None) -> ModelAPI:
     def init(seed: int = 0):
         return transformer.init_lm(cfg, seed, device=device)
 
-    def apply(params, batch, *, return_features=False, attn_impl="kernel"):
+    def apply(params, batch, *, return_features=False, attn_impl="kernel",
+              scan_impl=None):
         return transformer.lm_apply(params, cfg, batch["tokens"],
                                     return_features=return_features,
-                                    attn_impl=attn_impl)
+                                    attn_impl=attn_impl, scan_impl=scan_impl)
 
     def prefill(params, batch, cache, *, attn_impl="kernel"):
         return transformer.lm_prefill(params, cfg, batch["tokens"], cache,

@@ -19,7 +19,8 @@ Entry points:
 
 ``attn_impl`` ("kernel" | "ref") picks the dense family's attention
 kernels, the RWKV-6 family's WKV scan kernel, and the hybrid's RG-LRU scan
-and decode-attention kernels against their plain versions.  Quantized
+and decode-attention kernels against their plain versions (``lm_apply``
+takes the scans' choice apart, as ``scan_impl``).  Quantized
 trees (``quant.quantize_params``, with ``block_groups(cfg)``) are
 dequantized one layer at a time inside the layer loops.
 """
@@ -238,20 +239,25 @@ def _default_positions(b, s, device):
 
 
 def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
-             return_features: bool = False, attn_impl: str = "kernel"):
+             return_features: bool = False, attn_impl: str = "kernel",
+             scan_impl: Optional[str] = None):
     """Full-sequence causal forward.  Returns (logits fp32, aux dict) — or,
     with ``return_features``, the final-norm hidden states (B, S, D).
     Dense: differentiable with respect to the param tensors; ``attn_impl``
     ``"kernel"`` (flash attention; masks by index, so ``positions`` must be
     left to the default 0..S-1) or ``"ref"`` (plain ``attend``).  RWKV-6:
     every block from a zero state, the WKV scan kernel or its plain version
-    (``attn_impl``); ``positions`` are unused.  Hybrid: the RG-LRU layers
+    (``scan_impl``); ``positions`` are unused.  Hybrid: the RG-LRU layers
     from a zero state through the scan kernel or the reference's doubling
-    scan (``attn_impl``); the attention layers run plain ``attend`` (the
+    scan (``scan_impl``); the attention layers run plain ``attend`` (the
     reference's forward; the flash kernel's fp32 route takes a group x
-    head_dim of at most 512, RecurrentGemma's is 4096)."""
+    head_dim of at most 512, RecurrentGemma's is 4096).  ``scan_impl``
+    defaults to ``attn_impl``; the scan kernels have no backward, so a
+    forward that is differentiated passes ``"ref"``."""
+    scan_impl = attn_impl if scan_impl is None else scan_impl
     _check_family(cfg)
     _check_impl(attn_impl)
+    _check_impl(scan_impl)
     if positions is not None and attn_impl == "kernel" and cfg.family == "dense":
         raise ValueError("lm_apply: explicit positions need attn_impl='ref' "
                          "(the flash kernel masks by sequence index)")
@@ -265,7 +271,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
     elif cfg.family == "ssm":
         state0 = rwkv6.init_rwkv_state(cfg, b, x.device)
         for i, lp in enumerate(params["blocks"]):
-            x, _ = rwkv6.block(lp, cfg, x, state0.layer(i), attn_impl=attn_impl)
+            x, _ = rwkv6.block(lp, cfg, x, state0.layer(i), attn_impl=scan_impl)
     else:
         if positions is None:
             positions = _default_positions(b, s, x.device)
@@ -275,7 +281,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
                 x = _attn_block_apply(lp, cfg, x, positions, "ref")
             else:
                 x, _ = _rglru_block_apply(lp, cfg, x, state0, decode=False,
-                                          attn_impl=attn_impl)
+                                          attn_impl=scan_impl)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"load_balance_loss": zero, "router_z_loss": zero}
     if return_features:

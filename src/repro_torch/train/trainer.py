@@ -9,6 +9,9 @@ The JAX package's ``lax.scan`` over microbatches is a Python loop here,
 ``jax.checkpoint`` is ``torch.utils.checkpoint`` and ``stop_gradient`` is
 ``.detach()``.  The model's attention runs through ``FlashAttention``
 (``attn_impl="kernel"``, the default) or plain ``attend`` (``"ref"``).
+The WKV and RG-LRU scan kernels have no backward: the train step runs the
+scans' plain versions under autograd, the logprob passes (no gradient)
+follow ``attn_impl``.
 """
 from __future__ import annotations
 
@@ -62,11 +65,12 @@ def chunked_token_logprobs(features, head, tokens, *, chunk: int = _CE_CHUNK):
     return torch.cat([zero] + parts, dim=1)
 
 
-def _policy_logprobs(api: ModelAPI, params, batch, *, attn_impl: str):
+def _policy_logprobs(api: ModelAPI, params, batch, *, attn_impl: str,
+                     scan_impl: str):
     """logprobs (B, S) aligned with batch['tokens'] (position t = logprob of
     token t given <t); position 0 is zero (never a response token)."""
     features, aux = api.apply(params, batch, return_features=True,
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, scan_impl=scan_impl)
     head = unembedding_matrix(params, api.cfg)
     return chunked_token_logprobs(features, head, batch["tokens"]), aux
 
@@ -79,13 +83,16 @@ def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
     accumulator divided by m: the same mean loss, 1/m the activations.
     The optimizer updates the state's fp32 master/m/v in place; the params
     of the new state are new tensors.  Metrics are 0-dim tensors (``lr`` a
-    float)."""
+    float).  ``attn_impl`` picks the attention; the recurrent families'
+    scans run their plain versions, which autograd differentiates (the
+    scan kernels have no backward and refuse inputs that need one)."""
     def loss_and_grad(params, batch):
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         it = iter(live)
         p_req = tree_map(lambda _: next(it), params)
-        logprobs, aux = _policy_logprobs(api, p_req, batch, attn_impl=attn_impl)
+        logprobs, aux = _policy_logprobs(api, p_req, batch, attn_impl=attn_impl,
+                                         scan_impl="ref")
         loss, metrics = rl_loss(logprobs, batch, loss_cfg, aux)
         grads = torch.autograd.grad(loss, live)
         it = iter(grads)
@@ -128,7 +135,8 @@ def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
 def make_logprob_fn(api: ModelAPI, *, attn_impl: str = "kernel"):
     def logprob_fn(params, batch):
         with torch.no_grad():
-            lp, _ = _policy_logprobs(api, params, batch, attn_impl=attn_impl)
+            lp, _ = _policy_logprobs(api, params, batch, attn_impl=attn_impl,
+                                     scan_impl=attn_impl)
         return lp
 
     return logprob_fn
@@ -157,9 +165,15 @@ def _group_normalized_advantage(rewards: np.ndarray, group_size: int,
 
 
 class HostTrainer:
+    """``attn_impl`` ("kernel" or "ref") reaches both the train step and
+    the logprob passes; the train step runs the recurrent families' scans
+    plain (``make_train_step``)."""
+
     def __init__(self, api: ModelAPI, seed: int, loss_cfg: LossConfig,
                  opt_cfg: OptConfig, tcfg: TrainerConfig, *,
-                 ref_params=None):
+                 ref_params=None, attn_impl: str = "kernel"):
+        if attn_impl not in ("kernel", "ref"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
         if tcfg.adv_estimator == "gae":
             raise NotImplementedError(
                 "adv_estimator='gae' needs the critic (train/critic.py), which "
@@ -168,9 +182,10 @@ class HostTrainer:
         self.loss_cfg = loss_cfg
         self.tcfg = tcfg
         self.state = make_train_state(api, seed)
-        self._train_step = make_train_step(api, loss_cfg, opt_cfg)
+        self._train_step = make_train_step(api, loss_cfg, opt_cfg,
+                                           attn_impl=attn_impl)
         self.ref_params = ref_params  # frozen copy for KL (None = no KL)
-        self._logprob_fn = make_logprob_fn(api)
+        self._logprob_fn = make_logprob_fn(api, attn_impl=attn_impl)
         self.steps_done = 0
         self.history: List[Dict[str, float]] = []
 

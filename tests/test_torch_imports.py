@@ -46,7 +46,13 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "        'repro_torch.data.dataset', 'repro_torch.rewards',\n"
         "        'repro_torch.rewards.verifier', 'repro_torch.eval',\n"
         "        'repro_torch.eval.passk', 'repro_torch.models.rglru',\n"
-        "        'repro_torch.kernels.rglru_scan'} <= set(names), names\n"
+        "        'repro_torch.kernels.rglru_scan', 'repro_torch.core.sample_buffer',\n"
+        "        'repro_torch.core.faults', 'repro_torch.core.rollout_client',\n"
+        "        'repro_torch.core.router', 'repro_torch.core.scheduler',\n"
+        "        'repro_torch.core.async_controller', 'repro_torch.core.env_manager',\n"
+        "        'repro_torch.envs', 'repro_torch.envs.base', 'repro_torch.envs.sim_envs',\n"
+        "        'repro_torch.launch', 'repro_torch.launch.pipeline',\n"
+        "        'repro_torch.launch.train'} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -79,6 +85,9 @@ def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
     from repro_torch.models.transformer import init_lm
     from repro_torch.eval import evaluate_passk
     from repro_torch.rollout import DecodeEngine, PagedDecodeEngine
+    from repro_torch.envs import GridTargetEnv
+    from repro_torch.launch.pipeline import (PipelineSettings, build_agentic_pipeline,
+                                             build_rlvr_pipeline)
 
     cfg = _cfg()
     api = get_api(cfg, device="cpu")
@@ -95,6 +104,11 @@ def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
         DecodeEngine(api, params, num_slots=2, max_total_len=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate_passk(api, params, num_prompts=1, n_per_prompt=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_rlvr_pipeline(cfg, PipelineSettings())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_agentic_pipeline(cfg, PipelineSettings(), make_env=GridTargetEnv,
+                               num_env_groups=1, group_size=2)
     DecodeEngine(api, params, num_slots=2, max_total_len=32, device="cpu")
     # explicit CPU works, and the engine refuses a device unlike the API's
     PagedDecodeEngine(api, params, num_slots=2, max_total_len=32, page_size=8,

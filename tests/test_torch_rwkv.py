@@ -27,7 +27,7 @@ from repro_torch.kernels import rwkv6_scan as scan_mod
 from repro_torch.models import get_api, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import OptConfig, make_train_step
-from repro_torch.train.optimizer import init_opt_state
+from repro_torch.train.optimizer import init_opt_state, tree_leaves, tree_map
 
 # tiny shapes: one torch thread, so the suite's parallel workers keep their
 # cores (torch's pool would otherwise spin on all of them)
@@ -252,15 +252,25 @@ def test_train_step_through_the_plain_scan_matches_jax(models):
 
 
 def test_a_train_step_through_the_scan_kernel_raises(models):
-    """The WKV kernel has no backward: a train step on ``attn_impl="kernel"``
-    (the trainer's default) raises on every device instead of returning
-    gradients that skip the scan (the CPU plain version would hide it)."""
+    """The WKV kernel has no backward: a differentiated forward through it
+    (``scan_impl="kernel"``) raises on every device instead of returning
+    gradients that skip the scan (the CPU plain version would hide it).
+    So a train step on ``attn_impl="kernel"`` (the trainer's default) runs
+    the plain scan under autograd: the same step as ``attn_impl="ref"``."""
     cfg, (japi, jparams), (tapi, tparams) = models
     batch = _train_batch(japi, jparams)
-    step = make_train_step(tapi, algos.LossConfig(), OptConfig(**OPT))
-    with pytest.raises(RuntimeError, match="attn_impl='ref'"):
-        step({"params": tparams, "opt": init_opt_state(tparams)},
-             {k: torch.from_numpy(v) for k, v in batch.items()})
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    live = tree_map(lambda t: t.detach().requires_grad_(True), tparams)
+    with pytest.raises(RuntimeError, match="scan_impl='ref'"):
+        tapi.apply(live, tbatch, scan_impl="kernel")
+    states, metrics = [], []
+    for impl in ("kernel", "ref"):
+        step = make_train_step(tapi, algos.LossConfig(), OptConfig(**OPT), attn_impl=impl)
+        state, m = step({"params": tparams, "opt": init_opt_state(tparams)}, tbatch)
+        states.append(tree_leaves(state["params"]))
+        metrics.append({k: float(v) for k, v in m.items()})
+    assert metrics[0] == metrics[1]
+    assert all(torch.equal(a, b) for a, b in zip(*states))
     # without a gradient the kernel path runs as before
     with torch.no_grad():
         tapi.apply(tparams, {"tokens": torch.from_numpy(batch["tokens"])})
