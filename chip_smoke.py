@@ -123,6 +123,21 @@ no result):
    (``build_agentic_pipeline`` with ``GridTargetEnv``) and ``train_cli``
    (``python -m repro_torch.launch.train`` on rl_100m with int8 weights
    and int8 KV pages, two replicas).
+12. Slice 10, the MoE family at full width, cut in depth (the reference's
+   capacity-factor dispatch, ``moe_mode="ep"``, in serving; every expert
+   on every token, ``"dense"``, in training): ``kernels`` holds the paged
+   kernel (bf16 and int8 pools) and dense decode attention at
+   Qwen3-MoE-235B-A22B's 64 heads over 4 KV heads and DBRX-132B's 48 over
+   8, and flash forward and backward at ``train_moe``'s step, all timed
+   into the rows' ``moe_shapes`` fields.  ``model_moe``: fp32, 2 layers,
+   kernel against plain path through two paged engines (both configs;
+   Qwen3-MoE with an fp32 and an int8 KV pool) and two slot engines
+   (Qwen3-MoE), greedy tokens and exact launches.
+   ``serve_moe``: Qwen3-MoE bf16, 8 of 94 layers, the ``serve`` task mix
+   over ``PagedDecodeEngine`` (exact launches, page audit, weight, KV and
+   peak bytes), then ``profile_moe``.  ``train_moe``: one
+   ``train_on_samples`` of Qwen3-MoE bf16, 1 layer, 16 x 64 tokens (loss,
+   grad norm, router losses, peak memory, exact flash launches).
 
 Then the card's name and power limit again, one line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Weights are random, drawn from a seed
@@ -547,6 +562,41 @@ def _sass_hmma(name: str) -> dict:
     return out
 
 
+def _flash_shape(q, k) -> str:
+    b, h, s, d = q.shape
+    return (f"B={b} H={h} KV={k.shape[1]} S={s} D={d} causal bf16, (B, S, heads, D) "
+            "strided views")
+
+
+def _flash_times(case, backward: bool) -> tuple:
+    """(kernel ms, plain ms, library ms, max abs err, bound ms, bound by,
+    bound detail) of the forward or the backward on ``_flash_case``'s
+    inputs.  The library yardstick (the port never calls it): SDPA forward,
+    or its backward alone (the graph of one forward, replayed)."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    q, k, v, do, o, lse, _, errs = case
+    if backward:
+        ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
+        plain = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do))
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        lib = _time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                   retain_graph=True))
+        del out, ql, kl, vl
+        err = max(errs["dq"], errs["dk"], errs["dv"])
+    else:
+        ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v))
+        plain = _time_ms(lambda: flash_attention_ref(q, k, v, return_lse=True))
+        lib = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        err = errs["o"]
+    return (ms, plain, lib, err) + _flash_bound(q, k, None, backward)
+
+
 def phase_flash_kernels() -> list:
     """Flash forward and backward against the plain versions: the trainer's
     shape (Qwen3-1.7B: B=8, H=16, KV=8, S=512, D=128) in bf16 and fp32, an
@@ -558,9 +608,6 @@ def phase_flash_kernels() -> list:
     train steps (``_pipeline_shapes``) in their dtype.  Then the times of
     the bf16 trainer-shape case."""
     torch = _torch()
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -587,31 +634,13 @@ def phase_flash_kernels() -> list:
     tensor_core = {fn: n for fn, n in hmma.items() if "_bf16_kernel" in fn}
     if len(tensor_core) < 3 or not all(tensor_core.values()):
         raise AssertionError(f"flash_attention: bf16 kernels without HMMA: {tensor_core}")
-    q, k, v, do, o, lse, _, errs = main
-    b, h, s, d = q.shape
-    kv = k.shape[1]
-    fwd_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v))
-    bwd_ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
-    plain_fwd = _time_ms(lambda: flash_attention_ref(q, k, v, return_lse=True))
-    plain_bwd = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do))
-    # yardstick only (the port never calls it): SDPA forward, and its
-    # backward alone (the graph of one forward, replayed)
-    lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
-    lib_bwd = _time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
-                                                   retain_graph=True))
-    del out, ql, kl, vl
-    shape = f"B={b} H={h} KV={kv} S={s} D={d} causal bf16, (B, S, heads, D) strided views"
+    shape = _flash_shape(main[0], main[1])
     rows = []
-    for name, backward, ms, plain, lib, err, call in [
-            ("flash_attention", False, fwd_ms, plain_fwd, lib_fwd, errs["o"],
+    for name, backward, (ms, plain, lib, err, bound_ms, bound_by, detail), call in [
+            ("flash_attention", False, _flash_times(main, False),
              "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"),
-            ("flash_attention_bwd", True, bwd_ms, plain_bwd, lib_bwd,
-             max(errs["dq"], errs["dk"], errs["dv"]),
+            ("flash_attention_bwd", True, _flash_times(main, True),
              "torch.autograd.grad through one SDPA forward (its backward alone)")]:
-        bound_ms, bound_by, detail = _flash_bound(q, k, None, backward)
         kind = "flash_bwd" if backward else "flash_fwd"
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1456,7 +1485,9 @@ def _kernel_vs_ref(api, params, prompts, kv_quant: str, max_new: int,
     return results
 
 
-def _greedy(api, params, prompts, max_new, **engine_kw) -> dict:
+def _greedy(api, params, prompts, max_new, steps_out=None, **engine_kw) -> dict:
+    """Greedy tokens of ``prompts`` through a ``PagedDecodeEngine``; its
+    decode steps appended to ``steps_out`` when given."""
     torch = _torch()
     from repro_torch.rollout import PagedDecodeEngine
     eng = PagedDecodeEngine(api, params, num_slots=len(prompts), max_total_len=512,
@@ -1466,6 +1497,8 @@ def _greedy(api, params, prompts, max_new, **engine_kw) -> dict:
         eng.add_request(rid, prompt, max_new)
     with torch.no_grad():
         out = _drain(eng, len(prompts))
+    if steps_out is not None:
+        steps_out.append(eng.total_decode_steps)
     del eng
     return out
 
@@ -1513,7 +1546,8 @@ def phase_model() -> None:
 # model_slot: the slot engine at full width, fp32 (slice 4)
 # ---------------------------------------------------------------------------
 
-def _slot_greedy(api, params, prompts, max_new, **engine_kw) -> dict:
+def _slot_greedy(api, params, prompts, max_new, steps_out=None, **engine_kw) -> dict:
+    """As ``_greedy``, through the slot ``DecodeEngine``."""
     torch = _torch()
     from repro_torch.rollout import DecodeEngine
     eng = DecodeEngine(api, params, num_slots=len(prompts), max_total_len=512,
@@ -1522,6 +1556,8 @@ def _slot_greedy(api, params, prompts, max_new, **engine_kw) -> dict:
         eng.add_request(rid, prompt, max_new)
     with torch.no_grad():
         out = _drain(eng, len(prompts))
+    if steps_out is not None:
+        steps_out.append(eng.total_decode_steps)
     del eng
     return out
 
@@ -1607,7 +1643,7 @@ def _hybrid_block(cfg):
         if kinds[i][0] == "attn":
             positions = _torch().arange(x.shape[1], dtype=_torch().int32,
                                         device=x.device)[None]
-            return transformer._attn_block_apply(lp, cfg, x, positions, "ref")
+            return transformer._attn_block_apply(lp, cfg, x, positions, "ref")[0]
         zero = rglru.init_rglru_state(cfg, 1, x.device).layer(0)
         return transformer._rglru_block_apply(lp, cfg, x, zero, decode=False,
                                               attn_impl=attn_impl)[0]
@@ -3144,6 +3180,425 @@ def phase_train_cli(gpu: str) -> None:
          stdout=run.stdout.strip().splitlines()[-6:])
 
 
+# ---------------------------------------------------------------------------
+# the MoE family (slice 10): Qwen3-MoE-235B-A22B and DBRX-132B at full
+# width, cut in depth
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+DBRX_ARCH = "dbrx-132b"
+MOE_MODEL_LAYERS = 2        # model_moe: fp32, kernel path against plain path
+MOE_SERVE_LAYERS = 8        # serve_moe: bf16, 8 of Qwen3-MoE's 94 layers
+MOE_TRAIN_LAYERS = 1        # train_moe: bf16 weights and grads, fp32 master, m, v
+MOE_TRAIN = dict(groups=4, group=4, prompt=32, response=32)    # 16 x 64 tokens
+# fp32 greedy tokens, kernel path against plain path (model_moe): besides a
+# top-2 logit gap below DENSE_TOP2_TOL, a divergence is tolerated only where
+# the plain path, replayed to the diverging step, routed a decoded token
+# (the kernel runs in decode steps only; prefill is plain in both engines)
+# with its k-th and (k+1)-th router probabilities closer than this: a
+# near-tie there flips an expert choice, a discrete change that rounding
+# alone can make.  Fixed before the first run.
+MOE_ROUTER_GAP_TOL = 1e-6
+
+
+def _moe_configs() -> dict:
+    from repro_torch.configs import get_config
+    return {arch: get_config(arch) for arch in (MOE_ARCH, DBRX_ARCH)}
+
+
+def phase_moe_kernels(rows: list, gpu: str) -> None:
+    """The kernels at the MoE family's shapes, against their plain versions
+    and timed: paged decode (bf16 and int8 pools) at the serving shape
+    (B=16, page 16, P=64) with Qwen3-MoE-235B-A22B's 64 heads over 4 KV
+    heads (G=16) and DBRX-132B's 48 over 8 (G=6); dense decode attention at
+    both (S=1024, bf16); the flash forward and backward at ``train_moe``'s
+    step (B=16, S=64, Qwen3-MoE's heads, bf16).  The numbers go into the
+    existing rows as their ``moe_shapes`` field."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref, paged_decode_attention_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 200)
+    bf16 = torch.bfloat16
+    tol = TOL["bfloat16"]
+    page_size, b = SERVE["page_size"], SERVE["num_slots"]
+    p = SERVE["max_total_len"] // page_size
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "shape", "split")
+    for arch, cfg in _moe_configs().items():
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        for row, int8 in ((rows[0], False), (rows[1], True)):
+            q, kp, vp, tables, lengths, scales = _paged_inputs(gen, b, h, kv, d, page_size,
+                                                               p, bf16, int8=int8)
+            out = paged_decode_attention(q, kp, vp, tables, lengths, **scales)
+            torch.cuda.synchronize()
+            ref = paged_decode_attention_ref(q, kp, vp, tables, lengths, **scales)
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = torch.allclose(out.float(), ref.float(), **tol)
+            emit("kernels", case=f"moe_{arch}_{'int8' if int8 else 'bf16'}",
+                 kernel=row["name"], shape=[b, h, kv, d, page_size, p], max_abs_err=err,
+                 tol=tol, ok=ok, gpu=gpu)
+            if not ok:
+                raise AssertionError(f"{row['name']} at {arch}'s shape: max abs err {err}")
+            timed = _kernel_row(row["name"], (q, kp, vp, tables, lengths, scales, err),
+                                page_size, row["variant"])
+            row.setdefault("moe_shapes", {})[arch] = {k: timed[k] for k in keep}
+            del q, kp, vp, out, ref
+
+        # dense decode attention (the slot engine), ragged lengths 1..S
+        s = SERVE_SLOT["max_total_len"]
+        q = torch.randn(b, h, d, generator=gen, device=DEVICE).to(bf16)
+        k, v = (torch.randn(b, s, kv, d, generator=gen, device=DEVICE).to(bf16)
+                for _ in range(2))
+        lengths = torch.randint(1, s + 1, (b,), generator=gen, device=DEVICE,
+                                dtype=torch.int32)
+        lengths[:2] = torch.tensor([1, s], dtype=torch.int32, device=DEVICE)
+        out = decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err = _check_close(f"moe_{arch}_bf16", "decode_attention", [out],
+                           [decode_attention_ref(q, k, v, lengths)], tol)
+        pos = torch.arange(s, device=DEVICE)[None, :]
+        mask = (pos < lengths[:, None])[:, None, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        bound_ms, bound_by, _ = _decode_bound(q, k, lengths, None)
+        splits, chunk, mma = da.plan(s, b * kv, da.sm_count(q.device), h // kv, q.dtype, d)
+        rows[4].setdefault("moe_shapes", {})[arch] = {
+            "max_abs_err": err, "ms": _time_ms(lambda: decode_attention(q, k, v, lengths)),
+            "plain_ms": _time_ms(lambda: decode_attention_ref(q, k, v, lengths)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True)),
+            "shape": f"B={b} H={h} KV={kv} S={s} D={d} bf16, ragged lengths 1..{s}",
+            "split": {"splits": splits, "chunk": chunk,
+                      "route": "tensor cores" if mma else "CUDA cores"}}
+        del q, k, v, kt, vt, out
+
+    # the flash kernels at train_moe's step
+    cfg = _moe_configs()[MOE_ARCH]
+    n = MOE_TRAIN["groups"] * MOE_TRAIN["group"]
+    seq = MOE_TRAIN["prompt"] + MOE_TRAIN["response"]
+    case = _flash_case(gen, f"moe_{MOE_ARCH}_train_bf16", n, cfg.num_heads,
+                       cfg.num_kv_heads, seq, cfg.resolved_head_dim, bf16, None, None)
+    for row, backward in ((rows[2], False), (rows[3], True)):
+        ms, plain, lib, err, bound_ms, bound_by, _ = _flash_times(case, backward)
+        row.setdefault("moe_shapes", {})[MOE_ARCH] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib, "shape": _flash_shape(case[0], case[1])}
+    for row in rows[:5]:
+        emit("kernels", kernel=row["name"], case="moe_shapes", gpu=gpu,
+             moe_shapes=row["moe_shapes"])
+    del case
+    _free_device()
+
+
+class _RouterGaps:
+    """While entered, every router call of the MoE layer records the
+    smallest gap between a token's k-th and (k+1)-th router probability."""
+
+    def __init__(self):
+        self.gaps = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._router = router = moe._router
+
+        def recorded(p, cfg, x):
+            out = router(p, cfg, x)
+            top = _torch().topk(out[1], cfg.num_experts_per_tok + 1, dim=-1).values
+            self.gaps.append(float((top[..., -2] - top[..., -1]).min()))
+            return out
+        moe._router = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._router = self._router
+
+
+def _moe_replay(api, params, prompt, generated, engine: str, kv_quant: str) -> dict:
+    """The plain path's computation of one request of ``engine``, replayed
+    alone (an MoE layer routes each request's tokens apart from the
+    others'): the prompt's prefill (paged: 128-token chunks padded like the
+    engine's, into a ``kv_quant`` pool; slot: one call padded to the
+    16-token bucket), then a decode
+    step for each of ``generated``.  Returns the last logits' top-2 gap and
+    the smallest router k-th against (k+1)-th probability gap over the
+    decode steps (None without one)."""
+    torch = _torch()
+    import numpy as np
+    prompt, n = np.asarray(prompt, np.int32), len(generated)
+
+    def padded(x, m):
+        toks = np.zeros((1, -(-len(x) // m) * m), np.int32)
+        toks[0, :len(x)] = x
+        t = torch.from_numpy(toks).to(DEVICE)
+        return t, torch.arange(t.shape[1], device=DEVICE)[None] < len(x)
+
+    with torch.no_grad(), _RouterGaps() as rec:
+        if engine == "paged":
+            pages = -(-(len(prompt) + n + 128) // 16)
+            cache = api.init_paged_cache(1 + pages, 16, kv_quant=kv_quant)
+            row = torch.arange(1, 1 + pages, dtype=torch.int32, device=DEVICE)
+            for lo in range(0, len(prompt), 128):
+                toks, valid = padded(prompt[lo:lo + 128], 128)
+                logits, cache = api.prefill_chunk(params, toks, valid, lo, row, cache)
+        else:
+            cache = api.init_cache(1, len(prompt) + n + 16)
+            toks, valid = padded(prompt, 16)
+            logits, cache = api.prefill(params, {"tokens": toks, "valid": valid}, cache,
+                                        attn_impl="ref")
+        del rec.gaps[:]
+        for i, t in enumerate(generated):
+            tok = torch.tensor([t], dtype=torch.int32, device=DEVICE)
+            pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=DEVICE)
+            if engine == "paged":
+                logits, cache = api.decode_paged(params, tok, pos, cache, row[None],
+                                                 attn_impl="ref")
+            else:
+                logits, cache = api.decode_step(params, tok, pos, cache, attn_impl="ref")
+    top = torch.topk(logits[0].float(), 2).values
+    return {"top2_gap": float(top[0] - top[1]),
+            "router_gap": min(rec.gaps) if rec.gaps else None}
+
+
+def _moe_kernel_vs_ref(api, params, prompts, max_new, engine: str, gpu: str,
+                       kv_quant: str = "off") -> dict:
+    """Greedy tokens through two engines (``engine`` "paged", with a
+    ``kv_quant`` pool, or "slot") sharing the weights, ``attn_impl`` kernel
+    against ref, with the kernel's launches in the kernel engine's run (an
+    int8 pool: ``launches_int8`` as well).  A divergence is
+    tolerated only at a near-tie of the plain path replayed to it: a top-2
+    logit gap below ``DENSE_TOP2_TOL`` or a router gap below
+    ``MOE_ROUTER_GAP_TOL``."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+    wrapper = paged_decode_attention if engine == "paged" else decode_attention
+    counter = "launches_int8" if kv_quant == "int8" else "launches"
+    pool = {"kv_quant": kv_quant} if engine == "paged" else {}
+    results, launches = {}, {}
+    for impl in ("kernel", "ref"):
+        wrapper.launches = 0
+        setattr(wrapper, counter, 0)
+        steps = []
+        run = _greedy if engine == "paged" else _slot_greedy
+        results[impl] = run(api, params, prompts, max_new, attn_impl=impl,
+                            steps_out=steps, **pool)
+        launches[impl] = (getattr(wrapper, counter), steps[0], wrapper.launches)
+    divergences = []
+    for rid, prompt in enumerate(prompts):
+        a, b = results["kernel"][rid][0], results["ref"][rid][0]
+        if a != b:
+            step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            divergences.append({"request": rid, "step": step,
+                                **_moe_replay(api, params, prompt, a[:step], engine,
+                                              kv_quant)})
+    cfg = api.cfg
+    kernel_launches, decode_steps, _ = launches["kernel"]
+    emit("model_moe", arch=cfg.arch_id, gpu=gpu, dtype="float32", engine=engine,
+         kv_quant=kv_quant, check="kernel_vs_ref", layers=cfg.num_layers, d_model=cfg.d_model,
+         experts=cfg.num_experts, top_k=cfg.num_experts_per_tok, requests=len(prompts),
+         max_new_tokens=max_new, tokens_identical=not divergences,
+         divergences=divergences, tolerated_top2_gap_below=DENSE_TOP2_TOL,
+         tolerated_router_gap_below=MOE_ROUTER_GAP_TOL,
+         kernel_launches=kernel_launches, decode_steps=decode_steps,
+         ref_engine_kernel_launches=launches["ref"][2])
+    bad = [dv for dv in divergences
+           if not (dv["top2_gap"] < DENSE_TOP2_TOL
+                   or (dv["router_gap"] or 1.0) < MOE_ROUTER_GAP_TOL)]
+    if bad:
+        raise AssertionError(f"{cfg.arch_id} ({engine}): kernel and ref greedy tokens "
+                             f"diverge: {bad}")
+    if (kernel_launches != cfg.num_layers * decode_steps or launches["kernel"][2]
+            != kernel_launches or launches["ref"][2]):
+        raise AssertionError(f"{cfg.arch_id} ({engine}, kv_quant={kv_quant}): "
+                             f"{launches['kernel']} kernel launches ({counter}, steps, "
+                             f"all) for {decode_steps} decode steps x {cfg.num_layers} "
+                             f"layers ({launches['ref']} on the ref engine)")
+    return {"launches": kernel_launches, "decode_steps": decode_steps}
+
+
+def phase_model_moe(rows: list, gpu: str) -> None:
+    """fp32, full width, cut to ``MOE_MODEL_LAYERS`` layers: Qwen3-MoE-
+    235B-A22B (128 experts, top 8; ~25 GB) through two ``PagedDecodeEngine``s
+    (an fp32 and an int8 KV pool) and two slot ``DecodeEngine``s, then
+    DBRX-132B (16 experts, top 4; ~31 GB) through two paged engines:
+    ``attn_impl`` kernel against ref, greedy tokens, exact launches.  MoE layers dispatch with the
+    reference's capacity factor (``moe_mode="ep"``): prefill chunks of 128
+    tokens drop assignments past each expert's capacity in both engines
+    alike."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import get_api
+
+    rng = np.random.default_rng(SEED + 210)
+    counts = {}
+    for arch, cfg in _moe_configs().items():
+        _free_device()
+        cfg = dataclasses.replace(cfg, dtype="float32", num_layers=MOE_MODEL_LAYERS)
+        api = get_api(cfg, device=DEVICE)
+        params = api.init(SEED)
+        prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+                   for n in (40, 100, 180, 250)]
+        counts[(0, f"model_moe_{arch}")] = _moe_kernel_vs_ref(api, params, prompts, 16,
+                                                              "paged", gpu)
+        if arch == MOE_ARCH:
+            counts[(1, f"model_moe_{arch}")] = _moe_kernel_vs_ref(
+                api, params, prompts, 16, "paged", gpu, kv_quant="int8")
+            counts[(4, f"model_moe_{arch}_slot")] = _moe_kernel_vs_ref(
+                api, params, prompts, 16, "slot", gpu)
+        del api, params
+    for (i, key), c in counts.items():
+        rows[i].setdefault("moe_launches", {})[key] = c["launches"]
+    _free_device()
+
+
+def phase_serve_moe(rows: list, gpu: str) -> None:
+    """Qwen3-MoE-235B-A22B in bf16 at full width (128 experts, the whole
+    vocabulary), cut to ``MOE_SERVE_LAYERS`` of 94 layers, behind
+    ``LLMProxy`` over ``PagedDecodeEngine`` (the ``serve`` settings: 16
+    slots, ``max_total_len`` 1024, page 16, prefill chunk 128, prefix cache
+    on) serving the ``serve`` task mix.  Exact paged-kernel launches
+    (layers x decode steps), a clean page audit, held weight and KV bytes,
+    peak memory; then a profiled decode window."""
+    import dataclasses
+    torch = _torch()
+    from repro_torch.models import get_api
+    from repro_torch.rollout import PagedDecodeEngine
+    from repro_torch.train.optimizer import tree_leaves
+
+    _free_device()
+    full = _moe_configs()[MOE_ARCH]
+    cfg = dataclasses.replace(full, num_layers=MOE_SERVE_LAYERS)
+    api = get_api(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    params = api.init(SEED)
+    torch.cuda.synchronize()
+    weight_bytes = torch.cuda.memory_allocated() - m0
+    eng = PagedDecodeEngine(api, params, prefix_cache=True, temperature=1.0,
+                            eos_id=-1, seed=SEED, device=DEVICE, **SERVE)
+    kv_bytes = sum(t.numel() * t.element_size() for t in eng.cache if t is not None)
+    _warm(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_run(eng, _serve_tasks(cfg.vocab_size), cfg.vocab_size)
+    run.pop("results")
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.num_layers * run["decode_steps"]
+    emit("serve_moe", arch=MOE_ARCH, gpu=gpu, dtype=cfg.dtype, layers=cfg.num_layers,
+         of_layers=full.num_layers, experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+         params=sum(t.numel() for t in tree_leaves(params)),
+         weight_bytes=weight_bytes, kv_pool_bytes=kv_bytes, peak_memory_bytes=peak,
+         expected_launches=want,
+         note=f"{cfg.num_layers} of {full.num_layers} layers: host dispatch is a larger "
+              "share of a step than at full depth", **run)
+    if run["kernel_launches_int8"] or run["kernel_launches"] != want or not want:
+        raise AssertionError(f"serve_moe: {run['kernel_launches']} kernel launches "
+                             f"({run['kernel_launches_int8']} int8), expected {want}")
+    rows[0].setdefault("moe_launches", {})["serve_moe"] = run["kernel_launches"]
+    _profile_decode(eng, phase="profile_moe", arch=MOE_ARCH, gpu=gpu)
+    del eng, params, api
+    _free_device()
+
+
+def _moe_samples(vocab: int) -> list:
+    """16 samples of 64 tokens: 4 prompts of 32 tokens, each with 4
+    responses of 32; a seeded synthetic reward (1 when more than half the
+    response's tokens are even)."""
+    import numpy as np
+    from repro_torch.core.types import Sample
+    rng = np.random.default_rng(SEED + 220)
+    out = []
+    for g in range(MOE_TRAIN["groups"]):
+        prompt = rng.integers(3, vocab, MOE_TRAIN["prompt"]).astype(np.int32)
+        for j in range(MOE_TRAIN["group"]):
+            r = rng.integers(3, vocab, MOE_TRAIN["response"]).astype(np.int32)
+            out.append(Sample(sample_id=len(out), prompt_id=g, replica_idx=j,
+                              prompt_tokens=prompt, response_tokens=r,
+                              logprobs=(-rng.random(len(r)) * 3 - 9).astype(np.float32),
+                              reward=float(np.mean(r % 2 == 0) > 0.5), group_id=g))
+    return out
+
+
+def phase_train_moe(rows: list, gpu: str) -> None:
+    """One ``HostTrainer.train_on_samples`` of Qwen3-MoE-235B-A22B in bf16
+    at full width, cut to ``MOE_TRAIN_LAYERS`` layer (~3.73 B parameters:
+    bf16 weights and grads, fp32 master, m and v, ~60 GB), ``decoupled_ppo``
+    on 16 x 64 tokens, the MoE in ``moe_mode="dense"`` as in the reference:
+    loss, grad norm, the router losses, wall time, peak memory and exact
+    flash launches.  A step that does not fit in the card's memory is
+    reported with its peak, not narrowed."""
+    import dataclasses
+    import numpy as np
+    torch = _torch()
+    from repro_torch.algos import LossConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_api
+    from repro_torch.train import HostTrainer, OptConfig, TrainerConfig
+    from repro_torch.train.optimizer import tree_leaves
+
+    _free_device()
+    cfg = dataclasses.replace(_moe_configs()[MOE_ARCH], num_layers=MOE_TRAIN_LAYERS)
+    api = get_api(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    seq = MOE_TRAIN["prompt"] + MOE_TRAIN["response"]
+    trainer = HostTrainer(api, SEED, LossConfig(pg_variant="decoupled_ppo"),
+                          OptConfig(learning_rate=1e-5, warmup_steps=1),
+                          TrainerConfig(max_seq_len=seq, group_size=MOE_TRAIN["group"]),
+                          attn_impl="kernel")
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(trainer.state["params"]))
+    samples = _moe_samples(cfg.vocab_size)
+    # the router losses of the policy on this batch, in the trainer's mode
+    tokens = torch.from_numpy(trainer.build_batch(samples)["tokens"]).to(DEVICE)
+    with torch.no_grad():
+        _, aux = api.apply(trainer.state["params"], {"tokens": tokens},
+                           return_features=True, moe_mode="dense")
+    aux = {k: float(v) for k, v in aux.items()}
+    del tokens
+    flash = fa.flash_attention
+    flash.launches_fwd = flash.launches_bwd = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        metrics = trainer.train_on_samples(samples)
+        torch.cuda.synchronize()
+        fits = True
+    except torch.cuda.OutOfMemoryError as exc:
+        metrics, fits = {"error": str(exc).splitlines()[0]}, False
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = (flash.launches_fwd, flash.launches_bwd)
+    # a forward per layer for the proximal pass, a forward and a backward
+    # per layer for the one train step
+    want = (2 * cfg.num_layers, cfg.num_layers)
+    emit("train_moe", arch=MOE_ARCH, gpu=gpu, dtype=cfg.dtype, layers=cfg.num_layers,
+         d_model=cfg.d_model, experts=cfg.num_experts, moe_mode="dense",
+         pg_variant="decoupled_ppo", batch=[len(samples), seq], params=n_params,
+         state_bytes=state_bytes, fits=fits, metrics=metrics,
+         loss=metrics.get("loss"), grad_norm=metrics.get("grad_norm"),
+         load_balance_loss=metrics.get("load_balance_loss"),
+         policy_router_losses=aux, wall_s=wall, peak_memory_bytes=peak,
+         device_memory_bytes=torch.cuda.get_device_properties(0).total_memory,
+         flash_launches=list(launches), expected_flash_launches=list(want))
+    if not fits:
+        return
+    if launches != want:
+        raise AssertionError(f"train_moe: flash launches {launches}, expected {want}")
+    if not all(np.isfinite(metrics[k]) for k in ("loss", "grad_norm", "load_balance_loss")) \
+            or not metrics["grad_norm"] > 0 or not aux["router_z_loss"] > 0:
+        raise AssertionError(f"train_moe: metrics {metrics}, router losses {aux}")
+    rows[2].setdefault("moe_launches", {})["train_moe"] = launches[0]
+    rows[3].setdefault("moe_launches", {})["train_moe"] = launches[1]
+    del trainer
+    _free_device()
+
+
 def _device_us(evt) -> float:
     for name in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, name):
@@ -3268,6 +3723,11 @@ def main() -> int:
                            (rows[3], lambda r: r["flash_launches"][1])):
             row["pipeline_launches"] = {k: count(r) for k, r in runs.items()}
         phase_train_cli(gpu)
+        # slice 10: the MoE family
+        phase_moe_kernels(rows, gpu)
+        phase_model_moe(rows, gpu)
+        phase_serve_moe(rows, gpu)
+        phase_train_moe(rows, gpu)
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

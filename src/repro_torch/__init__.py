@@ -11,5 +11,9 @@ losses, fp32-master AdamW, ``HostTrainer``) with the trainer's attention
 in hand-written flash forward and backward kernels.  The slot
 ``DecodeEngine`` serves the dense family from a dense KV cache and the
 RWKV-6 family from its recurrent state, with hand-written decode-attention
-and WKV-scan kernels, and drives Pass@k evaluation (``eval``).
+and WKV-scan kernels, and drives Pass@k evaluation (``eval``).  The
+RecurrentGemma hybrid, the MoE family (Qwen3-MoE-235B-A22B, DBRX-132B:
+the reference's capacity-factor dispatch, served by both engines, trained
+with its router losses) and the asynchronous pipeline (``launch``) run on
+the same kernels.
 """

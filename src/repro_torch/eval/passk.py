@@ -4,7 +4,8 @@ port of the JAX package's ``eval/passk.py``.
 Drives the slot ``DecodeEngine`` directly — the same serving path the
 rollout uses — with k sampled candidates per prompt (temperature 1) plus a
 greedy Pass@1 mode, and the unbiased Chen et al. (2021) Pass@k estimator.
-``device`` and ``attn_impl`` go to the engine.  Unlike the JAX result, an
+``device`` and ``attn_impl`` go to the engine, which serves every ported
+family (dense, MoE, RWKV-6, hybrid).  Unlike the JAX result, an
 ``EvalResult`` also carries the engine's decode steps (``decode_steps``),
 against which a caller can hold the kernels' launch counts.
 """

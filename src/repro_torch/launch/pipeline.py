@@ -18,7 +18,9 @@ The port of the JAX package's ``launch/pipeline.py``.  What differs:
 * ``attn_impl`` ("kernel", the default, or "ref") reaches both engines and
   the trainer.  The train step of the ``ssm`` and ``hybrid`` families
   runs the scans' plain versions (their kernels have no backward); their
-  logprob passes run the kernels.
+  logprob passes run the kernels.  An MoE config is served on the paged
+  engine with the reference's capacity dispatch and trained with every
+  expert on every token (``moe_mode="dense"``), as in the reference.
 * The trainer's params are drawn from ``seed`` by ``torch.Generator``, not
   ``jax.random``: the same seed gives other weights than the JAX pipeline.
 * Every replica's engine holds the trainer's tensors by reference
@@ -69,7 +71,7 @@ class PipelineSettings:
     learning_rate: float = 3e-3
     seed: int = 0
     # rollout engine selection: "auto" runs the paged COW engine for
-    # families with paged KV views (dense) and the slot engine for the
+    # families with paged KV views (dense, moe) and the slot engine for the
     # others (rwkv6 / hybrid: ``api.init_paged_cache is None``).
     rollout_engine: str = "auto"           # auto | paged | slot
     page_size: int = 16                    # paged engine: KV page tokens

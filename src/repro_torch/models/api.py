@@ -1,22 +1,28 @@
-"""Uniform model API, dense, RWKV-6 and RecurrentGemma (hybrid) families
-(the port's counterpart of the JAX package's ``models/api.py``).
+"""Uniform model API, dense, MoE, RWKV-6 and RecurrentGemma (hybrid)
+families (the port's counterpart of the JAX package's ``models/api.py``).
 
     api = get_api(cfg, device=)            # the card unless device= says otherwise
     params = api.init(seed)
-    logits, aux = api.apply(params, batch, attn_impl=, scan_impl=)   # kernel | ref
+    logits, aux = api.apply(params, batch, attn_impl=, scan_impl=, moe_mode=)
     cache = api.init_cache(batch_size, max_len)          # KVCache | RWKVState | HybridCache
-    logits, cache = api.prefill(params, batch, cache, attn_impl=)
-    logits, cache = api.decode_step(params, token, pos, cache, attn_impl=)
+    logits, cache = api.prefill(params, batch, cache, attn_impl=, moe_mode=)
+    logits, cache = api.decode_step(params, token, pos, cache, attn_impl=, moe_mode=)
 
-The dense family also exposes the paged-KV views of the paged engine:
+``attn_impl`` is "kernel" | "ref"; ``moe_mode`` is "ep" (the reference's
+capacity dispatch, the default) | "dense" (every expert on every token:
+the trainer's mode), and only the MoE family reads it.  The attention
+families (dense and MoE) also expose the paged-KV views of the paged
+engine:
 
     cache = api.init_paged_cache(num_pages, page_size, kv_quant=)   # off | int8
-    logits, cache = api.prefill_chunk(params, tokens, valid, start, block_row, cache)
-    logits, cache = api.decode_paged(params, token, pos, cache, block_tables, attn_impl=)
+    logits, cache = api.prefill_chunk(params, tokens, valid, start, block_row, cache,
+                                      moe_mode=)
+    logits, cache = api.decode_paged(params, token, pos, cache, block_tables,
+                                     attn_impl=, moe_mode=)
 
 Families without a paged KV cache (``ssm``, ``hybrid``) leave those None:
-the slot ``DecodeEngine`` serves them.  The other families are later
-slices of the port.
+the slot ``DecodeEngine`` serves them.  The VLM and enc-dec families are
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -35,14 +41,14 @@ class ModelAPI:
     cfg: ModelConfig
     device: torch.device
     init: Callable[..., Any]              # (seed) -> params on device
-    apply: Callable[..., Any]             # (params, batch, return_features=, attn_impl=, scan_impl=) -> (logits, aux)
-    prefill: Callable[..., Any]           # (params, batch, cache, attn_impl=) -> (logits, cache)
-    decode_step: Callable[..., Any]       # (params, token, pos, cache, attn_impl=) -> (logits, cache)
+    apply: Callable[..., Any]             # (params, batch, return_features=, attn_impl=, scan_impl=, moe_mode=) -> (logits, aux)
+    prefill: Callable[..., Any]           # (params, batch, cache, attn_impl=, moe_mode=) -> (logits, cache)
+    decode_step: Callable[..., Any]       # (params, token, pos, cache, attn_impl=, moe_mode=) -> (logits, cache)
     init_cache: Callable[..., Any]        # (batch, max_len) -> KVCache | RWKVState | HybridCache
     # paged-KV views (None for families without positional KV caches)
     init_paged_cache: Optional[Callable[..., Any]] = None  # (num_pages, page_size, kv_quant=) -> PagedKVCache
-    prefill_chunk: Optional[Callable[..., Any]] = None     # (params, tokens, valid, start, block_row, cache) -> (logits, cache)
-    decode_paged: Optional[Callable[..., Any]] = None      # (params, token, pos, cache, block_tables, attn_impl=) -> (logits, cache)
+    prefill_chunk: Optional[Callable[..., Any]] = None     # (params, tokens, valid, start, block_row, cache, moe_mode=) -> (logits, cache)
+    decode_paged: Optional[Callable[..., Any]] = None      # (params, token, pos, cache, block_tables, attn_impl=, moe_mode=) -> (logits, cache)
     cache_view: Optional[Callable[..., Any]] = None        # (layer_pages, block_row) -> (k, v, valid)
 
 
@@ -57,19 +63,21 @@ def get_api(cfg: ModelConfig, *, device=None) -> ModelAPI:
         return transformer.init_lm(cfg, seed, device=device)
 
     def apply(params, batch, *, return_features=False, attn_impl="kernel",
-              scan_impl=None):
+              scan_impl=None, moe_mode="ep"):
         return transformer.lm_apply(params, cfg, batch["tokens"],
                                     return_features=return_features,
-                                    attn_impl=attn_impl, scan_impl=scan_impl)
+                                    attn_impl=attn_impl, scan_impl=scan_impl,
+                                    moe_mode=moe_mode)
 
-    def prefill(params, batch, cache, *, attn_impl="kernel"):
+    def prefill(params, batch, cache, *, attn_impl="kernel", moe_mode="ep"):
         return transformer.lm_prefill(params, cfg, batch["tokens"], cache,
                                       valid=batch.get("valid"),
-                                      attn_impl=attn_impl)
+                                      attn_impl=attn_impl, moe_mode=moe_mode)
 
-    def decode_step(params, token, pos, cache, *, attn_impl="kernel"):
+    def decode_step(params, token, pos, cache, *, attn_impl="kernel",
+                    moe_mode="ep"):
         return transformer.lm_decode_step(params, cfg, token, pos, cache,
-                                          attn_impl=attn_impl)
+                                          attn_impl=attn_impl, moe_mode=moe_mode)
 
     def init_cache(batch, max_len):
         return transformer.init_cache(cfg, batch, max_len, device)
@@ -82,14 +90,16 @@ def get_api(cfg: ModelConfig, *, device=None) -> ModelAPI:
         return paged.init_paged_cache(cfg, num_pages, page_size,
                                       kv_quant=kv_quant, device=device)
 
-    def prefill_chunk(params, tokens, valid, start, block_row, cache):
+    def prefill_chunk(params, tokens, valid, start, block_row, cache, *,
+                      moe_mode="ep"):
         return paged.paged_prefill_chunk(params, cfg, tokens, valid, start,
-                                         block_row, cache)
+                                         block_row, cache, moe_mode=moe_mode)
 
     def decode_paged(params, token, pos, cache, block_tables, *,
-                     attn_impl="kernel"):
+                     attn_impl="kernel", moe_mode="ep"):
         return paged.paged_decode_step(params, cfg, token, pos, cache,
-                                       block_tables, attn_impl=attn_impl)
+                                       block_tables, attn_impl=attn_impl,
+                                       moe_mode=moe_mode)
 
     return ModelAPI(cfg, device, init, apply, prefill, decode_step, init_cache,
                     init_paged_cache=init_paged_cache,

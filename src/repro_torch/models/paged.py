@@ -26,8 +26,9 @@ transfer) carries them.  Each position is quantized once, when written.
 Unlike the JAX package, whose jitted step returns a new pool, both forwards
 write K/V (and scales) into the pool tensors IN PLACE (indexed assignment),
 and never copy the pool.  Quantized weights (``quant.quantize_params``) are
-dequantized one layer at a time inside the layer loop.  Supported family:
-dense.
+dequantized one layer at a time inside the layer loop.  Supported
+families: dense and MoE (whose MoE layers take ``moe_mode``; a chunk's
+padded lanes are routed and take expert capacity, as in the reference).
 """
 from __future__ import annotations
 
@@ -39,9 +40,10 @@ import torch
 
 from repro_torch.device import torch_dtype
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
-from repro_torch.models import attention, ffn, module
+from repro_torch.models import attention, module
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _last_position_logits, _unembed, layers
+from repro_torch.models.transformer import (ATTENTION_FAMILIES, _last_position_logits,
+                                            _unembed, layers, mlp_residual)
 
 
 class PagedKVCache(NamedTuple):
@@ -424,13 +426,13 @@ class RadixCache:
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    return cfg.family == "dense"
+    return cfg.family in ATTENTION_FAMILIES
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      kv_quant: str = "off", *, device) -> PagedKVCache:
     if not supports_paged(cfg):
-        raise ValueError(f"paged KV cache requires the dense family, got {cfg.family}")
+        raise ValueError(f"paged KV cache requires an attention family, got {cfg.family}")
     hd = cfg.resolved_head_dim
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, hd)
     if kv_quant == "off":
@@ -601,13 +603,8 @@ def _paged_attn_prefill(p, cfg: ModelConfig, x, positions, valid, layer_pages,
     return out.reshape(1, x.shape[1], cfg.q_dim).to(x.dtype) @ p["wo"]
 
 
-def _mlp_residual(p, cfg: ModelConfig, x, y):
-    x = x + y
-    return x + ffn.mlp(p["mlp"], cfg, module.rmsnorm(p["ln2"], x, cfg.norm_eps))
-
-
 def paged_prefill_chunk(params, cfg: ModelConfig, tokens, valid, start: int,
-                        block_row, cache: PagedKVCache):
+                        block_row, cache: PagedKVCache, *, moe_mode: str = "ep"):
     """One prefill chunk of one request.
 
     tokens/valid: (1, C); start: the chunk's first position; block_row:
@@ -621,7 +618,7 @@ def paged_prefill_chunk(params, cfg: ModelConfig, tokens, valid, start: int,
                                 module.rmsnorm(lp["ln1"], x, cfg.norm_eps),
                                 positions, valid, cache.layer_pages(layer),
                                 block_row)
-        x = _mlp_residual(lp, cfg, x, y)
+        x, _ = mlp_residual(lp, cfg, x, y, moe_mode)
     return _last_position_logits(params, cfg, x, valid), cache
 
 
@@ -674,7 +671,7 @@ def _paged_attn_decode(p, cfg: ModelConfig, x, pos, layer_pages, block_tables,
 
 def paged_decode_step(params, cfg: ModelConfig, token, pos,
                       cache: PagedKVCache, block_tables, *,
-                      attn_impl: str = "kernel"):
+                      attn_impl: str = "kernel", moe_mode: str = "ep"):
     """One-token decode for every slot. token/pos: (B,) int32;
     block_tables: (B, P) int32 (pass -1 rows for slots that must not step).
     Writes the pool in place and returns (logits (B, V) fp32, cache)."""
@@ -684,5 +681,5 @@ def paged_decode_step(params, cfg: ModelConfig, token, pos,
                                module.rmsnorm(lp["ln1"], x, cfg.norm_eps),
                                pos, cache.layer_pages(layer), block_tables,
                                attn_impl=attn_impl)
-        x = _mlp_residual(lp, cfg, x, y)
+        x, _ = mlp_residual(lp, cfg, x, y, moe_mode)
     return _unembed(params, cfg, x)[:, 0, :], cache

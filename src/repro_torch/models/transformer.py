@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly: the dense, RWKV-6 (``ssm``) and RecurrentGemma
-(``hybrid``: RG-LRU + local attention) families.
+"""Decoder-only LM assembly: the dense, MoE, RWKV-6 (``ssm``) and
+RecurrentGemma (``hybrid``: RG-LRU + local attention) families.
 
 The JAX package stacks the layers on a leading axis and runs them with
 ``lax.scan`` (the hybrid: a scan over pattern groups, then an unrolled
@@ -8,7 +8,10 @@ order (the hybrid: group g's pattern positions for every g, then the
 tail) walked by a Python loop, and the slot engine's caches
 (``attention.KVCache``, ``rwkv6.RWKVState``, ``HybridCache``) are stacked
 on a leading layer axis and updated in place, one layer's view at a time.
-Other families (MoE, VLM, enc-dec) are later slices of the port.
+An MoE layer is an attention block whose MLP is ``moe.moe_apply``
+(``moe_mode`` "ep" | "dense"); ``lm_apply`` returns its router losses
+averaged over the layers.  The VLM and enc-dec families are later slices
+of the port.
 
 Entry points:
     init_lm(cfg, seed, device=)                   -> params
@@ -17,7 +20,11 @@ Entry points:
     lm_prefill(params, cfg, tokens, cache, ...)   -> (last logits (B, V), cache)
     lm_decode_step(params, cfg, token, pos, cache, attn_impl=) -> (logits (B, V), cache)
 
-``attn_impl`` ("kernel" | "ref") picks the dense family's attention
+``lm_apply``, ``lm_prefill`` and ``lm_decode_step`` take ``moe_mode``
+(default "ep", the reference's capacity dispatch; the trainer passes
+"dense").
+
+``attn_impl`` ("kernel" | "ref") picks the dense and MoE families' attention
 kernels, the RWKV-6 family's WKV scan kernel, and the hybrid's RG-LRU scan
 and decode-attention kernels against their plain versions (``lm_apply``
 takes the scans' choice apart, as ``scan_impl``).  Quantized
@@ -31,11 +38,12 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.models import attention, ffn, module, rglru, rwkv6
+from repro_torch.models import attention, ffn, moe, module, rglru, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant import core as quant
 
-FAMILIES = ("dense", "ssm", "hybrid")     # the families ported so far
+FAMILIES = ("dense", "moe", "ssm", "hybrid")     # the families ported so far
+ATTENTION_FAMILIES = ("dense", "moe")            # every layer an attention block
 _IMPLS = ("kernel", "ref")
 
 
@@ -51,12 +59,16 @@ def _check_impl(attn_impl: str) -> None:
 
 
 def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, device):
-    return {
+    p = {
         "ln1": module.rmsnorm_init(cfg.d_model, device),
         "ln2": module.rmsnorm_init(cfg.d_model, device),
         "attn": attention.init_attention(gen, cfg, device),
-        "mlp": ffn.init_mlp(gen, cfg, device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = ffn.init_mlp(gen, cfg, device)
+    return p
 
 
 def _init_rglru_block(gen: torch.Generator, cfg: ModelConfig, device):
@@ -87,12 +99,13 @@ def indexed_kinds(kinds) -> Tuple[Tuple[str, int], ...]:
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
     """Per layer in execution order: (kind, its index among the layers of
-    that kind), kind "attn" | "rglru" (the hybrid) — or the dense /
+    that kind), kind "attn" | "rglru" (the hybrid) — or the dense / MoE /
     RWKV-6 layer kind for every layer."""
     if cfg.family == "hybrid":
         pattern, n_groups, tail = _hybrid_layout(cfg)
         return indexed_kinds([k for _ in range(n_groups) for k in pattern] + list(tail))
-    return indexed_kinds(["attn" if cfg.family == "dense" else "rwkv"] * cfg.num_layers)
+    kind = "attn" if cfg.family in ATTENTION_FAMILIES else "rwkv"
+    return indexed_kinds([kind] * cfg.num_layers)
 
 
 def block_groups(cfg: ModelConfig) -> Optional[list]:
@@ -144,10 +157,10 @@ class HybridCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """The slot engine's cache: dense -> ``KVCache``; ssm -> ``RWKVState``;
-    hybrid -> ``HybridCache``."""
+    """The slot engine's cache: dense / MoE -> ``KVCache``; ssm ->
+    ``RWKVState``; hybrid -> ``HybridCache``."""
     _check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         return attention.init_kv_cache(cfg, batch, max_len, device)
     if cfg.family == "ssm":
         return rwkv6.init_rwkv_state(cfg, batch, device)
@@ -174,29 +187,40 @@ def layers(params):
 # apply
 # ---------------------------------------------------------------------------
 
-def _attn_block_apply(p, cfg: ModelConfig, x, positions, attn_impl):
+def mlp_residual(p, cfg: ModelConfig, x, y, moe_mode: str = "ep"):
+    """``x + y``, then the block's MLP (or MoE, every token routed: padding
+    and masked lanes take expert capacity, as in the reference) on its
+    norm, added back.  Returns (x, aux: the MoE's router losses, or
+    None)."""
+    x = x + y
+    h = module.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        y, aux = moe.moe_apply(p["moe"], cfg, h, mode=moe_mode)
+        return x + y, aux
+    return x + ffn.mlp(p["mlp"], cfg, h), None
+
+
+def _attn_block_apply(p, cfg: ModelConfig, x, positions, attn_impl, moe_mode="ep"):
     y = attention.self_attention(p["attn"], cfg,
                                  module.rmsnorm(p["ln1"], x, cfg.norm_eps),
                                  positions, attn_impl=attn_impl)
-    x = x + y
-    h = module.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + ffn.mlp(p["mlp"], cfg, h)
+    return mlp_residual(p, cfg, x, y, moe_mode)
 
 
-def _attn_block_prefill(p, cfg: ModelConfig, x, positions, cache, *, valid=None):
+def _attn_block_prefill(p, cfg: ModelConfig, x, positions, cache, *, valid=None,
+                        moe_mode="ep"):
     y, _ = attention.prefill_attention(
         p["attn"], cfg, module.rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
         cache, valid=valid)
-    x = x + y
-    return x + ffn.mlp(p["mlp"], cfg, module.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return mlp_residual(p, cfg, x, y, moe_mode)[0]
 
 
-def _attn_block_decode(p, cfg: ModelConfig, x, pos, cache, *, attn_impl):
+def _attn_block_decode(p, cfg: ModelConfig, x, pos, cache, *, attn_impl,
+                       moe_mode="ep"):
     y, _ = attention.decode_attention(
         p["attn"], cfg, module.rmsnorm(p["ln1"], x, cfg.norm_eps), pos, cache,
         attn_impl=attn_impl)
-    x = x + y
-    return x + ffn.mlp(p["mlp"], cfg, module.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return mlp_residual(p, cfg, x, y, moe_mode)[0]
 
 
 def _rglru_block_apply(p, cfg: ModelConfig, x, state, *, decode: bool, attn_impl):
@@ -240,12 +264,16 @@ def _default_positions(b, s, device):
 
 def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
              return_features: bool = False, attn_impl: str = "kernel",
-             scan_impl: Optional[str] = None):
+             scan_impl: Optional[str] = None, moe_mode: str = "ep"):
     """Full-sequence causal forward.  Returns (logits fp32, aux dict) — or,
     with ``return_features``, the final-norm hidden states (B, S, D).
-    Dense: differentiable with respect to the param tensors; ``attn_impl``
-    ``"kernel"`` (flash attention; masks by index, so ``positions`` must be
-    left to the default 0..S-1) or ``"ref"`` (plain ``attend``).  RWKV-6:
+    Dense and MoE: differentiable with respect to the param tensors;
+    ``attn_impl`` ``"kernel"`` (flash attention; masks by index, so
+    ``positions`` must be left to the default 0..S-1; its fp32 route takes
+    a group x head_dim of at most 512, so an fp32 MoE config at full heads
+    passes ``"ref"``) or ``"ref"`` (plain ``attend``).  MoE: the router's
+    load-balance and z losses averaged over the layers, through
+    ``moe_mode``'s path (dense families: zeros).  RWKV-6:
     every block from a zero state, the WKV scan kernel or its plain version
     (``scan_impl``); ``positions`` are unused.  Hybrid: the RG-LRU layers
     from a zero state through the scan kernel or the reference's doubling
@@ -258,16 +286,19 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
     _check_family(cfg)
     _check_impl(attn_impl)
     _check_impl(scan_impl)
-    if positions is not None and attn_impl == "kernel" and cfg.family == "dense":
+    if (positions is not None and attn_impl == "kernel"
+            and cfg.family in ATTENTION_FAMILIES):
         raise ValueError("lm_apply: explicit positions need attn_impl='ref' "
                          "(the flash kernel masks by sequence index)")
     x = params["embed"][tokens]
     b, s, _ = x.shape
-    if cfg.family == "dense":
+    auxs = []
+    if cfg.family in ATTENTION_FAMILIES:
         if positions is None:
             positions = _default_positions(b, s, x.device)
         for lp in params["blocks"]:
-            x = _attn_block_apply(lp, cfg, x, positions, attn_impl)
+            x, aux = _attn_block_apply(lp, cfg, x, positions, attn_impl, moe_mode)
+            auxs.append(aux)
     elif cfg.family == "ssm":
         state0 = rwkv6.init_rwkv_state(cfg, b, x.device)
         for i, lp in enumerate(params["blocks"]):
@@ -278,12 +309,15 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
         state0 = rglru.init_rglru_state(cfg, b, x.device).layer(0)
         for lp, (kind, _) in zip(params["blocks"], layer_kinds(cfg)):
             if kind == "attn":
-                x = _attn_block_apply(lp, cfg, x, positions, "ref")
+                x, _ = _attn_block_apply(lp, cfg, x, positions, "ref")
             else:
                 x, _ = _rglru_block_apply(lp, cfg, x, state0, decode=False,
                                           attn_impl=scan_impl)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"load_balance_loss": zero, "router_z_loss": zero}
+    if cfg.is_moe:
+        aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {"load_balance_loss": zero, "router_z_loss": zero}
     if return_features:
         return module.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
     return _unembed(params, cfg, x), aux
@@ -302,24 +336,26 @@ def _last_position_logits(params, cfg: ModelConfig, x, valid):
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens, cache, *, valid=None,
-               attn_impl: str = "kernel"):
+               attn_impl: str = "kernel", moe_mode: str = "ep"):
     """Causal forward that fills ``cache`` (in place).
 
     tokens: (B, S); ``valid`` (B, S) marks real (non-pad) token positions,
-    meaningful for the dense family only: the recurrent state ingests every
-    position, so RWKV-6 and hybrid prompts must be prefilled at their exact
-    length.  Dense and hybrid attention prefill runs plain ``attend`` (as
-    the reference); ``attn_impl`` picks the RWKV-6 and RG-LRU scans.
+    meaningful for the dense and MoE families only (attention masks the
+    pads; the MoE routes them all the same, as the reference does): the
+    recurrent state ingests every position, so RWKV-6 and hybrid prompts
+    must be prefilled at their exact length.  Dense, MoE and hybrid
+    attention prefill runs plain ``attend`` (as the reference);
+    ``attn_impl`` picks the RWKV-6 and RG-LRU scans.
     Returns (last-valid-position logits (B, V) fp32, cache)."""
     _check_family(cfg)
     _check_impl(attn_impl)
     x = params["embed"][tokens]
     b, s, _ = x.shape
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         positions = _default_positions(b, s, x.device)
         for i, lp in layers(params):
             x = _attn_block_prefill(lp, cfg, x, positions, cache.layer(i),
-                                    valid=valid)
+                                    valid=valid, moe_mode=moe_mode)
     elif cfg.family == "ssm":
         for i, lp in layers(params):
             x, st = rwkv6.block(lp, cfg, x, cache.layer(i), attn_impl=attn_impl)
@@ -333,16 +369,16 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache, *, valid=None,
 
 
 def lm_decode_step(params, cfg: ModelConfig, token, pos, cache, *,
-                   attn_impl: str = "kernel"):
+                   attn_impl: str = "kernel", moe_mode: str = "ep"):
     """One-token decode for every row. token/pos: (B,) int.  Updates
     ``cache`` in place and returns (logits (B, V) fp32, cache)."""
     _check_family(cfg)
     _check_impl(attn_impl)
     x = params["embed"][token][:, None, :]
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         for i, lp in layers(params):
             x = _attn_block_decode(lp, cfg, x, pos, cache.layer(i),
-                                   attn_impl=attn_impl)
+                                   attn_impl=attn_impl, moe_mode=moe_mode)
     elif cfg.family == "ssm":
         for i, lp in layers(params):
             x, st = rwkv6.block(lp, cfg, x, cache.layer(i), attn_impl=attn_impl)

@@ -2,15 +2,17 @@
 package's ``rollout/engine.py``.
 
 The engine holds a fixed number of decode *slots*, each owning one row of a
-statically shaped cache: a dense KV cache (``attention.KVCache``), a
-recurrent state (``rwkv6.RWKVState``) or both (the hybrid's
+statically shaped cache: a dense KV cache (``attention.KVCache``: the
+dense and MoE families), a recurrent state (``rwkv6.RWKVState``) or both
+(the hybrid's
 ``transformer.HybridCache``).  ADD claims the first free slot and
 prefills the prompt into that row; every ``step()`` advances ALL slots by
 one token in one forward (inactive rows are computed and discarded, and
 their positions keep advancing, as in the reference); finish/ABORT releases
 the slot.  This is the LLMProxy's step-wise inference contract (§4.2).  It
-serves every ported family, the ones without paged KV (RWKV-6,
-RecurrentGemma) included.
+serves every ported family (dense, MoE, RWKV-6, RecurrentGemma), the ones
+without paged KV included.  An MoE prompt's bucket padding is routed and
+takes expert capacity, as in the reference.
 
 What differs from the JAX engine is how a step runs:
 
@@ -24,7 +26,7 @@ What differs from the JAX engine is how a step runs:
 * Sampling draws from a ``torch.Generator`` seeded with ``seed``; tokens
   under temperature > 0 differ from ``jax.random``'s.
 * ``attn_impl``: "kernel" (the hand-written decode-attention kernel of
-  dense and hybrid decode steps, the WKV scan kernel of every RWKV-6
+  dense, MoE and hybrid decode steps, the WKV scan kernel of every RWKV-6
   forward, the RG-LRU scan kernel of every hybrid forward) or "ref" (their
   plain versions).  Prefill attention runs plain attention in both, as in
   the reference.

@@ -1,6 +1,9 @@
 """Paged-KV continuous-batching engine: chunked prefill, abort→resume,
 copy-on-write prefix sharing for GRPO prompt groups, and a radix prefix
-cache — the port of the JAX package's ``rollout/paged_engine.py``.
+cache — the port of the JAX package's ``rollout/paged_engine.py``.  It
+serves the families with paged KV views (dense and MoE; an MoE layer
+routes each prefill chunk, padded lanes included, as one dispatch group,
+and each decode token as its own).
 
 Observable behaviour (admission, page accounting, counters, the tokens a
 greedy run decodes) is the JAX engine's.  What differs is how a step runs:

@@ -62,6 +62,9 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(tree)))
 
 
+_SLICE = 1 << 26
+
+
 def adamw_update(grads, opt_state, cfg: OptConfig, param_dtypes=None):
     """Returns (new_params_in_model_dtype, new_opt_state, metrics).
 
@@ -81,15 +84,21 @@ def adamw_update(grads, opt_state, cfg: OptConfig, param_dtypes=None):
     if param_dtypes is None:
         param_dtypes = tree_map(lambda _: torch.bfloat16, opt_state["master"])
 
-    # one leaf at a time: only that leaf's temporaries are alive at once
+    # one leaf at a time, in flat slices of at most _SLICE elements: only
+    # one slice's fp32 temporaries are alive at once (an MoE expert leaf
+    # holds ~0.8 B elements); the arithmetic is elementwise, so slicing
+    # changes no bit
     def upd_leaf(master, m, v, g, dt):
-        gf = g.float() * scale
-        m.mul_(b1).add_(gf, alpha=1 - b1)
-        v.mul_(b2).addcmul_(gf, gf, value=1 - b2)
-        upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        if cfg.weight_decay:
-            upd.add_(master, alpha=cfg.weight_decay)
-        master.sub_(upd.mul_(lr))
+        flat = (master.view(-1), m.view(-1), v.view(-1), g.reshape(-1))
+        for lo in range(0, flat[0].numel(), _SLICE):
+            ms, mo, vo, gs = (t[lo:lo + _SLICE] for t in flat)
+            gf = gs.float() * scale
+            mo.mul_(b1).add_(gf, alpha=1 - b1)
+            vo.mul_(b2).addcmul_(gf, gf, value=1 - b2)
+            upd = (mo / bc1).div_((vo / bc2).sqrt_().add_(cfg.eps))
+            if cfg.weight_decay:
+                upd.add_(ms, alpha=cfg.weight_decay)
+            ms.sub_(upd.mul_(lr))
         return master.to(dt, copy=True)
 
     params = tree_map(upd_leaf, opt_state["master"], opt_state["m"],

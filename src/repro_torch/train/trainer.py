@@ -11,7 +11,9 @@ The JAX package's ``lax.scan`` over microbatches is a Python loop here,
 (``attn_impl="kernel"``, the default) or plain ``attend`` (``"ref"``).
 The WKV and RG-LRU scan kernels have no backward: the train step runs the
 scans' plain versions under autograd, the logprob passes (no gradient)
-follow ``attn_impl``.
+follow ``attn_impl``.  An MoE config trains and scores in
+``moe_mode="dense"`` (every expert on every token, as in the reference),
+its router losses weighted into the RL loss.
 """
 from __future__ import annotations
 
@@ -66,17 +68,19 @@ def chunked_token_logprobs(features, head, tokens, *, chunk: int = _CE_CHUNK):
 
 
 def _policy_logprobs(api: ModelAPI, params, batch, *, attn_impl: str,
-                     scan_impl: str):
+                     scan_impl: str, moe_mode: str):
     """logprobs (B, S) aligned with batch['tokens'] (position t = logprob of
     token t given <t); position 0 is zero (never a response token)."""
     features, aux = api.apply(params, batch, return_features=True,
-                              attn_impl=attn_impl, scan_impl=scan_impl)
+                              attn_impl=attn_impl, scan_impl=scan_impl,
+                              moe_mode=moe_mode)
     head = unembedding_matrix(params, api.cfg)
     return chunked_token_logprobs(features, head, batch["tokens"]), aux
 
 
 def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
-                    *, microbatches: int = 1, attn_impl: str = "kernel"):
+                    *, microbatches: int = 1, attn_impl: str = "kernel",
+                    moe_mode: str = "ep"):
     """Build the train step ``(state, batch) -> (new_state, metrics)``.
 
     ``microbatches > 1`` accumulates gradients over batch slices in an fp32
@@ -92,7 +96,7 @@ def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
         it = iter(live)
         p_req = tree_map(lambda _: next(it), params)
         logprobs, aux = _policy_logprobs(api, p_req, batch, attn_impl=attn_impl,
-                                         scan_impl="ref")
+                                         scan_impl="ref", moe_mode=moe_mode)
         loss, metrics = rl_loss(logprobs, batch, loss_cfg, aux)
         grads = torch.autograd.grad(loss, live)
         it = iter(grads)
@@ -132,11 +136,12 @@ def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
     return train_step
 
 
-def make_logprob_fn(api: ModelAPI, *, attn_impl: str = "kernel"):
+def make_logprob_fn(api: ModelAPI, *, attn_impl: str = "kernel",
+                    moe_mode: str = "ep"):
     def logprob_fn(params, batch):
         with torch.no_grad():
             lp, _ = _policy_logprobs(api, params, batch, attn_impl=attn_impl,
-                                     scan_impl=attn_impl)
+                                     scan_impl=attn_impl, moe_mode=moe_mode)
         return lp
 
     return logprob_fn
@@ -167,7 +172,8 @@ def _group_normalized_advantage(rewards: np.ndarray, group_size: int,
 class HostTrainer:
     """``attn_impl`` ("kernel" or "ref") reaches both the train step and
     the logprob passes; the train step runs the recurrent families' scans
-    plain (``make_train_step``)."""
+    plain (``make_train_step``).  An MoE config runs both in
+    ``moe_mode="dense"``, as the reference's trainer does."""
 
     def __init__(self, api: ModelAPI, seed: int, loss_cfg: LossConfig,
                  opt_cfg: OptConfig, tcfg: TrainerConfig, *,
@@ -181,11 +187,13 @@ class HostTrainer:
         self.api = api
         self.loss_cfg = loss_cfg
         self.tcfg = tcfg
+        moe_mode = "dense" if api.cfg.is_moe else "ep"
         self.state = make_train_state(api, seed)
         self._train_step = make_train_step(api, loss_cfg, opt_cfg,
-                                           attn_impl=attn_impl)
+                                           attn_impl=attn_impl, moe_mode=moe_mode)
         self.ref_params = ref_params  # frozen copy for KL (None = no KL)
-        self._logprob_fn = make_logprob_fn(api, attn_impl=attn_impl)
+        self._logprob_fn = make_logprob_fn(api, attn_impl=attn_impl,
+                                           moe_mode=moe_mode)
         self.steps_done = 0
         self.history: List[Dict[str, float]] = []
 

@@ -13,7 +13,9 @@ SRC = Path(__file__).resolve().parent.parent / "src"
 MODULES = ["core/sample_buffer.py", "core/faults.py", "core/rollout_client.py",
            "core/router.py", "core/scheduler.py", "core/async_controller.py",
            "envs/base.py", "envs/sim_envs.py", "envs/__init__.py",
-           "core/env_manager.py"]
+           "core/env_manager.py", "core/types.py", "core/slo.py",
+           "core/llm_proxy.py", "models/config.py", "data/dataset.py",
+           "rewards/verifier.py"]
 
 
 def _drop_docstrings(tree: ast.AST) -> None:

@@ -141,10 +141,15 @@ def test_engine_refuses_modes_not_ported(kw, exc):
 
 def test_other_families_are_not_ported_yet():
     from repro_torch.models import get_api
-    for arch in ("qwen3-moe-235b-a22b", "paligemma-3b"):
+    for arch in ("paligemma-3b", "seamless-m4t-medium"):
         cfg = ModelConfig(**dataclasses.asdict(tiny(arch)))
         with pytest.raises(NotImplementedError):
             get_api(cfg, device="cpu")
+    # the MoE family is ported, with the paged views
+    for arch in ("qwen3-moe-235b-a22b", "dbrx-132b"):
+        api = get_api(ModelConfig(**dataclasses.asdict(tiny(arch))), device="cpu")
+        assert api.init_paged_cache is not None and api.decode_paged is not None
+        assert api.prefill_chunk is not None and api.cache_view is not None
     # the RWKV-6 and RecurrentGemma families are ported (slot engine only:
     # no paged views)
     for arch in ("rwkv6-3b", "recurrentgemma-9b"):
