@@ -139,6 +139,20 @@ no result):
    ``train_on_samples`` of Qwen3-MoE bf16, 1 layer, 16 x 64 tokens (loss,
    grad norm, router losses, peak memory, exact flash launches).
 
+13. Slice 11, the critic (PPO with GAE), checkpoints and the example twins:
+   ``train_critic`` (``HostTrainer(adv_estimator="gae")`` on full-width,
+   full-depth Qwen3-1.7B in bf16, as ``train`` runs GRPO: 3 rounds of
+   engine rollouts, ``train_on_samples``, a weight sync; exact paged and
+   flash launches; then 8 critic steps on one fixed batch, whose value
+   loss must fall), ``checkpoint`` (the rl_100m critic trainer state
+   through ``save_checkpoint`` / ``load_tree`` into a fresh trainer,
+   bit-identical, and the same next step; ``train_critic``'s 4 GB of bf16
+   params through ``save_tree`` / ``load_tree``, bit-identical),
+   ``pipeline_critic`` (``build_rlvr_pipeline`` with
+   ``adv_estimator="gae"``, alpha = 1, 2 steps, as ``pipeline_rlvr``) and
+   ``examples`` (``examples/torch/*.py`` in subprocesses on the card, each
+   exit 0).
+
 Then the card's name and power limit again, one line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Weights are random, drawn from a seed
 on the card.  Imports nothing of JAX or of the JAX package.
@@ -2849,10 +2863,12 @@ def _flash_per_train(layers: int, s) -> tuple:
     return layers * (steps + prox), layers * steps
 
 
-def _run_pipeline(phase: str, pipe, steps: int, gpu: str, **fields) -> dict:
+def _run_pipeline(phase: str, pipe, steps: int, gpu: str, shapes_of=None,
+                  **fields) -> dict:
     """``pipe.run(steps)`` with the paged decode and flash counts set to 0
     just before and read just after; holds launches, staleness, versions,
-    the engines' weights and page audits."""
+    the engines' weights and page audits.  The kernels must have run at
+    ``_pipeline_shapes()[shapes_of or phase]``."""
     import numpy as np
     torch = _torch()
     from repro_torch.kernels import flash_attention as fa
@@ -2885,7 +2901,7 @@ def _run_pipeline(phase: str, pipe, steps: int, gpu: str, **fields) -> dict:
     decode_steps = [e.total_decode_steps for e in pipe.engines]
 
     # the kernels ran at the shapes phase_kernels / phase_flash_kernels held
-    want = _pipeline_shapes()[phase]
+    want = _pipeline_shapes()[shapes_of or phase]
     paged_shapes = [(e.num_slots, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                      e.page_size, e.pages_per_seq, cfg.dtype, e.kv_quant == "int8")
                     for e in pipe.engines]
@@ -3599,6 +3615,334 @@ def phase_train_moe(rows: list, gpu: str) -> None:
     _free_device()
 
 
+# ---------------------------------------------------------------------------
+# the critic, checkpoints and the example twins (slice 11)
+# ---------------------------------------------------------------------------
+
+CRITIC_STEPS = 8            # critic steps on one fixed batch: the value loss must fall
+CRITIC_OPT = dict(learning_rate=1e-4, warmup_steps=1)
+# the checkpoint round trip's trainer: launch/train.py's rl_100m preset
+CKPT = dict(preset="rl_100m", samples=16, group=4, prompt=16, response=16)
+CKPT_TOL = dict(rtol=1e-5, atol=1e-6)       # the trainer parity tests' tolerances
+EXAMPLES = [("quickstart", []), ("rlvr_async_train", ["--steps", "2"]),
+            ("agentic_alfworld_sim", ["--steps", "1"])]
+
+
+def _flash_counts() -> tuple:
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd
+
+
+def _zero_flash() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
+
+
+def phase_train_critic(rows: list, gpu: str) -> dict:
+    """PPO with GAE and a value head (``TrainerConfig(adv_estimator="gae")``)
+    on full-width, full-depth Qwen3-1.7B in bf16, as ``phase_train`` runs
+    GRPO: 3 rounds of engine rollouts, ``train_on_samples`` on them
+    (``ppo``, a reference policy with ``kl_beta``, two minibatches) and a
+    weight sync back to the engine, with exact paged and flash launches;
+    then ``CRITIC_STEPS`` critic steps on one fixed batch (rewards 1, 0, 1,
+    0), whose value loss must fall."""
+    import numpy as np
+    torch = _torch()
+    from repro_torch.algos import LossConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.llm_proxy import LLMProxy
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention as pda
+    from repro_torch.models import get_api
+    from repro_torch.rollout import PagedDecodeEngine
+    from repro_torch.train import (HostTrainer, OptConfig, TrainerConfig,
+                                   make_critic_train_step, make_logprob_fn)
+
+    _free_device()
+    cfg = get_config(TRAIN_ARCH)
+    api = get_api(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainerConfig(max_seq_len=TRAIN["max_seq_len"], group_size=TRAIN["group"],
+                         minibatches=2, adv_estimator="gae")
+    trainer = HostTrainer(api, SEED, LossConfig(pg_variant="ppo", kl_beta=1e-3),
+                          OptConfig(learning_rate=3e-3, warmup_steps=5), tcfg,
+                          ref_params=api.init(SEED + 1))
+    if set(trainer.state) != {"params", "value", "opt", "vopt"}:
+        raise AssertionError(f"train_critic: state {sorted(trainer.state)}")
+    eng = PagedDecodeEngine(api, trainer.get_weights(), num_slots=TRAIN["slots"],
+                            max_total_len=TRAIN["max_seq_len"], page_size=16,
+                            prefill_chunk=128, temperature=1.0, eos_id=-1, seed=SEED,
+                            device=DEVICE)
+    _warm(eng)
+    proxy = LLMProxy(eng, name="chip_smoke_train_critic")
+    proxy.start()
+    # prox and ref passes, then a forward and a backward per minibatch step
+    want = (cfg.num_layers * (tcfg.minibatches + 2), cfg.num_layers * tcfg.minibatches)
+    paged_total, flash_total = 0, [0, 0]
+    try:
+        for round_ in range(TRAIN["rounds"]):
+            decode0 = eng.total_decode_steps
+            pda.launches = 0
+            results = _rollouts(proxy, _train_tasks(cfg.vocab_size, round_), round_)
+            paged, decode_steps = pda.launches, eng.total_decode_steps - decode0
+            if paged != cfg.num_layers * decode_steps or not paged:
+                raise AssertionError(f"train_critic: {paged} paged launches for "
+                                     f"{decode_steps} decode steps x {cfg.num_layers}")
+            samples = _to_samples(results, cfg.vocab_size)
+            _zero_flash()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.train_on_samples(samples)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = _flash_counts()
+            if launches != want:
+                raise AssertionError(f"train_critic: flash launches {launches}, "
+                                     f"expected {want}")
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"train_critic: non-finite metrics {metrics}")
+            proxy.suspend()
+            proxy.update_weights(trainer.get_weights())
+            proxy.resume()
+            paged_total += paged
+            flash_total = [flash_total[0] + launches[0], flash_total[1] + launches[1]]
+            emit("train_critic", gpu=gpu, arch=TRAIN_ARCH, dtype=cfg.dtype,
+                 layers=cfg.num_layers, round=round_, samples=len(samples),
+                 decode_steps=decode_steps, paged_launches=paged,
+                 loss=metrics["loss"], value_loss=metrics["value_loss"],
+                 explained_value=metrics["explained_value"],
+                 grad_norm=metrics["grad_norm"], kl=metrics["kl"],
+                 reward_mean=metrics["reward_mean"], train_on_samples_s=train_s,
+                 flash_launches_fwd=launches[0], flash_launches_bwd=launches[1],
+                 max_memory_allocated=torch.cuda.max_memory_allocated())
+    finally:
+        proxy.stop()
+    eng.audit_pages()
+    if eng.params is not trainer.get_weights():
+        raise AssertionError("train_critic: the engine does not hold the trainer's tree")
+    del eng, proxy
+
+    # the value head fits the terminal rewards of one fixed batch
+    lp_fn = make_logprob_fn(api)
+    batch = _train_batch(cfg.vocab_size, np.random.default_rng(SEED + 40),
+                         logprobs=lambda t: lp_fn(trainer.state["params"], {"tokens": t}))
+    batch["rewards"] = batch["is_positive"].clone()
+    step = make_critic_train_step(api, trainer.loss_cfg, OptConfig(**CRITIC_OPT))
+    _zero_flash()
+    state, vlosses, times = trainer.state, [], []
+    for _ in range(CRITIC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        vlosses.append(float(m["value_loss"]))
+        times.append(time.perf_counter() - t0)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"train_critic: non-finite loss {float(m['loss'])}")
+    trainer.state = state
+    fixed = _flash_counts()
+    emit("train_critic_fixed_batch", gpu=gpu, steps=CRITIC_STEPS, batch=list(batch["tokens"].shape),
+         rewards=batch["rewards"].tolist(), opt=CRITIC_OPT, value_loss=vlosses,
+         step_s=times, flash_launches=list(fixed))
+    if fixed != (CRITIC_STEPS * cfg.num_layers, CRITIC_STEPS * cfg.num_layers):
+        raise AssertionError(f"train_critic: fixed-batch flash launches {fixed}")
+    if not vlosses[-1] < vlosses[0]:
+        raise AssertionError(f"train_critic: the value loss did not fall {vlosses}")
+    for row, n in ((rows[0], paged_total), (rows[2], flash_total[0]),
+                   (rows[3], flash_total[1])):
+        row.setdefault("critic_launches", {})["train_critic"] = n
+    rows[2]["critic_launches"]["train_critic_per_train_on_samples"] = want[0]
+    rows[3]["critic_launches"]["train_critic_per_train_on_samples"] = want[1]
+    return {"trainer": trainer, "cfg": cfg}
+
+
+def _ckpt_samples(vocab: int, seed: int) -> list:
+    """``CKPT["samples"]`` samples in groups of ``CKPT["group"]``, seeded
+    tokens, rewards 0 / 1."""
+    import numpy as np
+    from repro_torch.core.types import Sample
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in range(CKPT["samples"] // CKPT["group"]):
+        prompt = rng.integers(3, vocab, CKPT["prompt"]).astype(np.int32)
+        for j in range(CKPT["group"]):
+            r = rng.integers(3, vocab, CKPT["response"]).astype(np.int32)
+            out.append(Sample(sample_id=len(out), prompt_id=g, replica_idx=j,
+                              prompt_tokens=prompt, response_tokens=r,
+                              logprobs=(-rng.random(len(r)) * 3).astype(np.float32),
+                              reward=float(j % 2), group_id=g))
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    torch = _torch()
+    if not isinstance(a, torch.Tensor):
+        return type(a) is type(b) and a == b
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    flat = (lambda t: t.contiguous().reshape(-1).view(torch.uint8))
+    return torch.equal(flat(a), flat(b))
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_checkpoint(shared: dict, gpu: str) -> None:
+    """(a) The critic trainer state of ``launch/train.py``'s rl_100m after
+    one ``train_on_samples``, through ``save_checkpoint`` and ``load_tree``
+    into a fresh trainer's state: every leaf bit-identical, and one more
+    ``train_on_samples`` from either state gives the same metrics.  (b)
+    ``save_tree`` / ``load_tree`` of ``train_critic``'s full-width bf16
+    params, bit-identical.  Bytes on disk, save and load seconds; the
+    directory is deleted afterwards."""
+    import shutil
+    import numpy as np
+    torch = _torch()
+    from repro_torch.algos import LossConfig
+    from repro_torch.checkpoint import latest_checkpoint, load_tree, save_checkpoint, save_tree
+    from repro_torch.launch.train import build_model_cfg
+    from repro_torch.models import get_api
+    from repro_torch.train import HostTrainer, OptConfig, TrainerConfig
+    from repro_torch.train.optimizer import tree_leaves
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        cfg = build_model_cfg(TRAIN_ARCH, CKPT["preset"])
+        api = get_api(cfg, device=DEVICE)
+        seq = CKPT["prompt"] + CKPT["response"]
+
+        def trainer(seed):
+            return HostTrainer(api, seed, LossConfig(pg_variant="ppo"),
+                               OptConfig(learning_rate=3e-3, warmup_steps=5),
+                               TrainerConfig(max_seq_len=seq, group_size=CKPT["group"],
+                                             adv_estimator="gae"))
+        first = trainer(SEED)
+        first.train_on_samples(_ckpt_samples(cfg.vocab_size, SEED + 50))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(root, "critic"), first.state["opt"]["step"],
+                               first.state, arch=TRAIN_ARCH, preset=CKPT["preset"])
+        save_s = time.perf_counter() - t0
+        fresh = trainer(SEED + 1)
+        t0 = time.perf_counter()
+        loaded = load_tree(latest_checkpoint(os.path.join(root, "critic")), fresh.state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want, got = tree_leaves(first.state), tree_leaves(loaded)
+        same = sum(_bits_equal(a, b) for a, b in zip(want, got))
+        if len(want) != len(got) or same != len(want):
+            raise AssertionError(f"checkpoint: {same} of {len(want)} leaves came back "
+                                 f"bit-identical ({len(got)} loaded)")
+        fresh.state = loaded
+        more = _ckpt_samples(cfg.vocab_size, SEED + 51)
+        m_first, m_fresh = first.train_on_samples(more), fresh.train_on_samples(more)
+        diff = {k: abs(m_first[k] - m_fresh[k]) for k in m_first}
+        bad = {k: (m_first[k], m_fresh[k]) for k in m_first
+               if not np.isclose(m_fresh[k], m_first[k], **CKPT_TOL)}
+        emit("checkpoint", gpu=gpu, case="critic_state", arch=TRAIN_ARCH,
+             preset=CKPT["preset"], path=os.path.relpath(path, root), leaves=len(want),
+             bit_identical_leaves=same, bytes_on_disk=_dir_bytes(path), save_s=save_s,
+             load_s=load_s, next_step_metrics=m_first, next_step_abs_diff=diff)
+        if bad:
+            raise AssertionError(f"checkpoint: the reloaded state trains differently {bad}")
+        del first, fresh, loaded, want, got
+        _free_device()
+
+        # (b) train_critic's full-width bf16 params
+        params = shared["trainer"].state["params"]
+        path = os.path.join(root, "params")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_tree(path, params, meta={"arch": TRAIN_ARCH})
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(path)
+        t0 = time.perf_counter()
+        loaded = load_tree(path, params)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want, got = tree_leaves(params), tree_leaves(loaded)
+        same = sum(_bits_equal(a, b) for a, b in zip(want, got))
+        tensor_bytes = sum(t.numel() * t.element_size() for t in want)
+        emit("checkpoint", gpu=gpu, case="params_bf16", arch=TRAIN_ARCH,
+             dtype=shared["cfg"].dtype, leaves=len(want), bit_identical_leaves=same,
+             tensor_bytes=tensor_bytes, bytes_on_disk=nbytes, save_s=save_s, load_s=load_s,
+             save_bytes_per_s=nbytes / save_s, load_bytes_per_s=nbytes / load_s)
+        if same != len(want) or len(got) != len(want):
+            raise AssertionError(f"checkpoint: {same} of {len(want)} param leaves came "
+                                 "back bit-identical")
+        del loaded, got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _free_device()
+
+
+def phase_pipeline_critic(rows: list, gpu: str) -> None:
+    """``build_rlvr_pipeline`` with ``PIPE``'s settings and
+    ``adv_estimator="gae"`` at alpha = 1, 2 steps: wall per step,
+    staleness, exact paged and flash launches, page audits
+    (``_run_pipeline``, at ``pipeline_rlvr``'s kernel shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.pipeline import PipelineSettings, build_rlvr_pipeline
+
+    _free_device()
+    _torch().cuda.reset_peak_memory_stats()
+    pipe = build_rlvr_pipeline(get_config(TRAIN_ARCH),
+                               PipelineSettings(async_generation_ratio=1,
+                                                adv_estimator="gae", **PIPE),
+                               reward_fn=_pipeline_reward, device=DEVICE)
+    if set(pipe.trainer.state) != {"params", "value", "opt", "vopt"}:
+        raise AssertionError(f"pipeline_critic: trainer state {sorted(pipe.trainer.state)}")
+    run = _run_pipeline("pipeline_critic", pipe, 2, gpu, shapes_of="pipeline_rlvr",
+                        adv_estimator="gae")
+    for row, n in ((rows[0], run["paged_launches"]), (rows[2], run["flash_launches"][0]),
+                   (rows[3], run["flash_launches"][1])):
+        row.setdefault("critic_launches", {})["pipeline_critic"] = n
+    del pipe
+    _free_device()
+
+
+def phase_examples(gpu: str) -> None:
+    """The three example twins (``examples/torch/``) as a user runs them,
+    on the card, side by side in subprocesses (output to files under
+    ``build/chip_smoke/``): each must exit 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = os.path.join(root, "build", "chip_smoke", "examples")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)              # each twin finds src/ on its own
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for name, args in EXAMPLES:
+            out = open(os.path.join(logs, name + ".out"), "w")
+            err = open(os.path.join(logs, name + ".err"), "w")
+            procs.append((name, args, out, err, subprocess.Popen(
+                [sys.executable, os.path.join("examples", "torch", name + ".py"), *args],
+                cwd=root, env=env, stdout=out, stderr=err)))
+        deadline = time.monotonic() + 300
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for *_, p in procs]
+    finally:
+        for *_, out, err, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+            err.close()
+    seconds = time.perf_counter() - t0
+    for (name, args, *_), rc in zip(procs, rcs):
+        with open(os.path.join(logs, name + ".out")) as f:
+            stdout = f.read()
+        with open(os.path.join(logs, name + ".err")) as f:
+            stderr = f.read()
+        emit("examples", gpu=gpu, example=f"examples/torch/{name}.py", args=args, exit=rc,
+             seconds_all=seconds, last_lines=stdout.strip().splitlines()[-6:])
+        if rc != 0:
+            raise AssertionError(f"examples: {name} exit {rc}\n{stdout[-2000:]}\n"
+                                 f"{stderr[-4000:]}")
+
+
 def _device_us(evt) -> float:
     for name in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, name):
@@ -3728,6 +4072,12 @@ def main() -> int:
         phase_model_moe(rows, gpu)
         phase_serve_moe(rows, gpu)
         phase_train_moe(rows, gpu)
+        # slice 11: the critic, checkpoints and the example twins
+        shared = phase_train_critic(rows, gpu)
+        phase_checkpoint(shared, gpu)
+        del shared
+        phase_pipeline_critic(rows, gpu)
+        phase_examples(gpu)
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

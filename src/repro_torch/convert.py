@@ -13,8 +13,11 @@ so both packages can start from one pool; ``slot_cache_from_jax`` does the
 same for the slot engine's caches (a dense ``KVCache`` or an RWKV-6
 ``RWKVState``, stacked on a leading layer axis in both packages, or the
 hybrid's dict of stacked groups and tail, which becomes a
-``HybridCache``).  ``params_to_numpy`` is the way back, so that trees can
-be compared leaf by leaf.
+``HybridCache``).  ``state_from_jax`` carries a whole train state across,
+the critic's value head and its optimizer state included.
+``params_to_numpy`` is the way back, so that trees can be compared leaf
+by leaf; ``to_jax_layout`` is its layout mapping alone (the checkpoint
+store writes through it, dtypes kept).
 """
 from __future__ import annotations
 
@@ -127,32 +130,62 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _to_numpy(tree):
+def _map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    return _numpy(tree)
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
-def _stack(trees):
+def _stack(trees, stack):
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+        return {k: _stack([t[k] for t in trees], stack) for k in trees[0]}
+    return stack(trees)
+
+
+def to_jax_layout(params, cfg=None, *, leaf=_numpy, stack=np.stack) -> dict:
+    """The port's params (or a tree of the same shape) in the JAX layout:
+    ``leaf`` applied to every tensor, ``blocks`` stacked back on a leading
+    layer axis by ``stack`` (given each leaf's per-layer values in layer
+    order) — for a hybrid ``cfg``, one stack per pattern position
+    (``"{i}_{kind}"``) and the ``tail`` list of per-layer dicts."""
+    out = {k: _map(leaf, v) for k, v in params.items() if k != "blocks"}
+    blocks = [_map(leaf, b) for b in params["blocks"]]
+    if cfg is None or cfg.family != "hybrid":
+        if any("rec" in b for b in blocks):
+            raise ValueError("a hybrid tree needs its cfg")
+        out["blocks"] = _stack(blocks, stack)
+        return out
+    groups = transformer.block_groups(cfg)
+    out["blocks"] = {f"{i}_{kind}": _stack([b for b, g in zip(blocks, groups) if g == i],
+                                           stack)
+                     for i, kind in enumerate(cfg.block_pattern)}
+    out["tail"] = [b for b, g in zip(blocks, groups) if g is None]
+    return out
 
 
 def params_to_numpy(params, cfg=None) -> dict:
     """The port's params (or an fp32 optimizer tree of the same shape) ->
-    the JAX layout with numpy leaves: ``blocks`` stacked back on a leading
-    layer axis — for a hybrid ``cfg``, one stack per pattern position and
-    the ``tail`` list.  bf16 leaves come back as fp32 (exact)."""
-    out = {k: _to_numpy(v) for k, v in params.items() if k != "blocks"}
-    blocks = [_to_numpy(b) for b in params["blocks"]]
-    if cfg is None or cfg.family != "hybrid":
-        if any("rec" in b for b in blocks):
-            raise ValueError("params_to_numpy: a hybrid tree needs its cfg")
-        out["blocks"] = _stack(blocks)
-        return out
-    groups = transformer.block_groups(cfg)
-    out["blocks"] = {f"{i}_{kind}": _stack([b for b, g in zip(blocks, groups) if g == i])
-                     for i, kind in enumerate(cfg.block_pattern)}
-    out["tail"] = [b for b, g in zip(blocks, groups) if g is None]
+    the JAX layout with numpy leaves (``to_jax_layout``).  bf16 leaves
+    come back as fp32 (exact)."""
+    return to_jax_layout(params, cfg)
+
+
+def _opt_from_jax(opt, device) -> dict:
+    tree = params_from_jax if "blocks" in opt["master"] else _convert
+    return {"step": int(np.asarray(opt["step"])),
+            **{k: tree(opt[k], device) for k in ("master", "m", "v")}}
+
+
+def state_from_jax(state, device) -> dict:
+    """A JAX train state — ``{"params", "opt"}``, or the critic's
+    ``{"params", "value", "opt", "vopt"}`` — with numpy leaves -> the
+    port's: the params and the optimizer's master/m/v trees through
+    ``params_from_jax``, the value head ``{"w", "b"}`` and its optimizer
+    state leaf for leaf, each ``step`` a host int."""
+    device = torch.device(device)
+    out = {"params": params_from_jax(state["params"], device),
+           "opt": _opt_from_jax(state["opt"], device)}
+    if "value" in state:
+        out["value"] = _convert(state["value"], device)
+        out["vopt"] = _opt_from_jax(state["vopt"], device)
     return out

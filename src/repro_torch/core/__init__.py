@@ -3,9 +3,11 @@
 Fine-grained parallelism (LLMProxy, queue scheduling, prompt replication,
 EnvManager pools, the ProxyRouter over N replicas) + rollout-train
 decoupling (SampleBuffer with per-sample asynchronous-ratio freshness,
-AsyncController with blocking and overlapped weight sync).  Every module
-but ``locks`` is a copy of the JAX package's framework-free module of the
-same name, importing nothing of it.
+AsyncController with blocking and overlapped weight sync), plus the
+theoretical model (Propositions 1 & 2, ``theory``) and the discrete-event
+simulator behind the paper-figure benchmarks (``simulator``).  Every
+module but ``locks`` is a copy of the JAX package's framework-free module
+of the same name, importing nothing of it.
 """
 from repro_torch.core.sample_buffer import SampleBuffer, StaleSampleError  # noqa: F401
 from repro_torch.core.llm_proxy import InferenceEngine, LLMProxy  # noqa: F401
@@ -17,3 +19,4 @@ from repro_torch.core.slo import SLOConfig  # noqa: F401
 from repro_torch.core.types import (  # noqa: F401
     GenerationRequest, GenerationResult, Rejected, RolloutTask, Sample,
     Trajectory, Turn)
+from repro_torch.core import simulator, theory  # noqa: F401

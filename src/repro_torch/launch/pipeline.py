@@ -66,7 +66,7 @@ class PipelineSettings:
     num_slots: int = 8                     # decode slots (infer "GPUs")
     minibatches: int = 1
     ppo_epochs: int = 1
-    adv_estimator: str = "grpo"            # grpo (paper default); gae is not ported
+    adv_estimator: str = "grpo"            # grpo (paper default) | gae (critic)
     kl_beta: float = 0.0
     learning_rate: float = 3e-3
     seed: int = 0

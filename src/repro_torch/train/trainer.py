@@ -40,6 +40,19 @@ def make_train_state(api: ModelAPI, seed: int) -> Dict[str, Any]:
 _CE_CHUNK = 512
 
 
+def live_leaves(tree):
+    """(the leaves detached and requiring grad, the same tree over them):
+    the inputs of one ``torch.autograd.grad``."""
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
+    return live, unflatten(tree, live)
+
+
+def unflatten(tree, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in ``tree``'s structure."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def _chunk_logprobs(xi, head, ti):
     return token_logprobs((xi @ head).float(), ti)
 
@@ -91,16 +104,11 @@ def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
     scans run their plain versions, which autograd differentiates (the
     scan kernels have no backward and refuse inputs that need one)."""
     def loss_and_grad(params, batch):
-        leaves = tree_leaves(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        it = iter(live)
-        p_req = tree_map(lambda _: next(it), params)
+        live, p_req = live_leaves(params)
         logprobs, aux = _policy_logprobs(api, p_req, batch, attn_impl=attn_impl,
                                          scan_impl="ref", moe_mode=moe_mode)
         loss, metrics = rl_loss(logprobs, batch, loss_cfg, aux)
-        grads = torch.autograd.grad(loss, live)
-        it = iter(grads)
-        grads = tree_map(lambda _: next(it), params)
+        grads = unflatten(params, torch.autograd.grad(loss, live))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(state, batch):
@@ -173,24 +181,32 @@ class HostTrainer:
     """``attn_impl`` ("kernel" or "ref") reaches both the train step and
     the logprob passes; the train step runs the recurrent families' scans
     plain (``make_train_step``).  An MoE config runs both in
-    ``moe_mode="dense"``, as the reference's trainer does."""
+    ``moe_mode="dense"``, as the reference's trainer does.
+    ``adv_estimator="gae"`` trains with the critic (``train/critic.py``):
+    the state gains the value head and its optimizer state."""
 
     def __init__(self, api: ModelAPI, seed: int, loss_cfg: LossConfig,
                  opt_cfg: OptConfig, tcfg: TrainerConfig, *,
                  ref_params=None, attn_impl: str = "kernel"):
         if attn_impl not in ("kernel", "ref"):
             raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
-        if tcfg.adv_estimator == "gae":
-            raise NotImplementedError(
-                "adv_estimator='gae' needs the critic (train/critic.py), which "
-                "is not ported yet")
         self.api = api
         self.loss_cfg = loss_cfg
         self.tcfg = tcfg
         moe_mode = "dense" if api.cfg.is_moe else "ep"
-        self.state = make_train_state(api, seed)
-        self._train_step = make_train_step(api, loss_cfg, opt_cfg,
-                                           attn_impl=attn_impl, moe_mode=moe_mode)
+        if tcfg.adv_estimator == "gae":
+            from repro_torch.train.critic import (make_critic_train_state,
+                                                  make_critic_train_step)
+            self.state = make_critic_train_state(api, seed)
+            self._train_step = make_critic_train_step(
+                api, loss_cfg, opt_cfg, attn_impl=attn_impl, moe_mode=moe_mode)
+        elif tcfg.adv_estimator == "grpo":
+            self.state = make_train_state(api, seed)
+            self._train_step = make_train_step(api, loss_cfg, opt_cfg,
+                                               attn_impl=attn_impl, moe_mode=moe_mode)
+        else:
+            raise ValueError(f"unknown adv_estimator {tcfg.adv_estimator!r} "
+                             "(expected grpo | gae)")
         self.ref_params = ref_params  # frozen copy for KL (None = no KL)
         self._logprob_fn = make_logprob_fn(api, attn_impl=attn_impl,
                                            moe_mode=moe_mode)

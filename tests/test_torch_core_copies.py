@@ -15,7 +15,7 @@ MODULES = ["core/sample_buffer.py", "core/faults.py", "core/rollout_client.py",
            "envs/base.py", "envs/sim_envs.py", "envs/__init__.py",
            "core/env_manager.py", "core/types.py", "core/slo.py",
            "core/llm_proxy.py", "models/config.py", "data/dataset.py",
-           "rewards/verifier.py"]
+           "rewards/verifier.py", "core/simulator.py", "core/theory.py"]
 
 
 def _drop_docstrings(tree: ast.AST) -> None:

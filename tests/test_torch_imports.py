@@ -22,7 +22,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples" / "torch").glob("*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
@@ -52,7 +53,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "        'repro_torch.core.async_controller', 'repro_torch.core.env_manager',\n"
         "        'repro_torch.envs', 'repro_torch.envs.base', 'repro_torch.envs.sim_envs',\n"
         "        'repro_torch.launch', 'repro_torch.launch.pipeline',\n"
-        "        'repro_torch.launch.train'} <= set(names), names\n"
+        "        'repro_torch.launch.train', 'repro_torch.core.simulator',\n"
+        "        'repro_torch.core.theory', 'repro_torch.train.critic',\n"
+        "        'repro_torch.checkpoint', 'repro_torch.checkpoint.store'} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

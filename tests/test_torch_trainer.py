@@ -195,9 +195,24 @@ def test_train_on_samples_matches_twice(models):
 
 
 def test_gae_estimator_is_a_later_slice(models):
-    with pytest.raises(NotImplementedError, match="critic"):
-        HostTrainer(models[4], 0, algos.LossConfig(), OptConfig(),
-                    TrainerConfig(adv_estimator="gae"))
+    """``adv_estimator="gae"`` trains with the critic: the state gains a
+    value head (fp32 (d_model, 1) and (1,)) and its optimizer state; an
+    unknown estimator is refused.  (The name dates from when the trainer
+    refused the estimator; it is kept so that the test's history reads as
+    one test.)"""
+    tapi = models[4]
+    tt = HostTrainer(tapi, 0, algos.LossConfig(), OptConfig(),
+                     TrainerConfig(adv_estimator="gae"))
+    assert set(tt.state) == {"params", "value", "opt", "vopt"}
+    vh = tt.state["value"]
+    assert vh["w"].shape == (tapi.cfg.d_model, 1) and vh["b"].shape == (1,)
+    assert vh["w"].dtype == vh["b"].dtype == torch.float32 and not vh["b"].any()
+    assert tt.state["vopt"]["step"] == 0
+    assert torch.equal(tt.state["vopt"]["master"]["w"], vh["w"])
+    assert tt.get_weights() is tt.state["params"]
+    with pytest.raises(ValueError, match="adv_estimator"):
+        HostTrainer(tapi, 0, algos.LossConfig(), OptConfig(),
+                    TrainerConfig(adv_estimator="vtrace"))
 
 
 def test_a_synced_engine_keeps_its_weights_through_a_train_step(models):
