@@ -152,6 +152,29 @@ no result):
    ``adv_estimator="gae"``, alpha = 1, 2 steps, as ``pipeline_rlvr``) and
    ``examples`` (``examples/torch/*.py`` in subprocesses on the card, each
    exit 0).
+14. Slice 12, PaliGemma-3B (``vlm``) and Seamless-M4T-medium (``audio``,
+   the enc-dec) at full width and depth: ``kernels`` holds flash forward
+   and backward with ``causal=False`` at Seamless' encoder shape (B=16,
+   H=KV=16, S=1024, D=64) and an odd S=300, G=4, D=64, bf16 and fp32,
+   causal flash at both families' train steps, and decode attention at
+   both serve shapes with a length-0 and a full row, bf16 and fp32
+   (every shape the phases below give either kernel; times into the rows'
+   ``vlm_audio_shapes``).  ``model_vlm``: fp32, two slot engines kernel
+   against ref (greedy tokens), then a prefill with 256 seeded patches
+   and 16 decode steps at ``t + 256`` (logits).  ``serve_vlm``: bf16 over
+   ``LLMProxy`` and ``DecodeEngine``, the ``serve`` mix, 18 decode
+   launches per step, then ``profile_vlm``.  ``train_vlm``: one step on
+   seeded patches, then 2 rounds of ``train_on_samples`` (8 x 256 text
+   tokens behind the reference's zero patches), exact flash launches.
+   ``pipeline_vlm``: ``build_rlvr_pipeline`` at alpha = 1, 2 steps, on the
+   slot engine.  ``model_audio``: fp32 ``apply`` kernel against ref (24
+   flash launches, 12 of them non-causal), then greedy decoding each way.
+   ``decode_audio``: bf16, 16 rows of 1024 frames through ``api.prefill``
+   and 64 ``api.decode_step``s (12 decode launches a step), then
+   ``profile_audio``.  ``train_audio``: 2 rounds of ``train_on_samples``
+   on 16 x 256 tokens with the reference's zero frames (24 flash launches
+   a pass each way).  The rows carry these paths' counts as
+   ``vlm_audio_launches``.
 
 Then the card's name and power limit again, one line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Weights are random, drawn from a seed
@@ -495,14 +518,19 @@ def _flash_inputs(gen, b, h, kv, s, d, dtype):
                  .transpose(1, 2) for n in (h, kv, kv, h))
 
 
-def _flash_pairs(s, window):
-    """(query, key) pairs the causal (windowed) mask lets through, per head."""
+def _flash_pairs(s, window, causal=True):
+    """(query, key) pairs the causal (windowed) mask lets through, per head;
+    without ``causal`` (and without a window) all of them."""
+    if not causal:
+        if window is not None:
+            raise ValueError("_flash_pairs: a window without causality is not counted")
+        return s * s
     if window is None:
         return s * (s + 1) // 2
     return sum(min(i + 1, window) for i in range(s))
 
 
-def _flash_bound(q, k, window, backward):
+def _flash_bound(q, k, window, backward, causal=True):
     """(bound_ms, bound_by, detail): the larger of the operations these
     inputs need (visible pairs only; 4D flops per pair forward: QK^T and PV;
     10D backward: QK^T again, dP, dV, dK, dQ) at the dtype's peak, and the
@@ -511,7 +539,7 @@ def _flash_bound(q, k, window, backward):
     torch = _torch()
     b, h, s, d = q.shape
     e = q.element_size()
-    flops = (10 if backward else 4) * d * b * h * _flash_pairs(s, window)
+    flops = (10 if backward else 4) * d * b * h * _flash_pairs(s, window, causal)
     qo, kv = q.numel() * e, k.numel() * e
     lse = 4 * b * h * s
     nbytes = (3 * qo + 4 * kv + lse) if backward else (2 * qo + 2 * kv + lse)
@@ -522,7 +550,7 @@ def _flash_bound(q, k, window, backward):
              "bytes_ms": 1e3 * t_bytes, "peak_flops": peak})
 
 
-def _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap):
+def _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap, causal=True):
     """Forward O and lse, then dQ/dK/dV, against the plain versions.
     Gradients are held to the tolerance times their largest magnitude."""
     torch = _torch()
@@ -530,7 +558,7 @@ def _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap):
     from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
     q, k, v, do = _flash_inputs(gen, b, h, kv, s, d, dtype)
-    opts = dict(causal=True, window=window, softcap=softcap)
+    opts = dict(causal=causal, window=window, softcap=softcap)
     o, lse = fa.flash_attention_fwd(q, k, v, **opts)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **opts)
     torch.cuda.synchronize()
@@ -549,7 +577,7 @@ def _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap):
                                    atol=tol["atol"] * scale)
         ok = ok and bool(torch.isfinite(got).all())
     emit("kernels", case=label, kernel="flash_attention", shape=[b, h, kv, s, d],
-         dtype=str(dtype), window=window, softcap=softcap, max_abs_err=errs,
+         dtype=str(dtype), causal=causal, window=window, softcap=softcap, max_abs_err=errs,
          tol=tol, grad_tol="atol x max |grad|", ok=ok)
     if not ok:
         raise AssertionError(f"flash_attention {label}: errors {errs}")
@@ -576,17 +604,18 @@ def _sass_hmma(name: str) -> dict:
     return out
 
 
-def _flash_shape(q, k) -> str:
+def _flash_shape(q, k, causal=True) -> str:
     b, h, s, d = q.shape
-    return (f"B={b} H={h} KV={k.shape[1]} S={s} D={d} causal bf16, (B, S, heads, D) "
-            "strided views")
+    return (f"B={b} H={h} KV={k.shape[1]} S={s} D={d} {'causal' if causal else 'non-causal'} "
+            f"{str(q.dtype).split('.')[-1]}, (B, S, heads, D) strided views")
 
 
-def _flash_times(case, backward: bool) -> tuple:
+def _flash_times(case, backward: bool, causal=True) -> tuple:
     """(kernel ms, plain ms, library ms, max abs err, bound ms, bound by,
     bound detail) of the forward or the backward on ``_flash_case``'s
-    inputs.  The library yardstick (the port never calls it): SDPA forward,
-    or its backward alone (the graph of one forward, replayed)."""
+    inputs (made with the same ``causal``).  The library yardstick (the
+    port never calls it): SDPA forward, or its backward alone (the graph of
+    one forward, replayed)."""
     torch = _torch()
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -594,21 +623,24 @@ def _flash_times(case, backward: bool) -> tuple:
 
     q, k, v, do, o, lse, _, errs = case
     if backward:
-        ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
-        plain = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do))
+        ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal))
+        plain = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                         causal=causal))
         ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                             enable_gqa=True)
         lib = _time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
                                                    retain_graph=True))
         del out, ql, kl, vl
         err = max(errs["dq"], errs["dk"], errs["dv"])
     else:
-        ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v))
-        plain = _time_ms(lambda: flash_attention_ref(q, k, v, return_lse=True))
+        ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
+        plain = _time_ms(lambda: flash_attention_ref(q, k, v, causal=causal,
+                                                     return_lse=True))
         lib = _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
+            q, k, v, is_causal=causal, enable_gqa=True))
         err = errs["o"]
-    return (ms, plain, lib, err) + _flash_bound(q, k, None, backward)
+    return (ms, plain, lib, err) + _flash_bound(q, k, None, backward, causal)
 
 
 def phase_flash_kernels() -> list:
@@ -697,6 +729,35 @@ def _decode_bound(q, k, lengths, window):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             {"live_keys": live, "flops": flops, "bytes": nbytes})
+
+
+def _decode_times(q, k, v, lengths, err, lengths_text: str) -> dict:
+    """Kernel, plain, SDPA (on the same cache, a boolean length mask) and
+    the bound of one decode-attention call, the wrapper's plan, and the
+    shape, with ``lengths_text`` saying which lengths."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    pos = torch.arange(s, device=DEVICE)[None, :]
+    mask = (pos < lengths[:, None])[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    bound_ms, bound_by, detail = _decode_bound(q, k, lengths, None)
+    splits, chunk, mma = da.plan(s, b * kv, da.sm_count(q.device), h // kv, q.dtype, d)
+    names = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+    return {"max_abs_err": err, "ms": _time_ms(lambda: decode_attention(q, k, v, lengths)),
+            "plain_ms": _time_ms(lambda: decode_attention_ref(q, k, v, lengths)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_detail": detail,
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True)),
+            "shape": f"B={b} H={h} KV={kv} S={s} D={d} {names[q.dtype]}, "
+                     + lengths_text,
+            "split": {"splits": splits, "chunk": chunk,
+                      "route": "tensor cores" if mma else "CUDA cores"}}
 
 
 def _wkv_bound(r, k, v, w, y):
@@ -852,8 +913,6 @@ def phase_slot_kernels() -> list:
     an all-fp32 case; the WKV scan's routes forced (``_wkv_route_cases``).
     Then the rows' times."""
     torch = _torch()
-    import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels import rwkv6_scan as wkv
     from repro_torch.kernels.ref import decode_attention_ref, rwkv6_scan_ref
@@ -912,30 +971,14 @@ def phase_slot_kernels() -> list:
             main[label] = (args, got[0], err)
 
     q, k, v, lengths, err = main["decode"]
-    b, h, d = q.shape
-    s, kv = k.shape[1], k.shape[2]
-    kernel_ms = _time_ms(lambda: decode_attention(q, k, v, lengths))
-    plain_ms = _time_ms(lambda: decode_attention_ref(q, k, v, lengths))
-    # yardstick only (the port never calls it): SDPA on the same cache
-    pos = torch.arange(s, device=DEVICE)[None, :]
-    mask = (pos < lengths[:, None])[:, None, None, :]
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True))
-    bound_ms, bound_by, detail = _decode_bound(q, k, lengths, None)
-    splits, chunk, mma = da.plan(s, b * kv, da.sm_count(q.device), h // kv, q.dtype, d)
+    times = _decode_times(q, k, v, lengths, err,
+                          f"ragged lengths 1..{k.shape[1]} and above S")
     rows = [{"name": "decode_attention", "route": "cuda",
              "source": "src/repro_torch/csrc/decode_attention.cu",
              "replaces": "src/repro/kernels/decode_attention.py:85",
-             "launches": None, "max_abs_err": err, "ms": kernel_ms, "kernel_ms": kernel_ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-             "bound_detail": detail, "library_ms": library_ms,
+             "launches": None, **times, "kernel_ms": times["ms"],
              "library_call": "F.scaled_dot_product_attention(enable_gqa=True) with a "
-                             "boolean length mask, on (B, KV, S, D) views of the cache",
-             "shape": f"B={b} H={h} KV={kv} S={s} D={d} bf16, ragged lengths 1..{s} "
-                      "and above S",
-             "split": {"splits": splits, "chunk": chunk,
-                       "route": "tensor cores" if mma else "CUDA cores"}}]
+                             "boolean length mask, on (B, KV, S, D) views of the cache"}]
 
     (args, y, err) = main["decode_bf16rkv"]
     pargs, py, perr = main["prefill_bf16rkv"]
@@ -2164,14 +2207,16 @@ def phase_serve_quant(kernel_row: dict, shared: dict) -> None:
 # serve_slot / serve_rwkv / passk: the slot engine's main paths (slice 4)
 # ---------------------------------------------------------------------------
 
-def phase_serve_slot(kernel_row: dict, arch: str, kernel: str) -> None:
+def phase_serve_slot(kernel_row: dict, arch: str, kernel: str, phase=None, gpu=None,
+                     launches_key: str = "launches"):
     """A slice-4 main path, bf16, full width and depth: ``LLMProxy`` over
     the slot ``DecodeEngine`` (16 slots, ``max_total_len`` 1024, prefill
     bucket 16 for dense prompts, exact length for RWKV-6, temperature 1.0)
-    serving the seeded ``serve`` task mix.  Exact kernel launch counts;
-    then a profiled decode window (``profile_slot``).  ``kernel``: the
-    wrapper whose launches the path must make.  Returns (api, params) for
-    ``passk``."""
+    serving the seeded ``serve`` task mix.  Exact kernel launch counts,
+    written to ``kernel_row[launches_key]``; then a profiled decode window
+    (``profile_slot``, or ``profile_*`` after ``phase``'s name).
+    ``kernel``: the wrapper whose launches the path must make.  Returns
+    (api, params) for ``passk``."""
     torch = _torch()
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
@@ -2205,7 +2250,7 @@ def phase_serve_slot(kernel_row: dict, arch: str, kernel: str) -> None:
                              + (prefills if kernel == "rwkv6_scan" else 0))
     other = ("rwkv6_scan_launches" if kernel == "decode_attention"
              else "decode_attention_launches")
-    kernel_row["launches"] = run["kernel_launches"]
+    kernel_row[launches_key] = run["kernel_launches"]
     # RWKV-6: every prompt of the mix (64-512 tokens) takes the chunked route
     want_chunked = cfg.num_layers * prefills if kernel == "rwkv6_scan" else 0
     if (run["kernel_launches"] != want or run[other] or not want
@@ -2220,10 +2265,17 @@ def phase_serve_slot(kernel_row: dict, arch: str, kernel: str) -> None:
         extra["state_bytes_per_slot"] = cache_bytes / SERVE_SLOT["num_slots"]
     else:
         extra["kv_cache_bytes"] = cache_bytes
-    emit("serve_rwkv" if cfg.family == "ssm" else "serve_slot", arch=arch,
+    if cfg.family == "vlm":
+        extra["cache_slots"] = eng.cache.k.shape[2]
+    if gpu is not None:
+        extra["gpu"] = gpu
+    phase = phase or ("serve_rwkv" if cfg.family == "ssm" else "serve_slot")
+    emit(phase, arch=arch,
          dtype=cfg.dtype, family=cfg.family, engine="DecodeEngine", prefills=prefills,
          expected_launches=want, expected_chunked_launches=want_chunked, **run, **extra)
-    _profile_decode(eng, phase="profile_slot",
+    profile = ("profile_slot" if phase in ("serve_slot", "serve_rwkv")
+               else phase.replace("serve_", "profile_"))
+    _profile_decode(eng, phase=profile,
                     kernel="wkv_kernel" if kernel == "rwkv6_scan" else "decode_kernel",
                     arch=arch, engine="DecodeEngine")
     del eng
@@ -3231,8 +3283,6 @@ def phase_moe_kernels(rows: list, gpu: str) -> None:
     step (B=16, S=64, Qwen3-MoE's heads, bf16).  The numbers go into the
     existing rows as their ``moe_shapes`` field."""
     torch = _torch()
-    import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.paged_decode_attention import paged_decode_attention
     from repro_torch.kernels.ref import decode_attention_ref, paged_decode_attention_ref
@@ -3276,21 +3326,9 @@ def phase_moe_kernels(rows: list, gpu: str) -> None:
         torch.cuda.synchronize()
         err = _check_close(f"moe_{arch}_bf16", "decode_attention", [out],
                            [decode_attention_ref(q, k, v, lengths)], tol)
-        pos = torch.arange(s, device=DEVICE)[None, :]
-        mask = (pos < lengths[:, None])[:, None, None, :]
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        bound_ms, bound_by, _ = _decode_bound(q, k, lengths, None)
-        splits, chunk, mma = da.plan(s, b * kv, da.sm_count(q.device), h // kv, q.dtype, d)
-        rows[4].setdefault("moe_shapes", {})[arch] = {
-            "max_abs_err": err, "ms": _time_ms(lambda: decode_attention(q, k, v, lengths)),
-            "plain_ms": _time_ms(lambda: decode_attention_ref(q, k, v, lengths)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True)),
-            "shape": f"B={b} H={h} KV={kv} S={s} D={d} bf16, ragged lengths 1..{s}",
-            "split": {"splits": splits, "chunk": chunk,
-                      "route": "tensor cores" if mma else "CUDA cores"}}
-        del q, k, v, kt, vt, out
+        rows[4].setdefault("moe_shapes", {})[arch] = _decode_times(
+            q, k, v, lengths, err, f"ragged lengths 1..{s}")
+        del q, k, v, out
 
     # the flash kernels at train_moe's step
     cfg = _moe_configs()[MOE_ARCH]
@@ -3520,18 +3558,18 @@ def phase_serve_moe(rows: list, gpu: str) -> None:
     _free_device()
 
 
-def _moe_samples(vocab: int) -> list:
-    """16 samples of 64 tokens: 4 prompts of 32 tokens, each with 4
-    responses of 32; a seeded synthetic reward (1 when more than half the
-    response's tokens are even)."""
+def _seeded_samples(vocab: int, spec: dict, seed: int) -> list:
+    """``spec["groups"]`` prompts of ``spec["prompt"]`` tokens, each with
+    ``spec["group"]`` responses of ``spec["response"]``; a seeded synthetic
+    reward (1 when more than half the response's tokens are even)."""
     import numpy as np
     from repro_torch.core.types import Sample
-    rng = np.random.default_rng(SEED + 220)
+    rng = np.random.default_rng(seed)
     out = []
-    for g in range(MOE_TRAIN["groups"]):
-        prompt = rng.integers(3, vocab, MOE_TRAIN["prompt"]).astype(np.int32)
-        for j in range(MOE_TRAIN["group"]):
-            r = rng.integers(3, vocab, MOE_TRAIN["response"]).astype(np.int32)
+    for g in range(spec["groups"]):
+        prompt = rng.integers(3, vocab, spec["prompt"]).astype(np.int32)
+        for j in range(spec["group"]):
+            r = rng.integers(3, vocab, spec["response"]).astype(np.int32)
             out.append(Sample(sample_id=len(out), prompt_id=g, replica_idx=j,
                               prompt_tokens=prompt, response_tokens=r,
                               logprobs=(-rng.random(len(r)) * 3 - 9).astype(np.float32),
@@ -3568,7 +3606,7 @@ def phase_train_moe(rows: list, gpu: str) -> None:
     torch.cuda.synchronize()
     state_bytes = torch.cuda.memory_allocated()
     n_params = sum(t.numel() for t in tree_leaves(trainer.state["params"]))
-    samples = _moe_samples(cfg.vocab_size)
+    samples = _seeded_samples(cfg.vocab_size, MOE_TRAIN, SEED + 220)
     # the router losses of the policy on this batch, in the trainer's mode
     tokens = torch.from_numpy(trainer.build_batch(samples)["tokens"]).to(DEVICE)
     with torch.no_grad():
@@ -3943,6 +3981,757 @@ def phase_examples(gpu: str) -> None:
                                  f"{stderr[-4000:]}")
 
 
+# ---------------------------------------------------------------------------
+# the VLM (PaliGemma-3B) and enc-dec audio (Seamless-M4T-medium) families
+# (slice 12)
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "paligemma-3b"
+AUDIO_ARCH = "seamless-m4t-medium"
+VLM_PATCHES_SEED = SEED + 240
+VLM_MODEL = dict(prompts=(40, 100, 180, 250), max_new=16, rows=(48, 32), steps=16)
+VLM_TRAIN = dict(groups=2, group=4, prompt=128, response=128, rounds=2)   # 8 x 256
+AUDIO_MODEL = dict(batch=4, tokens=64, prompt=32, steps=32, max_len=1024)
+AUDIO_DECODE = dict(batch=16, prompt=64, steps=64, max_len=1024, profile_steps=8)
+AUDIO_TRAIN = dict(groups=4, group=4, prompt=128, response=128, rounds=2)  # 16 x 256
+# the card's 80 GB less what the allocator and the context keep: a step whose
+# peak passes this is reported as not fitting
+PEAK_LIMIT_BYTES = 76e9
+
+
+def _slice12_configs():
+    from repro_torch.configs import get_config
+    return get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+
+
+def _slice12_shapes() -> dict:
+    """What this slice's phases give the kernels.  "flash": label ->
+    (B, H, KV, S, D, dtype, causal); "decode": label -> (B, H, KV, S, D,
+    dtype), S the cache's slots (a VLM's widened by its image tokens)."""
+    vlm, audio = _slice12_configs()
+    p = vlm.num_image_tokens
+    text = VLM_TRAIN["prompt"] + VLM_TRAIN["response"]
+    vh, vkv, vd = vlm.num_heads, vlm.num_kv_heads, vlm.resolved_head_dim
+    ah, akv, ad = audio.num_heads, audio.num_kv_heads, audio.resolved_head_dim
+    t = audio.encoder_frames
+    n_vlm = VLM_TRAIN["groups"] * VLM_TRAIN["group"]
+    n_audio = AUDIO_TRAIN["groups"] * AUDIO_TRAIN["group"]
+    return {
+        "flash": {
+            # train_vlm: 8 samples, 256 image + 256 text positions
+            "train_vlm": (n_vlm, vh, vkv, p + text, vd, "bfloat16", True),
+            # pipeline_vlm's train step: 16 samples of max_seq_len 64
+            "pipeline_vlm": (PIPE["rollout_batch_size"], vh, vkv, p + PIPE["max_seq_len"],
+                             vd, "bfloat16", True),
+            # train_audio: the encoder over 1024 frames (non-causal) and
+            # the decoder over 256 tokens (causal)
+            "train_audio_encoder": (n_audio, ah, akv, t, ad, "bfloat16", False),
+            "train_audio_decoder": (n_audio, ah, akv, AUDIO_TRAIN["prompt"]
+                                    + AUDIO_TRAIN["response"], ad, "bfloat16", True),
+            # model_audio's fp32 apply
+            "model_audio_encoder": (AUDIO_MODEL["batch"], ah, akv, t, ad, "float32", False),
+            "model_audio_decoder": (AUDIO_MODEL["batch"], ah, akv, AUDIO_MODEL["tokens"],
+                                    ad, "float32", True),
+            # decode_audio's prefill encodes 16 x 1024 frames
+            "decode_audio_encoder": (AUDIO_DECODE["batch"], ah, akv, t, ad, "bfloat16",
+                                     False),
+        },
+        "decode": {
+            "serve_vlm": (SERVE_SLOT["num_slots"], vh, vkv, SERVE_SLOT["max_total_len"] + p,
+                          vd, "bfloat16"),
+            "model_vlm": (len(VLM_MODEL["prompts"]), vh, vkv, 512 + p, vd, "float32"),
+            "model_vlm_prefix": (len(VLM_MODEL["rows"]), vh, vkv, 64 + p, vd, "float32"),
+            "pipeline_vlm": (-(-PIPE["num_slots"] // PIPE["num_rollout_replicas"]), vh, vkv,
+                             PIPE["max_seq_len"] + p, vd, "bfloat16"),
+            "decode_audio": (AUDIO_DECODE["batch"], ah, akv, AUDIO_DECODE["max_len"], ad,
+                             "bfloat16"),
+            "model_audio": (AUDIO_MODEL["batch"], ah, akv, AUDIO_MODEL["max_len"], ad,
+                            "float32"),
+        },
+    }
+
+
+def phase_vlm_audio_kernels(rows: list, gpu: str) -> None:
+    """The kernels at this slice's shapes against their plain versions:
+    flash forward and backward with ``causal=False`` at Seamless' encoder
+    shape (B=16, H=KV=16, S=1024, D=64) and at an odd S=300, G=4, D=64,
+    bf16 and fp32; dense decode attention at PaliGemma's serve shape
+    (B=16, H=8 over KV=1, D=256, S=1024 + 256 image slots) and Seamless'
+    (B=16, H=KV=16, D=64, S=1024), each with a length-0 row and a full row,
+    bf16 and fp32; and every shape the phases below give either kernel
+    (``_slice12_shapes``).  The first eight cases, PaliGemma's train step
+    (causal, G=8, D=256, S=512) and Seamless' decoder (causal, S=256) are
+    timed into the rows' ``vlm_audio_shapes``."""
+    torch = _torch()
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 250)
+    shapes = _slice12_shapes()
+    vlm, audio = _slice12_configs()
+    flash_cases = [
+        ("seamless_encoder_noncausal_bf16", 16, 16, 16, 1024, 64, "bfloat16", False),
+        ("seamless_encoder_noncausal_fp32", 16, 16, 16, 1024, 64, "float32", False),
+        ("odd_noncausal_bf16", 2, 16, 4, 300, 64, "bfloat16", False),
+        ("odd_noncausal_fp32", 2, 16, 4, 300, 64, "float32", False),
+    ] + [(label, *shape) for label, shape in shapes["flash"].items()]
+    timed_flash = ("seamless_encoder_noncausal_bf16", "seamless_encoder_noncausal_fp32",
+                   "odd_noncausal_bf16", "odd_noncausal_fp32", "train_vlm",
+                   "train_audio_decoder")
+    for label, b, h, kv, s, d, dtype, causal in flash_cases:
+        case = _flash_case(gen, label, b, h, kv, s, d, getattr(torch, dtype), None, None,
+                           causal=causal)
+        if label not in timed_flash:
+            del case
+            continue
+        for row, backward in ((rows[2], False), (rows[3], True)):
+            ms, plain, lib, err, bound_ms, bound_by, detail = _flash_times(case, backward,
+                                                                           causal)
+            row.setdefault("vlm_audio_shapes", {})[label] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_detail": detail, "library_ms": lib,
+                "library_call": f"SDPA(is_causal={causal}, enable_gqa=True)"
+                                + (" backward alone" if backward else ""),
+                "shape": _flash_shape(case[0], case[1], causal)}
+        del case
+
+    def decode_case(b, h, kv, s, d, dtype):
+        q = torch.randn(b, h, d, generator=gen, device=DEVICE).to(dtype)
+        k = torch.randn(b, s, kv, d, generator=gen, device=DEVICE).to(dtype)
+        v = torch.randn(b, s, kv, d, generator=gen, device=DEVICE).to(dtype)
+        lengths = torch.randint(1, s + 1, (b,), generator=gen, device=DEVICE,
+                                dtype=torch.int32)
+        lengths[:2] = torch.tensor([0, s], dtype=torch.int32, device=DEVICE)
+        return q, k, v, lengths
+
+    s_vlm = SERVE_SLOT["max_total_len"] + vlm.num_image_tokens
+    decode_cases = [
+        ("paligemma_serve_bf16", 16, vlm.num_heads, vlm.num_kv_heads, s_vlm,
+         vlm.resolved_head_dim, "bfloat16"),
+        ("paligemma_serve_fp32", 16, vlm.num_heads, vlm.num_kv_heads, s_vlm,
+         vlm.resolved_head_dim, "float32"),
+        ("seamless_serve_bf16", 16, audio.num_heads, audio.num_kv_heads, 1024,
+         audio.resolved_head_dim, "bfloat16"),
+        ("seamless_serve_fp32", 16, audio.num_heads, audio.num_kv_heads, 1024,
+         audio.resolved_head_dim, "float32"),
+    ] + [(label, *shape) for label, shape in shapes["decode"].items()]
+    for label, b, h, kv, s, d, dtype in decode_cases:
+        q, k, v, lengths = decode_case(b, h, kv, s, d, getattr(torch, dtype))
+        out = decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err = _check_close(label, "decode_attention", [out],
+                           [decode_attention_ref(q, k, v, lengths)], TOL[dtype])
+        if label.endswith(("_serve_bf16", "_serve_fp32")):
+            rows[4].setdefault("vlm_audio_shapes", {})[label] = _decode_times(
+                q, k, v, lengths, err, "lengths 0, S and ragged")
+        del q, k, v, out
+    for row in rows[2:5]:
+        emit("kernels", kernel=row["name"], case="vlm_audio_shapes", gpu=gpu,
+             vlm_audio_shapes=row["vlm_audio_shapes"])
+    _free_device()
+
+
+def _logits_gate(got, want) -> tuple:
+    """(ok, max abs diff, scale): fp32 logits of the kernel path against the
+    plain path, within ``TOL["float32"]``'s rtol and its atol times the
+    largest plain logit (the flash rows' gradient gate)."""
+    torch = _torch()
+    scale = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    tol = TOL["float32"]
+    ok = torch.allclose(got, want, rtol=tol["rtol"], atol=tol["atol"] * scale)
+    return ok, diff, scale
+
+
+def phase_model_vlm(rows: list, gpu: str) -> None:
+    """fp32 PaliGemma-3B at full width and depth (18 layers, 12.1 GB): two
+    slot ``DecodeEngine``s on one set of weights, ``attn_impl="kernel"``
+    and ``"ref"``, greedy tokens (text only, as the reference's engine
+    serves a VLM; a divergence tolerated only at a top-2 gap below
+    ``DENSE_TOP2_TOL``) and exact decode-attention launches; then
+    ``api.prefill`` with 256 seeded patches (two rows, one right-padded)
+    and 16 ``decode_step``s at ``pos = t + 256``, kernel against ref on the
+    same tokens: logits within the fp32 gate (``_logits_gate``)."""
+    import dataclasses
+    import numpy as np
+    torch = _torch()
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import get_api
+
+    _free_device()
+    cfg = dataclasses.replace(_slice12_configs()[0], dtype="float32")
+    api = get_api(cfg, device=DEVICE)
+    params = api.init(SEED)
+    rng = np.random.default_rng(SEED + 241)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in VLM_MODEL["prompts"]]
+    results, steps, launches = {}, [], {}
+    for impl in ("kernel", "ref"):
+        decode_attention.launches = 0
+        results[impl] = _slot_greedy(api, params, prompts, VLM_MODEL["max_new"],
+                                     steps_out=steps, attn_impl=impl)
+        launches[impl] = decode_attention.launches
+    divergences = []
+    for rid, prompt in enumerate(prompts):
+        a, b = results["kernel"][rid][0], results["ref"][rid][0]
+        if a != b:
+            step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            divergences.append({"request": rid, "step": step,
+                                "top2_gap": _top2_gap(api, params, list(prompt) + a[:step])})
+    want_engine = cfg.num_layers * steps[0]
+    emit("model_vlm", arch=VLM_ARCH, gpu=gpu, dtype="float32", check="slot_kernel_vs_ref",
+         layers=cfg.num_layers, requests=len(prompts), max_new_tokens=VLM_MODEL["max_new"],
+         cache_slots=512 + cfg.num_image_tokens, tokens_identical=not divergences,
+         divergences=divergences, decode_steps=steps,
+         decode_attention_launches=launches, expected_launches=want_engine)
+    bad = [dv for dv in divergences if not dv["top2_gap"] < DENSE_TOP2_TOL]
+    if bad or launches != {"kernel": want_engine, "ref": 0} or not steps[0]:
+        raise AssertionError(f"model_vlm: divergences {bad}, launches {launches}, "
+                             f"expected {want_engine}")
+
+    # prefill with the image prefix, then decode at t + P, kernel vs ref
+    p = cfg.num_image_tokens
+    n_rows, width = len(VLM_MODEL["rows"]), max(VLM_MODEL["rows"])
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, (n_rows, width))
+                              .astype(np.int32)).to(DEVICE)
+    valid = torch.zeros((n_rows, width), dtype=torch.bool, device=DEVICE)
+    for i, n in enumerate(VLM_MODEL["rows"]):
+        valid[i, :n] = True
+    gen = torch.Generator(device=DEVICE).manual_seed(VLM_PATCHES_SEED)
+    patches = torch.randn(n_rows, p, cfg.d_model, generator=gen, device=DEVICE)
+    lengths = valid.sum(dim=1).to(torch.int32)
+    logits, feed = {}, []
+    decode_attention.launches = 0
+    with torch.no_grad():
+        for impl in ("ref", "kernel"):
+            cache = api.init_cache(n_rows, 64)
+            first, cache = api.prefill(params, {"tokens": tokens, "valid": valid,
+                                                "patches": patches}, cache, attn_impl=impl)
+            out = [first]
+            for t in range(VLM_MODEL["steps"]):
+                if impl == "ref":
+                    feed.append(out[-1].argmax(-1).to(torch.int32))
+                step, cache = api.decode_step(params, feed[t], lengths + t + p, cache,
+                                              attn_impl=impl)
+                out.append(step)
+            logits[impl] = torch.stack(out)
+            del cache
+    kernel_launches = decode_attention.launches
+    ok, diff, scale = _logits_gate(logits["kernel"], logits["ref"])
+    finite = bool(torch.isfinite(logits["kernel"]).all())
+    emit("model_vlm", arch=VLM_ARCH, gpu=gpu, dtype="float32",
+         check="prefix_prefill_decode_kernel_vs_ref", image_tokens=p,
+         text_lengths=list(VLM_MODEL["rows"]), decode_steps=VLM_MODEL["steps"],
+         logits_shape=list(logits["kernel"].shape), max_abs_diff=diff, logit_scale=scale,
+         gate={"rtol": TOL["float32"]["rtol"], "atol": f"{TOL['float32']['atol']} x scale"},
+         ok=ok and finite, decode_attention_launches=kernel_launches,
+         expected_launches=cfg.num_layers * VLM_MODEL["steps"])
+    if not (ok and finite) or kernel_launches != cfg.num_layers * VLM_MODEL["steps"]:
+        raise AssertionError(f"model_vlm: prefix decode logits differ by {diff} (scale "
+                             f"{scale}), {kernel_launches} launches")
+    rows[4].setdefault("vlm_audio_launches", {})["model_vlm"] = want_engine + kernel_launches
+    del api, params, logits
+    _free_device()
+
+
+def phase_serve_vlm(rows: list, gpu: str) -> None:
+    """bf16 PaliGemma-3B at full width and depth behind ``LLMProxy`` over
+    the slot ``DecodeEngine`` (16 slots, ``max_total_len`` 1024, a cache
+    of 1024 + 256 slots), the ``serve`` task mix, text only: exactly 18
+    decode-attention launches per decode step; then ``profile_vlm``."""
+    _free_device()
+    api, params = phase_serve_slot(rows[4].setdefault("vlm_audio_launches", {}), VLM_ARCH,
+                                   "decode_attention", phase="serve_vlm", gpu=gpu,
+                                   launches_key="serve_vlm")
+    del api, params
+    _free_device()
+
+
+def _seeded_patches(trainer) -> None:
+    """Make ``trainer.build_batch`` put seeded N(0, 1) patches (the stubbed
+    vision frontend's output, from ``VLM_PATCHES_SEED``) where the
+    reference's ``build_batch`` puts zeros.  Zero patches stay exactly zero
+    through every layer, and each norm scales their residual gradient by
+    rsqrt(eps) = 1000: at PaliGemma's 18 layers it overflows, inf x 0 makes
+    the gradient NaN, and every later step runs on NaN weights, in the JAX
+    package as here (``tests/test_torch_vlm.py`` pins it)."""
+    import numpy as np
+    zero_build = trainer.build_batch
+    rng = np.random.default_rng(VLM_PATCHES_SEED)
+
+    def build_batch(samples):
+        batch = zero_build(samples)
+        batch["patches"] = rng.standard_normal(batch["patches"].shape, dtype=np.float32)
+        return batch
+
+    trainer.build_batch = build_batch
+
+
+def phase_train_vlm(rows: list, gpu: str) -> None:
+    """``HostTrainer`` on bf16 PaliGemma-3B at full width and depth
+    (3.03 B parameters: bf16 weights and grads, fp32 master, m and v),
+    ``decoupled_ppo``, no reference policy, on 8 samples x 256 text
+    tokens behind 256 seeded image positions (S = 512, ``_seeded_patches``).
+    First the train step's loss and gradient (``make_loss_and_grad``, no
+    optimizer) on one batch and the initial weights, three ways: bf16
+    through the flash kernels, bf16 through plain ``attend``, and plain
+    ``attend`` in fp32 on the same weights widened (the witness).  The two
+    bf16 routes differ by their rounding, which 18 random-weight layers
+    amplify, so each is held against the witness: the kernel route's loss,
+    gradient norm and mean ratio within ``TOL["bfloat16"]``'s rtol of it,
+    18 flash launches each way on the kernel route, none on the others.
+    Then 2 rounds of ``train_on_samples``: exact flash launches
+    (18 forward per forward pass, 18 backward per backward: a proximal pass
+    and one step per round), every metric finite, ``train_on_samples`` s,
+    trained tokens/s, peak memory."""
+    import dataclasses
+    import types
+    import numpy as np
+    torch = _torch()
+    from repro_torch.algos import LossConfig
+    from repro_torch.models import get_api
+    from repro_torch.train import HostTrainer, OptConfig, TrainerConfig
+    from repro_torch.train.optimizer import global_norm, tree_leaves, tree_map
+    from repro_torch.train.trainer import make_loss_and_grad
+
+    _free_device()
+    cfg = _slice12_configs()[0]
+    api = get_api(cfg, device=DEVICE)
+    text = VLM_TRAIN["prompt"] + VLM_TRAIN["response"]
+    loss_cfg = LossConfig(pg_variant="decoupled_ppo")
+    opt_cfg = OptConfig(learning_rate=1e-5, warmup_steps=1)
+    tcfg = TrainerConfig(max_seq_len=text, group_size=VLM_TRAIN["group"])
+
+    # the loss and gradient three ways, before the trainer's optimizer state
+    # exists (the fp32 route's activations and gradients need its room)
+    params = api.init(SEED)
+    batcher = types.SimpleNamespace(api=api, tcfg=tcfg)
+    batcher.build_batch = lambda samples: HostTrainer.build_batch(batcher, samples)
+    _seeded_patches(batcher)
+    samples = _seeded_samples(cfg.vocab_size, VLM_TRAIN, SEED + 242)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in batcher.build_batch(samples).items()}
+    api32 = get_api(dataclasses.replace(cfg, dtype="float32"), device=DEVICE)
+    routes = {}
+    for name, route_api, impl in (("kernel", api, "kernel"), ("ref", api, "ref"),
+                                  ("fp32_ref", api32, "ref")):
+        p, b = params, batch
+        if route_api is api32:   # the same weights and patches the bf16 routes see
+            p = tree_map(lambda x: x.float(), params)
+            b = dict(batch, patches=batch["patches"].to(torch.bfloat16).float())
+        _zero_flash()
+        loss, metrics, grads = make_loss_and_grad(route_api, loss_cfg, attn_impl=impl)(
+            p, b)
+        routes[name] = dict(loss=float(loss), grad_norm=float(global_norm(grads)),
+                            ratio_mean=float(metrics["ratio_mean"]),
+                            flash_launches=list(_flash_counts()))
+        del p, b, grads, metrics, loss
+        torch.cuda.empty_cache()
+    del params, batch
+    _free_device()
+    rtol = TOL["bfloat16"]["rtol"]
+    witness = routes["fp32_ref"]
+    rel = {route: {k: abs(routes[route][k] - witness[k]) / abs(witness[k])
+                   for k in ("loss", "grad_norm", "ratio_mean")}
+           for route in ("kernel", "ref")}
+    emit("train_vlm", arch=VLM_ARCH, gpu=gpu, dtype=cfg.dtype, check="kernel_vs_ref",
+         batch=[len(samples), text], image_tokens=cfg.num_image_tokens, routes=routes,
+         rel_err_to_fp32=rel, rtol=rtol)
+    if not all(v <= rtol for v in rel["kernel"].values()) or \
+            routes["kernel"]["flash_launches"] != [cfg.num_layers] * 2 or \
+            routes["ref"]["flash_launches"] != [0, 0] or \
+            routes["fp32_ref"]["flash_launches"] != [0, 0]:
+        raise AssertionError(f"train_vlm, kernel vs ref: {routes}, rel {rel}")
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = HostTrainer(api, SEED, loss_cfg, opt_cfg, tcfg, attn_impl="kernel")
+    _seeded_patches(trainer)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    n_params = sum(t.numel() for t in tree_leaves(trainer.state["params"]))
+
+    want = (2 * cfg.num_layers, cfg.num_layers)
+    rounds = []
+    for r in range(VLM_TRAIN["rounds"]):
+        samples = _seeded_samples(cfg.vocab_size, VLM_TRAIN, SEED + 242 + r)
+        _zero_flash()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_on_samples(samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _flash_counts()
+        rounds.append(dict(round=r, train_on_samples_s=wall,
+                           trained_tokens_per_s=len(samples) * text / wall,
+                           flash_launches=list(launches), loss=metrics["loss"],
+                           grad_norm=metrics["grad_norm"], ratio_mean=metrics["ratio_mean"]))
+        if launches != want or not np.isfinite(list(metrics.values())).all():
+            raise AssertionError(f"train_vlm round {r}: flash launches {launches} (expected "
+                                 f"{want}), metrics {metrics}")
+    peak = torch.cuda.max_memory_allocated()
+    emit("train_vlm", arch=VLM_ARCH, gpu=gpu, dtype=cfg.dtype, layers=cfg.num_layers,
+         params=n_params, state_bytes=state_bytes, pg_variant="decoupled_ppo",
+         batch=[VLM_TRAIN["groups"] * VLM_TRAIN["group"], text],
+         image_tokens=cfg.num_image_tokens, flash_seq=cfg.num_image_tokens + text,
+         patches="seeded N(0, 1) in place of build_batch's zeros", rounds=rounds,
+         expected_flash_launches_per_round=list(want),
+         peak_memory_bytes=peak, fits_76gb=peak <= PEAK_LIMIT_BYTES)
+    if peak > PEAK_LIMIT_BYTES:
+        raise AssertionError(f"train_vlm: peak {peak} bytes over {PEAK_LIMIT_BYTES}")
+    rows[2].setdefault("vlm_audio_launches", {})["train_vlm"] = (
+        cfg.num_layers + sum(x["flash_launches"][0] for x in rounds))
+    rows[3].setdefault("vlm_audio_launches", {})["train_vlm"] = (
+        cfg.num_layers + sum(x["flash_launches"][1] for x in rounds))
+    del trainer
+    _free_device()
+
+
+def phase_pipeline_vlm(rows: list, gpu: str) -> None:
+    """``build_rlvr_pipeline(paligemma-3b)`` with ``PIPE``'s settings at
+    alpha = 1, 2 steps: ``auto`` picks the slot engine (two replicas of 8
+    slots, text-only rollouts), the trainer the flash kernels on a seeded
+    image prefix (``_seeded_patches``) + 64 tokens.  Exact decode-attention
+    launches (layers x decode steps) and flash launches per
+    ``train_on_samples``, staleness <= 1, versions, every step's loss
+    finite, the engines hold the trainer's final tree; peak memory."""
+    import numpy as np
+    torch = _torch()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.launch.pipeline import PipelineSettings, build_rlvr_pipeline
+    from repro_torch.rollout import DecodeEngine
+
+    _free_device()
+    cfg = _slice12_configs()[0]
+    torch.cuda.reset_peak_memory_stats()
+    s = PipelineSettings(async_generation_ratio=1, **PIPE)
+    pipe = build_rlvr_pipeline(cfg, s, reward_fn=_pipeline_reward, device=DEVICE)
+    _seeded_patches(pipe.trainer)
+    if not all(type(e) is DecodeEngine for e in pipe.engines):
+        raise AssertionError(f"pipeline_vlm: engines {[type(e).__name__ for e in pipe.engines]}")
+    want_shape = _slice12_shapes()["decode"]["pipeline_vlm"]
+    shapes = {(e.num_slots, cfg.num_heads, cfg.num_kv_heads, e.cache.k.shape[2],
+               cfg.resolved_head_dim, cfg.dtype) for e in pipe.engines}
+    if shapes != {want_shape}:
+        raise AssertionError(f"pipeline_vlm: decode shapes {shapes}, checked {want_shape}")
+    flash = fa.flash_attention
+    per_train, train = [], pipe.controller.train_fn
+
+    def counted(samples):
+        f0, b0 = flash.launches_fwd, flash.launches_bwd
+        metrics = train(samples)
+        per_train.append((flash.launches_fwd - f0, flash.launches_bwd - b0))
+        return metrics
+
+    pipe.controller.train_fn = counted
+    steps = 2
+    decode_attention.launches = 0
+    _zero_flash()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = pipe.run(steps, timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode_launches = decode_attention.launches
+    decode_steps = [e.total_decode_steps for e in pipe.engines]
+    want_train = _flash_per_train(cfg.num_layers, s)
+    stale = max(st.staleness_max for st in stats)
+    final = pipe.trainer.get_weights()
+    peak = torch.cuda.max_memory_allocated()
+    step_wall = [st.wait_time + st.train_time + st.sync_time for st in stats]
+    emit("pipeline_vlm", gpu=gpu, arch=VLM_ARCH, dtype=cfg.dtype, layers=cfg.num_layers,
+         alpha=1, weight_sync=s.weight_sync, engine="DecodeEngine",
+         replicas=len(pipe.engines), slots_per_replica=pipe.engines[0].num_slots,
+         cache_slots=pipe.engines[0].cache.k.shape[2], batch=s.rollout_batch_size,
+         steps=steps, wall_s=wall, wall_per_step_s=wall / steps, step_wall_s=step_wall,
+         per_step=[dict(step=st.step, wait_s=st.wait_time, train_s=st.train_time,
+                        sync_s=st.sync_time, staleness_max=st.staleness_max,
+                        reward_mean=st.reward_mean, loss=st.loss) for st in stats],
+         decode_steps_per_replica=decode_steps, decode_attention_launches=decode_launches,
+         flash_launches_per_train_on_samples=per_train,
+         expected_flash_per_train=list(want_train), staleness_max=stale,
+         peak_memory_bytes=peak, fits_76gb=peak <= PEAK_LIMIT_BYTES)
+    if decode_launches != cfg.num_layers * sum(decode_steps) or not decode_launches:
+        raise AssertionError(f"pipeline_vlm: {decode_launches} decode launches for decode "
+                             f"steps {decode_steps} x {cfg.num_layers} layers")
+    if per_train != [want_train] * steps:
+        raise AssertionError(f"pipeline_vlm: flash per train {per_train}, expected "
+                             f"{want_train} x {steps}")
+    if len(stats) != steps or stale > 1 or pipe.buffer.version != steps:
+        raise AssertionError(f"pipeline_vlm: {len(stats)} steps, staleness {stale}, "
+                             f"version {pipe.buffer.version}")
+    if not all(e.params is final for e in pipe.engines) or \
+            not np.isfinite([st.loss for st in stats]).all():
+        raise AssertionError("pipeline_vlm: an engine does not hold the final tree, or "
+                             f"a loss is not finite: {[st.loss for st in stats]}")
+    if pipe.router is None or pipe.router.replicas_alive != len(pipe.engines):
+        raise AssertionError("pipeline_vlm: a replica is down")
+    if peak > PEAK_LIMIT_BYTES:
+        raise AssertionError(f"pipeline_vlm: peak {peak} bytes over {PEAK_LIMIT_BYTES}")
+    rows[4].setdefault("vlm_audio_launches", {})["pipeline_vlm"] = decode_launches
+    rows[2].setdefault("vlm_audio_launches", {})["pipeline_vlm"] = sum(
+        x[0] for x in per_train)
+    rows[3].setdefault("vlm_audio_launches", {})["pipeline_vlm"] = sum(
+        x[1] for x in per_train)
+    del pipe
+    _free_device()
+
+
+def _audio_greedy(api, params, frames, prompt, steps, impl, max_len):
+    """Prefill ``prompt`` (B, S) over ``frames`` into a cache of
+    ``max_len``, then ``steps`` greedy ``decode_step``s: (tokens (B, steps
+    + 1), the top-2 logit gap behind each of them (steps + 1, B))."""
+    torch = _torch()
+    b, s = prompt.shape
+    cache = api.init_cache(b, max_len)
+    with torch.no_grad():
+        logits, cache = api.prefill(params, {"frames": frames, "tokens": prompt}, cache,
+                                    attn_impl=impl)
+        toks, gaps = [], []
+        for t in range(steps + 1):
+            top = torch.topk(logits, 2, dim=-1).values
+            gaps.append(top[:, 0] - top[:, 1])
+            toks.append(logits.argmax(-1).to(torch.int32))
+            if t == steps:
+                break
+            pos = torch.full((b,), s + t, dtype=torch.int32, device=DEVICE)
+            logits, cache = api.decode_step(params, toks[-1], pos, cache, attn_impl=impl)
+    return torch.stack(toks, dim=1), torch.stack(gaps)
+
+
+def phase_model_audio(rows: list, gpu: str) -> None:
+    """fp32 Seamless-M4T-medium at full width and depth (12 + 12 layers,
+    0.98 B parameters) on seeded frames (B=4, T=1024): ``apply`` kernel
+    against ref (the encoder's flash with ``causal=False``, the decoder's
+    causal; exactly 24 forward launches), logits within the fp32 gate;
+    then a 32-token prefill and 32 greedy ``decode_step``s each way, greedy
+    tokens identical but at a top-2 gap below ``DENSE_TOP2_TOL`` (exactly
+    12 non-causal flash launches in the kernel prefill, 12 decode-attention
+    launches per step)."""
+    import dataclasses
+    import numpy as np
+    torch = _torch()
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import get_api
+    from repro_torch.train.optimizer import tree_leaves
+
+    _free_device()
+    cfg = dataclasses.replace(_slice12_configs()[1], dtype="float32")
+    api = get_api(cfg, device=DEVICE)
+    params = api.init(SEED)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(SEED + 243)
+    b = AUDIO_MODEL["batch"]
+    frames = torch.from_numpy(rng.standard_normal((b, cfg.encoder_frames, cfg.d_model),
+                                                  dtype=np.float32)).to(DEVICE)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, AUDIO_MODEL["tokens"]))
+                              .astype(np.int32)).to(DEVICE)
+    out, launches = {}, {}
+    with torch.no_grad():
+        for impl in ("kernel", "ref"):
+            _zero_flash()
+            out[impl], _ = api.apply(params, {"frames": frames, "tokens": tokens},
+                                     attn_impl=impl)
+            launches[impl] = _flash_counts()
+    ok, diff, scale = _logits_gate(out["kernel"], out["ref"])
+    want_apply = (cfg.num_encoder_layers + cfg.num_layers, 0)
+    emit("model_audio", arch=AUDIO_ARCH, gpu=gpu, dtype="float32", check="apply_kernel_vs_ref",
+         encoder_layers=cfg.num_encoder_layers, decoder_layers=cfg.num_layers,
+         params=n_params, frames=list(frames.shape), tokens=list(tokens.shape),
+         max_abs_diff=diff, logit_scale=scale, ok=ok,
+         finite=bool(torch.isfinite(out["kernel"]).all()),
+         flash_launches={k: list(v) for k, v in launches.items()},
+         expected_kernel_flash_launches=list(want_apply))
+    if not ok or launches != {"kernel": want_apply, "ref": (0, 0)}:
+        raise AssertionError(f"model_audio apply: diff {diff} (scale {scale}), flash "
+                             f"launches {launches}")
+    del out
+
+    prompt = tokens[:, :AUDIO_MODEL["prompt"]]
+    steps = AUDIO_MODEL["steps"]
+    toks, gaps, counts = {}, {}, {}
+    for impl in ("kernel", "ref"):
+        _zero_flash()
+        decode_attention.launches = 0
+        toks[impl], gaps[impl] = _audio_greedy(api, params, frames, prompt, steps, impl,
+                                               AUDIO_MODEL["max_len"])
+        counts[impl] = (_flash_counts()[0], decode_attention.launches)
+    divergences = []
+    for row in range(b):
+        a, r = toks["kernel"][row].tolist(), toks["ref"][row].tolist()
+        if a != r:
+            step = next(i for i, (x, y) in enumerate(zip(a, r)) if x != y)
+            divergences.append({"row": row, "step": step,
+                                "top2_gap": float(gaps["ref"][step, row])})
+    want = {"kernel": (cfg.num_encoder_layers, cfg.num_layers * steps), "ref": (0, 0)}
+    emit("model_audio", arch=AUDIO_ARCH, gpu=gpu, dtype="float32",
+         check="greedy_kernel_vs_ref", prompt_tokens=AUDIO_MODEL["prompt"],
+         decode_steps=steps, cache_len=AUDIO_MODEL["max_len"],
+         tokens_identical=not divergences, divergences=divergences,
+         min_top2_gap=float(gaps["ref"].min()),
+         launches={k: {"flash_fwd": v[0], "decode_attention": v[1]}
+                   for k, v in counts.items()},
+         expected={k: {"flash_fwd": v[0], "decode_attention": v[1]} for k, v in want.items()})
+    bad = [dv for dv in divergences if not dv["top2_gap"] < DENSE_TOP2_TOL]
+    if bad or counts != want:
+        raise AssertionError(f"model_audio greedy: divergences {bad}, launches {counts}")
+    rows[2].setdefault("vlm_audio_launches", {})["model_audio"] = (
+        launches["kernel"][0] + counts["kernel"][0])
+    rows[4].setdefault("vlm_audio_launches", {})["model_audio"] = counts["kernel"][1]
+    del api, params, frames
+    _free_device()
+
+
+def phase_decode_audio(rows: list, gpu: str) -> None:
+    """bf16 Seamless-M4T-medium, full depth: 16 rows of seeded frames
+    (T=1024) and 64-token prompts through ``api.prefill``, then 64 greedy
+    ``api.decode_step``s (the reference has no engine for the family: the
+    api is its path).  Exactly 12 decode-attention launches per step and 12
+    non-causal flash launches in the prefill; decoded tokens/s; then a
+    profiled window of 8 more steps: host wall, device busy, idle share,
+    launches per step."""
+    import numpy as np
+    torch = _torch()
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import get_api
+
+    _free_device()
+    cfg = _slice12_configs()[1]
+    api = get_api(cfg, device=DEVICE)
+    params = api.init(SEED)
+    rng = np.random.default_rng(SEED + 244)
+    b, s, steps = AUDIO_DECODE["batch"], AUDIO_DECODE["prompt"], AUDIO_DECODE["steps"]
+    frames = torch.from_numpy(rng.standard_normal((b, cfg.encoder_frames, cfg.d_model),
+                                                  dtype=np.float32)).to(DEVICE)
+    prompt = torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).to(DEVICE)
+    # warm-up outside the count: one short prefill and step (cuBLAS, the kernels' load)
+    _audio_greedy(api, params, frames[:1], prompt[:1, :8], 1, "kernel", 64)
+    cache = api.init_cache(b, AUDIO_DECODE["max_len"])
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (cache.self_kv.k, cache.self_kv.v, cache.cross_k, cache.cross_v))
+    _zero_flash()
+    decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = api.prefill(params, {"frames": frames, "tokens": prompt}, cache,
+                                    attn_impl="kernel")
+        token = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decoded = [token]
+        for t in range(steps):
+            pos = torch.full((b,), s + t, dtype=torch.int32, device=DEVICE)
+            logits, cache = api.decode_step(params, token, pos, cache, attn_impl="kernel")
+            token = logits.argmax(-1).to(torch.int32)
+            decoded.append(token)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    flash_fwd, launches = _flash_counts()[0], decode_attention.launches
+    toks = torch.stack(decoded, dim=1)
+    ok = bool(((toks >= 0) & (toks < cfg.vocab_size)).all()) and \
+        bool(torch.isfinite(logits).all())
+
+    state = {"pos": s + steps, "token": token}
+
+    def one_step():
+        pos = torch.full((b,), state["pos"], dtype=torch.int32, device=DEVICE)
+        with torch.no_grad():
+            out, _ = api.decode_step(params, state["token"], pos, cache, attn_impl="kernel")
+        state["token"] = out.argmax(-1).to(torch.int32)
+        state["pos"] += 1
+
+    n = AUDIO_DECODE["profile_steps"]
+    w0 = time.perf_counter()
+    for _ in range(n):
+        one_step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - w0) / n
+    busy_ms, kernel_ms, per_step, profiled_ms, top = _device_busy(one_step, n,
+                                                                  kernel="decode_kernel")
+    emit("decode_audio", arch=AUDIO_ARCH, gpu=gpu, dtype=cfg.dtype,
+         encoder_layers=cfg.num_encoder_layers, decoder_layers=cfg.num_layers,
+         batch=b, frames=cfg.encoder_frames, prompt_tokens=s, decode_steps=steps,
+         cache_bytes=cache_bytes, prefill_s=t1 - t0, decode_s=t2 - t1,
+         decode_tokens_per_s=b * steps / (t2 - t1), mean_step_ms=1e3 * (t2 - t1) / steps,
+         decode_attention_launches=launches, expected_launches=cfg.num_layers * steps,
+         prefill_flash_launches=flash_fwd, expected_flash=cfg.num_encoder_layers,
+         tokens_ok=ok)
+    emit("profile_audio", window=f"decode-only steps, {b} rows", steps=n,
+         host_wall_ms_per_step=wall_ms, profiled_wall_ms_per_step=profiled_ms,
+         device_busy_ms_per_step=busy_ms, device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+         kernel="decode_kernel", kernel_ms_per_step=kernel_ms, launches_per_step=per_step,
+         top_kernels_ms_per_step=top, arch=AUDIO_ARCH, gpu=gpu)
+    if launches != cfg.num_layers * steps or flash_fwd != cfg.num_encoder_layers or not ok:
+        raise AssertionError(f"decode_audio: {launches} decode launches (expected "
+                             f"{cfg.num_layers * steps}), {flash_fwd} flash, tokens ok {ok}")
+    if not kernel_ms > 0:
+        raise AssertionError("decode_audio: the profiler saw no decode_kernel time")
+    rows[4].setdefault("vlm_audio_launches", {})["decode_audio"] = launches
+    rows[2].setdefault("vlm_audio_launches", {})["decode_audio"] = flash_fwd
+    del api, params, cache, frames
+    _free_device()
+
+
+def phase_train_audio(rows: list, gpu: str) -> None:
+    """``HostTrainer`` on bf16 Seamless-M4T-medium at full width and depth,
+    ``decoupled_ppo``: 2 rounds of 16 samples x 256 tokens with the
+    reference's zero frames (T=1024).  Exactly 24 flash forward launches
+    per forward pass (12 non-causal in the encoder, 12 causal in the
+    decoder) and 24 backward per backward pass; ``train_on_samples`` s,
+    trained tokens/s, peak memory."""
+    import numpy as np
+    torch = _torch()
+    from repro_torch.algos import LossConfig
+    from repro_torch.models import get_api
+    from repro_torch.train import HostTrainer, OptConfig, TrainerConfig
+    from repro_torch.train.optimizer import tree_leaves
+
+    _free_device()
+    cfg = _slice12_configs()[1]
+    api = get_api(cfg, device=DEVICE)
+    seq = AUDIO_TRAIN["prompt"] + AUDIO_TRAIN["response"]
+    torch.cuda.reset_peak_memory_stats()
+    trainer = HostTrainer(api, SEED, LossConfig(pg_variant="decoupled_ppo"),
+                          OptConfig(learning_rate=1e-5, warmup_steps=1),
+                          TrainerConfig(max_seq_len=seq, group_size=AUDIO_TRAIN["group"]),
+                          attn_impl="kernel")
+    n_params = sum(t.numel() for t in tree_leaves(trainer.state["params"]))
+    per_pass = cfg.num_encoder_layers + cfg.num_layers
+    want = (2 * per_pass, per_pass)
+    rounds = []
+    for r in range(AUDIO_TRAIN["rounds"]):
+        samples = _seeded_samples(cfg.vocab_size, AUDIO_TRAIN, SEED + 245 + r)
+        _zero_flash()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_on_samples(samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _flash_counts()
+        rounds.append(dict(round=r, train_on_samples_s=wall,
+                           trained_tokens_per_s=len(samples) * seq / wall,
+                           flash_launches=list(launches), loss=metrics["loss"],
+                           grad_norm=metrics["grad_norm"]))
+        if launches != want or not all(np.isfinite([metrics["loss"], metrics["grad_norm"]])):
+            raise AssertionError(f"train_audio round {r}: flash launches {launches} "
+                                 f"(expected {want}), metrics {metrics}")
+    peak = torch.cuda.max_memory_allocated()
+    emit("train_audio", arch=AUDIO_ARCH, gpu=gpu, dtype=cfg.dtype,
+         encoder_layers=cfg.num_encoder_layers, decoder_layers=cfg.num_layers,
+         params=n_params, pg_variant="decoupled_ppo",
+         batch=[AUDIO_TRAIN["groups"] * AUDIO_TRAIN["group"], seq],
+         frames=cfg.encoder_frames, rounds=rounds,
+         expected_flash_launches_per_round=list(want), peak_memory_bytes=peak)
+    rows[2].setdefault("vlm_audio_launches", {})["train_audio"] = sum(
+        x["flash_launches"][0] for x in rounds)
+    rows[3].setdefault("vlm_audio_launches", {})["train_audio"] = sum(
+        x["flash_launches"][1] for x in rounds)
+    del trainer
+    _free_device()
+
+
 def _device_us(evt) -> float:
     for name in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, name):
@@ -4078,6 +4867,15 @@ def main() -> int:
         del shared
         phase_pipeline_critic(rows, gpu)
         phase_examples(gpu)
+        # slice 12: the VLM and enc-dec audio families
+        phase_vlm_audio_kernels(rows, gpu)
+        phase_model_vlm(rows, gpu)
+        phase_serve_vlm(rows, gpu)
+        phase_train_vlm(rows, gpu)
+        phase_pipeline_vlm(rows, gpu)
+        phase_model_audio(rows, gpu)
+        phase_decode_audio(rows, gpu)
+        phase_train_audio(rows, gpu)
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -6,14 +6,15 @@ Layout: <dir>/step_<n>/{tree.msgpack, meta.json}.  ``tree.msgpack`` is one
 msgpack array of ``{"dtype", "shape", "data"}`` maps, one per leaf in
 ``jax.tree_util`` flatten order over the JAX package's structure: dict keys
 sorted, lists in order, ``None`` no leaf; an LM param tree (a dict whose
-``blocks`` is the port's per-layer list) mapped to the JAX layout by
-``convert.to_jax_layout`` (``blocks`` stacked on a leading layer axis; for
-the hybrid, one stack per pattern position and the ``tail`` list, which
-needs the model's ``cfg``).  Arrays are stored as (dtype name, shape, raw
-little-endian bytes); bfloat16 as its raw 16-bit patterns under
-``"bfloat16"``; the optimizer's host-int ``step`` as an ``int32`` of shape
-``[]``.  Leaves keep their dtypes and are written one by one, a stacked
-leaf layer by layer, so nothing is stacked in memory.
+``blocks`` is the port's per-layer list) or an enc-dec one (``encoder`` and
+``decoder`` lists) mapped to the JAX layout by ``convert.to_jax_layout``
+(the lists stacked on a leading layer axis; for the hybrid, one stack per
+pattern position and the ``tail`` list, which needs the model's ``cfg``).
+Arrays are stored as (dtype name, shape, raw little-endian bytes);
+bfloat16 as its raw 16-bit patterns under ``"bfloat16"``; the optimizer's
+host-int ``step`` as an ``int32`` of shape ``[]``.  Leaves keep their
+dtypes and are written one by one, a stacked leaf layer by layer, so
+nothing is stacked in memory.
 
 The encoder and decoder below cover the part of msgpack the layout uses
 (array, map, str, bin, int) and give ``msgpack.packb(payload,
@@ -202,7 +203,7 @@ def _slots(tree, leaves: list):
 def _jax_view(tree, cfg):
     """The slot tree in the JAX package's structure."""
     if isinstance(tree, dict):
-        if isinstance(tree.get("blocks"), list):
+        if any(isinstance(tree.get(k), list) for k in ("blocks", "encoder")):
             return to_jax_layout(tree, cfg, leaf=lambda s: s, stack=_Stacked)
         return {k: _jax_view(v, cfg) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -5,16 +5,21 @@ arrays (the caller does the ``np.asarray`` on the JAX side, so this module
 imports no JAX) in ``transformer.init_lm``'s layout: ``embed``, ``blocks``
 stacked on a leading layer axis, ``final_norm``, ``lm_head`` — for the
 hybrid, ``blocks`` a dict of pattern positions (``"{i}_{kind}"``) each
-stacked over the groups, and a ``tail`` list.  It returns the port's
-layout — the same dicts with ``blocks`` as a list of per-layer dicts in
-execution order — as tensors on ``device``.  ``cache_from_jax`` carries a
+stacked over the groups, and a ``tail`` list; for the enc-dec
+(``encdec.init_encdec``), ``encoder`` and ``decoder`` stacked on a leading
+layer axis beside ``embed``, ``lm_head``, ``enc_norm`` and ``final_norm``.
+It returns the port's layout — the same dicts with ``blocks`` (or
+``encoder`` and ``decoder``) as lists of per-layer dicts in execution
+order — as tensors on ``device``.  ``cache_from_jax`` carries a
 paged KV pool across the same way, int8 codes and their scales included,
 so both packages can start from one pool; ``slot_cache_from_jax`` does the
 same for the slot engine's caches (a dense ``KVCache`` or an RWKV-6
-``RWKVState``, stacked on a leading layer axis in both packages, or the
+``RWKVState``, stacked on a leading layer axis in both packages, the
 hybrid's dict of stacked groups and tail, which becomes a
-``HybridCache``).  ``state_from_jax`` carries a whole train state across,
-the critic's value head and its optimizer state included.
+``HybridCache``, or the enc-dec's dict of ``self``, ``cross_k`` and
+``cross_v``, which becomes an ``EncDecCache``).  ``state_from_jax``
+carries a whole train state across, the critic's value head and its
+optimizer state included.
 ``params_to_numpy`` is the way back, so that trees can be compared leaf
 by leaf; ``to_jax_layout`` is its layout mapping alone (the checkpoint
 store writes through it, dtypes kept).
@@ -26,6 +31,7 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.attention import KVCache
+from repro_torch.models.encdec import EncDecCache
 from repro_torch.models.paged import PagedKVCache
 from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.rwkv6 import RWKVState
@@ -58,9 +64,20 @@ def _pattern_keys(stacked: dict) -> list:
                   key=lambda k: int(k.split("_", 1)[0]))
 
 
+_STACKS = ("encoder", "decoder")        # the enc-dec's stacked layer trees
+
+
+def _unstack(stacked) -> list:
+    n = len(np.asarray(stacked["ln1"]["scale"]))
+    return [_layer(stacked, i) for i in range(n)]
+
+
 def params_from_jax(tree, device) -> dict:
-    """JAX LM param tree (numpy leaves) -> the port's params."""
+    """JAX LM or enc-dec param tree (numpy leaves) -> the port's params."""
     device = torch.device(device)
+    if "encoder" in tree:
+        return {k: ([_convert(lp, device) for lp in _unstack(v)] if k in _STACKS
+                    else _convert(v, device)) for k, v in tree.items()}
     out = {k: _convert(v, device) for k, v in tree.items()
            if k not in ("blocks", "tail")}
     blocks = tree["blocks"]
@@ -70,8 +87,7 @@ def params_from_jax(tree, device) -> dict:
         layers = ([_layer(blocks[k], g) for g in range(n) for k in keys]
                   + list(tree["tail"]))
     else:
-        n = len(np.asarray(blocks["ln1"]["scale"]))
-        layers = [_layer(blocks, i) for i in range(n)]
+        layers = _unstack(blocks)
     out["blocks"] = [_convert(lp, device) for lp in layers]
     return out
 
@@ -110,9 +126,13 @@ def slot_cache_from_jax(cache, device, *, max_len=None):
     """A JAX slot-engine cache with numpy leaves -> the port's: a
     ``KVCache`` (``k``, ``v``, ``pos``; ``max_len``, the sequence budget it
     serves, defaults to its S_max, i.e. not a ring), an ``RWKVState``
-    (``wkv``, ``tm_prev``, ``cm_prev``) or, from the hybrid's dict, a
-    ``HybridCache``."""
+    (``wkv``, ``tm_prev``, ``cm_prev``), from the hybrid's dict a
+    ``HybridCache``, or from the enc-dec's an ``EncDecCache``."""
     device = torch.device(device)
+    if isinstance(cache, dict) and "cross_k" in cache:
+        return EncDecCache(slot_cache_from_jax(cache["self"], device, max_len=max_len),
+                           _tensor(cache["cross_k"], device),
+                           _tensor(cache["cross_v"], device))
     if isinstance(cache, dict):
         return _hybrid_cache_from_jax(cache, device, max_len)
     if hasattr(cache, "wkv"):
@@ -144,10 +164,14 @@ def _stack(trees, stack):
 
 def to_jax_layout(params, cfg=None, *, leaf=_numpy, stack=np.stack) -> dict:
     """The port's params (or a tree of the same shape) in the JAX layout:
-    ``leaf`` applied to every tensor, ``blocks`` stacked back on a leading
-    layer axis by ``stack`` (given each leaf's per-layer values in layer
-    order) — for a hybrid ``cfg``, one stack per pattern position
-    (``"{i}_{kind}"``) and the ``tail`` list of per-layer dicts."""
+    ``leaf`` applied to every tensor, ``blocks`` (the enc-dec's ``encoder``
+    and ``decoder``) stacked back on a leading layer axis by ``stack``
+    (given each leaf's per-layer values in layer order) — for a hybrid
+    ``cfg``, one stack per pattern position (``"{i}_{kind}"``) and the
+    ``tail`` list of per-layer dicts."""
+    if "encoder" in params:
+        return {k: (_stack([_map(leaf, b) for b in v], stack) if k in _STACKS
+                    else _map(leaf, v)) for k, v in params.items()}
     out = {k: _map(leaf, v) for k, v in params.items() if k != "blocks"}
     blocks = [_map(leaf, b) for b in params["blocks"]]
     if cfg is None or cfg.family != "hybrid":
@@ -171,7 +195,8 @@ def params_to_numpy(params, cfg=None) -> dict:
 
 
 def _opt_from_jax(opt, device) -> dict:
-    tree = params_from_jax if "blocks" in opt["master"] else _convert
+    master = opt["master"]
+    tree = params_from_jax if "blocks" in master or "encoder" in master else _convert
     return {"step": int(np.asarray(opt["step"])),
             **{k: tree(opt[k], device) for k in ("master", "m", "v")}}
 

@@ -21,6 +21,11 @@ The port of the JAX package's ``launch/pipeline.py``.  What differs:
   logprob passes run the kernels.  An MoE config is served on the paged
   engine with the reference's capacity dispatch and trained with every
   expert on every token (``moe_mode="dense"``), as in the reference.
+  ``auto`` serves a VLM on the slot engine, text-only (no paged views).
+* An enc-dec (``audio``) config is refused before anything is built: the
+  slot engine cannot prefill it without frames.  The reference's pipeline
+  builds, then fails at its first rollout (``KeyError: 'frames'``) and
+  times out in ``get_batch``.
 * The trainer's params are drawn from ``seed`` by ``torch.Generator``, not
   ``jax.random``: the same seed gives other weights than the JAX pipeline.
 * Every replica's engine holds the trainer's tensors by reference
@@ -45,7 +50,7 @@ from repro_torch.core.types import PRIORITY_NORMAL
 from repro_torch.data.dataset import ArithmeticTask, EOS
 from repro_torch.models import ModelConfig, get_api
 from repro_torch.rewards.verifier import ArithmeticVerifier
-from repro_torch.rollout.engine import DecodeEngine
+from repro_torch.rollout.engine import DecodeEngine, refuse_audio
 from repro_torch.rollout.paged_engine import PagedDecodeEngine
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.trainer import HostTrainer, TrainerConfig
@@ -321,6 +326,7 @@ def build_rlvr_pipeline(model_cfg: ModelConfig, s: PipelineSettings,
                         *, task: Optional[ArithmeticTask] = None,
                         reward_fn: Optional[Callable] = None,
                         device=None) -> RLVRPipeline:
+    refuse_audio(model_cfg, "build_rlvr_pipeline")
     task = task or ArithmeticTask(seed=s.seed)
     reward_fn = reward_fn or ArithmeticVerifier(task)
     api = get_api(model_cfg, device=device)
@@ -411,6 +417,7 @@ def build_agentic_pipeline(model_cfg: ModelConfig, s: PipelineSettings, *,
                            make_env: Callable, num_env_groups: int,
                            group_size: int, max_env_steps: int = 8,
                            device=None) -> AgenticPipeline:
+    refuse_audio(model_cfg, "build_agentic_pipeline")
     api = get_api(model_cfg, device=device)
     trainer = make_trainer(api, s, group_size)
     engines, proxies, router = make_rollout_fleet(api, trainer.get_weights(), s)

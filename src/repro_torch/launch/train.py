@@ -139,7 +139,10 @@ def main() -> None:
         learning_rate=args.lr,
         seed=args.seed,
     )
-    pipe = build_rlvr_pipeline(cfg, settings, device=args.device)
+    try:
+        pipe = build_rlvr_pipeline(cfg, settings, device=args.device)
+    except ValueError as exc:       # e.g. the enc-dec, which no engine serves
+        raise SystemExit(f"[train] arch={args.arch}: {exc}") from exc
     mode = "sync" if args.async_ratio == 0 else f"async(alpha={args.async_ratio})"
     print(f"[train] arch={args.arch} preset={args.preset} {mode} "
           f"variant={args.pg_variant} B={args.rollout_batch_size} "

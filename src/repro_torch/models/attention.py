@@ -1,7 +1,7 @@
 """GQA attention: projections, the plain-torch ``attend``, the
-full-sequence ``self_attention`` that runs either ``attend`` or the flash
-kernels (``attn_impl``), and the slot engine's dense KV cache with its
-prefill and decode steps.
+full-sequence ``self_attention`` (causal or not) that runs either
+``attend`` or the flash kernels (``attn_impl``), the slot engine's dense
+KV cache with its prefill and decode steps, and ``cross_attention``.
 
 * GQA is expressed by reshaping queries to (B, S, n_kv, group, head_dim);
   KV heads are never repeated in memory.
@@ -37,9 +37,13 @@ _DIRECT_PATH_MAX_SEQ = 2048  # below this, materialise scores directly
 _KV_BLOCK = 1024
 _Q_CHUNK = 2048
 _NEG_INF = -1e30
+_INT32_MAX = 2 ** 31 - 1
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, device):
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device, *,
+                   cross: bool = False):
+    """Projection weights; ``q_norm``/``k_norm`` with ``cfg.qk_norm``, never
+    for ``cross`` attention (the enc-dec decoder's)."""
     dt = torch_dtype(cfg.dtype)
     hd = cfg.resolved_head_dim
     p = {
@@ -48,7 +52,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device):
         "wv": module.dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device),
         "wo": module.dense_init(gen, cfg.q_dim, cfg.d_model, dt, device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
     return p
@@ -211,9 +215,19 @@ def _project_kv(p, cfg: ModelConfig, x, positions):
     return k, v
 
 
-def self_attention(p, cfg: ModelConfig, x, positions, *,
-                   attn_impl: str = "kernel"):
-    """Full-sequence causal self-attention. x: (B,S,D); positions: (B,S) int.
+def _window(cfg: ModelConfig, window):
+    """``window="cfg"``: the config's sliding window; else as given."""
+    return cfg.sliding_window if window == "cfg" else window
+
+
+def self_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True,
+                   window="cfg", attn_impl: str = "kernel"):
+    """Full-sequence self-attention. x: (B,S,D); positions: (B,S) int.
+
+    ``causal=False`` lets every query see every key (the enc-dec encoder);
+    the plain route then gives every query the position ``INT32_MAX``, as
+    the reference does.  ``window``: "cfg" (``cfg.sliding_window``), None
+    or a number of tokens.
 
     ``attn_impl="kernel"`` runs ``FlashAttention`` (the CUDA kernels on the
     card, their plain versions on the CPU) on strided (B, H, S, D) views of
@@ -222,32 +236,35 @@ def self_attention(p, cfg: ModelConfig, x, positions, *,
     ``attend``, which rounds P to ``v.dtype`` before PV: in bf16 the two
     differ by that rounding, in fp32 they agree."""
     b, s, _ = x.shape
+    w = _window(cfg, window)
     q = _project_q(p, cfg, x, positions)
     k, v = _project_kv(p, cfg, x, positions)
     if attn_impl == "kernel":
         out = flash_attention(
             q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim).transpose(1, 2),
-            k.transpose(1, 2), v.transpose(1, 2), causal=True,
-            window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+            k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+            window=w, softcap=cfg.attn_logit_softcap)
         out = out.transpose(1, 2)
     elif attn_impl == "ref":
         kv_valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
-        out = attend(q, k, v, positions, positions, kv_valid,
-                     window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+        q_pos = positions if causal else torch.full_like(positions, _INT32_MAX)
+        out = attend(q, k, v, q_pos, positions, kv_valid,
+                     window=w, softcap=cfg.attn_logit_softcap)
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
     return out.reshape(b, s, cfg.q_dim) @ p["wo"]
 
 
 def prefill_attention(p, cfg: ModelConfig, x, positions, cache: KVCache, *,
-                      valid=None):
+                      window="cfg", valid=None):
     """Causal self-attention that also writes one layer's cache in place.
 
     x: (B, S, D); positions: (B, S); ``cache``: one layer's view.  Requires
     S_max >= S for full caches; ring caches keep the last ``window`` tokens.
     ``valid`` (B, S) masks right-padded prompt slots: invalid positions are
     excluded from attention and written with pos = -1.  Attention runs the
-    plain ``attend`` over the new K/V, as the reference does."""
+    plain ``attend`` over the new K/V, as the reference does.  ``window``
+    as in ``self_attention``."""
     b, s, _ = x.shape
     q = _project_q(p, cfg, x, positions)
     k, v = _project_kv(p, cfg, x, positions)
@@ -259,19 +276,20 @@ def prefill_attention(p, cfg: ModelConfig, x, positions, cache: KVCache, *,
     cache.v[bidx, idx] = v
     cache.pos[bidx, idx] = torch.where(kv_valid, positions, -1).to(torch.int32)
     out = attend(q, k, v, positions, positions, kv_valid,
-                 window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+                 window=_window(cfg, window), softcap=cfg.attn_logit_softcap)
     return out.reshape(b, s, cfg.q_dim) @ p["wo"], cache
 
 
 def decode_attention(p, cfg: ModelConfig, x, pos, cache: KVCache, *,
-                     attn_impl: str = "kernel"):
+                     window="cfg", attn_impl: str = "kernel"):
     """One-token decode. x: (B, 1, D); pos: (B,) int current positions;
     ``cache``: one layer's view, written in place at ``pos % S_max``.
 
     ``attn_impl="kernel"`` runs the decode kernel (the CUDA kernel on the
     card, its plain version on the CPU) with lengths ``pos + 1`` and the
-    config's window: the cache is not a ring, so slot index = position and
-    the valid entries after the write are exactly 0..pos.  It refuses a
+    window (``window`` as in ``self_attention``): the cache is not a ring,
+    so slot index = position and the valid entries after the write are
+    exactly 0..pos.  It refuses a
     softcapped config (the TPU kernel has no softcap) and a ring cache.
     ``"ref"`` runs ``_attend_direct`` over the position map."""
     if attn_impl == "kernel" and cfg.attn_logit_softcap is not None:
@@ -282,6 +300,7 @@ def decode_attention(p, cfg: ModelConfig, x, pos, cache: KVCache, *,
                          f"the full sequence budget ({cache.max_len}), not a ring "
                          f"of {cache.k.shape[1]}; use attn_impl='ref'")
     b = x.shape[0]
+    w = _window(cfg, window)
     positions = pos[:, None]
     q = _project_q(p, cfg, x, positions)
     k_new, v_new = _project_kv(p, cfg, x, positions)
@@ -293,11 +312,48 @@ def decode_attention(p, cfg: ModelConfig, x, pos, cache: KVCache, *,
     if attn_impl == "kernel":
         out = decode_attention_kernel(
             q.reshape(b, cfg.num_heads, cfg.resolved_head_dim), cache.k,
-            cache.v, pos + 1, window=cfg.sliding_window)
+            cache.v, pos + 1, window=w)
     elif attn_impl == "ref":
         out = _attend_direct(q, cache.k, cache.v, positions, cache.pos,
-                             cache.pos >= 0, window=cfg.sliding_window,
+                             cache.pos >= 0, window=w,
                              softcap=cfg.attn_logit_softcap)
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
     return out.reshape(b, 1, cfg.q_dim) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+def cross_kv(p, cfg: ModelConfig, memory):
+    """Cross K and V of one layer over memory (B,T,D): (B,T,KV,hd) each,
+    no RoPE, no qk-norm."""
+    b, t, _ = memory.shape
+    shape = (b, t, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (memory @ p["wk"]).reshape(shape), (memory @ p["wv"]).reshape(shape)
+
+
+def cross_attend(p, cfg: ModelConfig, x, k, v, memory_valid=None):
+    """x: (B,S,D) against one layer's cross K/V (B,T,KV,hd): plain
+    ``attend``, every valid memory position visible to every query
+    (queries at ``INT32_MAX``, keys at 0)."""
+    b, s, _ = x.shape
+    t = k.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_kv_heads,
+                              cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim)
+    if memory_valid is None:
+        memory_valid = torch.ones((b, t), dtype=torch.bool, device=x.device)
+    q_pos = torch.full((b, s), _INT32_MAX, dtype=torch.int32, device=x.device)
+    kv_pos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+    out = attend(q, k, v, q_pos, kv_pos, memory_valid, window=None, softcap=None)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def cross_attention(p, cfg: ModelConfig, x, memory, memory_valid=None):
+    """x: (B,S,D) decoder states; memory: (B,T,D) encoder output:
+    ``cross_kv`` then ``cross_attend``.  No path of the port calls it: the
+    enc-dec decoder computes the K/V once (``encdec._cross_kv``), as the
+    reference does."""
+    k, v = cross_kv(p, cfg, memory)
+    return cross_attend(p, cfg, x, k, v, memory_valid)

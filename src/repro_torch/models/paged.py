@@ -42,7 +42,7 @@ from repro_torch.device import torch_dtype
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.models import attention, module
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (ATTENTION_FAMILIES, _last_position_logits,
+from repro_torch.models.transformer import (_last_position_logits,
                                             _unembed, layers, mlp_residual)
 
 
@@ -426,7 +426,9 @@ class RadixCache:
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    return cfg.family in ATTENTION_FAMILIES
+    """The dense and MoE families (the reference's ``paged.py:436``): the
+    VLM's and the enc-dec's caches are slot caches only."""
+    return cfg.family in ("dense", "moe")
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,

@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly: the dense, MoE, RWKV-6 (``ssm``) and
-RecurrentGemma (``hybrid``: RG-LRU + local attention) families.
+"""Decoder-only LM assembly: the dense, MoE, RWKV-6 (``ssm``),
+RecurrentGemma (``hybrid``: RG-LRU + local attention) and PaliGemma
+(``vlm``) families.
 
 The JAX package stacks the layers on a leading axis and runs them with
 ``lax.scan`` (the hybrid: a scan over pattern groups, then an unrolled
@@ -10,14 +11,17 @@ tail) walked by a Python loop, and the slot engine's caches
 on a leading layer axis and updated in place, one layer's view at a time.
 An MoE layer is an attention block whose MLP is ``moe.moe_apply``
 (``moe_mode`` "ep" | "dense"); ``lm_apply`` returns its router losses
-averaged over the layers.  The VLM and enc-dec families are later slices
-of the port.
+averaged over the layers.  A VLM is a dense stack whose token embeddings
+are scaled by sqrt(d_model) (Gemma's scale, rounded to the activation
+dtype first, as in the reference) and, in ``lm_apply`` / ``lm_prefill``,
+preceded by ``prefix_embeds`` (the stubbed vision frontend's patch
+embeddings).  The enc-dec family is ``encdec.py``.
 
 Entry points:
     init_lm(cfg, seed, device=)                   -> params
     init_cache(cfg, batch, max_len, device)       -> KVCache | RWKVState | HybridCache
-    lm_apply(params, cfg, tokens, ...)            -> (logits fp32, aux)
-    lm_prefill(params, cfg, tokens, cache, ...)   -> (last logits (B, V), cache)
+    lm_apply(params, cfg, tokens, prefix_embeds=, ...)          -> (logits fp32, aux)
+    lm_prefill(params, cfg, tokens, cache, prefix_embeds=, ...) -> (last logits (B, V), cache)
     lm_decode_step(params, cfg, token, pos, cache, attn_impl=) -> (logits (B, V), cache)
 
 ``lm_apply``, ``lm_prefill`` and ``lm_decode_step`` take ``moe_mode``
@@ -42,15 +46,15 @@ from repro_torch.models import attention, ffn, moe, module, rglru, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant import core as quant
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")     # the families ported so far
-ATTENTION_FAMILIES = ("dense", "moe")            # every layer an attention block
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # the decoder-only families
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")          # every layer an attention block
 _IMPLS = ("kernel", "ref")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet ({' | '.join(FAMILIES)})")
+        raise ValueError(f"family {cfg.family!r} is not a decoder-only LM "
+                         f"({' | '.join(FAMILIES)}); the enc-dec is models/encdec.py")
 
 
 def _check_impl(attn_impl: str) -> None:
@@ -258,20 +262,34 @@ def _unembed(params, cfg: ModelConfig, x):
     return (x @ unembedding_matrix(params, cfg)).float()
 
 
+def _embed(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """Token embeddings; a VLM's scaled by sqrt(d_model) rounded to their
+    dtype first (bf16: 45.25 at d_model 2048), with ``prefix_embeds`` (B,
+    P, D) cast to that dtype and put before the tokens."""
+    x = params["embed"][tokens]
+    if cfg.family == "vlm":
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def _default_positions(b, s, device):
     return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
 
 
 def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
-             return_features: bool = False, attn_impl: str = "kernel",
+             prefix_embeds=None, return_features: bool = False,
+             attn_impl: str = "kernel",
              scan_impl: Optional[str] = None, moe_mode: str = "ep"):
     """Full-sequence causal forward.  Returns (logits fp32, aux dict) — or,
-    with ``return_features``, the final-norm hidden states (B, S, D).
-    Dense and MoE: differentiable with respect to the param tensors;
+    with ``return_features``, the final-norm hidden states (B, S, D); a
+    VLM's S counts its ``prefix_embeds`` (P) first.
+    Dense, MoE and VLM: differentiable with respect to the param tensors;
     ``attn_impl`` ``"kernel"`` (flash attention; masks by index, so
     ``positions`` must be left to the default 0..S-1; its fp32 route takes
-    a group x head_dim of at most 512, so an fp32 MoE config at full heads
-    passes ``"ref"``) or ``"ref"`` (plain ``attend``).  MoE: the router's
+    a group x head_dim of at most 512, so an fp32 MoE or VLM config at full
+    heads passes ``"ref"``) or ``"ref"`` (plain ``attend``).  MoE: the router's
     load-balance and z losses averaged over the layers, through
     ``moe_mode``'s path (dense families: zeros).  RWKV-6:
     every block from a zero state, the WKV scan kernel or its plain version
@@ -290,7 +308,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
             and cfg.family in ATTENTION_FAMILIES):
         raise ValueError("lm_apply: explicit positions need attn_impl='ref' "
                          "(the flash kernel masks by sequence index)")
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens, prefix_embeds)
     b, s, _ = x.shape
     auxs = []
     if cfg.family in ATTENTION_FAMILIES:
@@ -335,12 +353,14 @@ def _last_position_logits(params, cfg: ModelConfig, x, valid):
     return (x_last @ unembedding_matrix(params, cfg)).float()
 
 
-def lm_prefill(params, cfg: ModelConfig, tokens, cache, *, valid=None,
-               attn_impl: str = "kernel", moe_mode: str = "ep"):
+def lm_prefill(params, cfg: ModelConfig, tokens, cache, *, prefix_embeds=None,
+               valid=None, attn_impl: str = "kernel", moe_mode: str = "ep"):
     """Causal forward that fills ``cache`` (in place).
 
-    tokens: (B, S); ``valid`` (B, S) marks real (non-pad) token positions,
-    meaningful for the dense and MoE families only (attention masks the
+    tokens: (B, S); a VLM's ``prefix_embeds`` (B, P, D) go first and fill
+    cache positions 0..P-1, its tokens P..P+S-1.  ``valid`` (B, S) marks
+    real (non-pad) token positions (a VLM's widened over the prefix, which
+    is always valid), meaningful for the attention families only (attention masks the
     pads; the MoE routes them all the same, as the reference does): the
     recurrent state ingests every position, so RWKV-6 and hybrid prompts
     must be prefilled at their exact length.  Dense, MoE and hybrid
@@ -349,8 +369,11 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache, *, valid=None,
     Returns (last-valid-position logits (B, V) fp32, cache)."""
     _check_family(cfg)
     _check_impl(attn_impl)
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens, prefix_embeds)
     b, s, _ = x.shape
+    if valid is not None and valid.shape[1] != s:     # a VLM's image prefix
+        valid = torch.cat([torch.ones((b, s - valid.shape[1]), dtype=torch.bool,
+                                      device=valid.device), valid.bool()], dim=1)
     if cfg.family in ATTENTION_FAMILIES:
         positions = _default_positions(b, s, x.device)
         for i, lp in layers(params):
@@ -374,7 +397,7 @@ def lm_decode_step(params, cfg: ModelConfig, token, pos, cache, *,
     ``cache`` in place and returns (logits (B, V) fp32, cache)."""
     _check_family(cfg)
     _check_impl(attn_impl)
-    x = params["embed"][token][:, None, :]
+    x = _embed(params, cfg, token)[:, None, :]
     if cfg.family in ATTENTION_FAMILIES:
         for i, lp in layers(params):
             x = _attn_block_decode(lp, cfg, x, pos, cache.layer(i),

@@ -10,9 +10,15 @@ prefills the prompt into that row; every ``step()`` advances ALL slots by
 one token in one forward (inactive rows are computed and discarded, and
 their positions keep advancing, as in the reference); finish/ABORT releases
 the slot.  This is the LLMProxy's step-wise inference contract (§4.2).  It
-serves every ported family (dense, MoE, RWKV-6, RecurrentGemma), the ones
-without paged KV included.  An MoE prompt's bucket padding is routed and
-takes expert capacity, as in the reference.
+serves the decoder-only families (dense, MoE, RWKV-6, RecurrentGemma,
+PaliGemma), the ones without paged KV included.  An MoE prompt's bucket
+padding is routed and takes expert capacity, as in the reference.  A VLM
+is served text-only, as the reference's engine does (its prefill passes
+only ``tokens`` and ``valid``): no patches, and a cache widened by
+``num_image_tokens`` that the text never reaches.  The enc-dec
+(``audio``) is refused at construction: the reference's engine has no
+frames to prefill it with (its ``add_request`` fails on the missing
+``frames``).
 
 What differs from the JAX engine is how a step runs:
 
@@ -74,6 +80,18 @@ def _reset_rows(cache) -> None:
             _reset_rows(t)
 
 
+def refuse_audio(cfg, what: str) -> None:
+    """The enc-dec family cannot be served: the reference's slot engine
+    prefills ``tokens`` and ``valid`` only, and the enc-dec's prefill needs
+    the encoder's ``frames``."""
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{what}: the enc-dec (audio) family cannot be served: the slot engine "
+            "prefills tokens only and the encoder needs frames, which the reference's "
+            "engine has no way to take either; drive api.prefill / api.decode_step "
+            "with batch['frames'] instead")
+
+
 class DecodeEngine:
     """``attn_impl``: "kernel" or "ref" (see the module docstring).
     ``device``: the card unless the caller passes another; it must be the
@@ -93,6 +111,7 @@ class DecodeEngine:
                              f"model API's {api.device}")
         _check_mode("quant_mode", quant_mode, quant.MODES)
         _check_mode("attn_impl", attn_impl, ("kernel", "ref"))
+        refuse_audio(cfg, "DecodeEngine")
         if cfg.sliding_window is not None and cfg.sliding_window < max_total_len:
             raise ValueError("engine requires cache >= max_total_len "
                              "(enlarge window or shorten sequences)")

@@ -11,7 +11,9 @@ The port of the JAX package's ``train/critic.py``, in the idiom of
 the gradients of the params and of the value head, so the value loss
 reaches the trunk too.  The recurrent families' scans run plain in the
 step (their kernels have no backward), an MoE config runs
-``moe_mode="dense"``.  The VLM family is a later slice of the port.
+``moe_mode="dense"``, a VLM drops its image positions' features before
+the value head and the logprobs, and an enc-dec unembeds through
+``lm_head``, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ import torch
 
 from repro_torch.algos import LossConfig, gae, rl_loss
 from repro_torch.models.api import ModelAPI
-from repro_torch.models.transformer import unembedding_matrix
 from repro_torch.train.optimizer import OptConfig, adamw_update, init_opt_state, tree_map
-from repro_torch.train.trainer import chunked_token_logprobs, live_leaves, unflatten
+from repro_torch.train.trainer import (_unembed_matrix, chunked_token_logprobs,
+                                       live_leaves, text_features, unflatten)
 
 
 def init_value_head(generator: torch.Generator, d_model: int, device) -> Dict[str, Any]:
@@ -65,7 +67,8 @@ def make_critic_train_step(api: ModelAPI, loss_cfg: LossConfig,
         features, aux = api.apply(params, batch, return_features=True,
                                   attn_impl=attn_impl, scan_impl="ref",
                                   moe_mode=moe_mode)
-        head = unembedding_matrix(params, cfg)
+        features = text_features(cfg, features)
+        head = _unembed_matrix(api, params)
         logprobs = chunked_token_logprobs(features, head, batch["tokens"])
         values = value_apply(vh, features) * mask
 

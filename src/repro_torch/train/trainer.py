@@ -13,7 +13,9 @@ The WKV and RG-LRU scan kernels have no backward: the train step runs the
 scans' plain versions under autograd, the logprob passes (no gradient)
 follow ``attn_impl``.  An MoE config trains and scores in
 ``moe_mode="dense"`` (every expert on every token, as in the reference),
-its router losses weighted into the RL loss.
+its router losses weighted into the RL loss.  A VLM's batch carries zero
+``patches`` and its logprobs drop the image positions' features; an
+enc-dec's carries zero ``frames`` and unembeds through ``lm_head``.
 """
 from __future__ import annotations
 
@@ -38,6 +40,19 @@ def make_train_state(api: ModelAPI, seed: int) -> Dict[str, Any]:
 
 
 _CE_CHUNK = 512
+
+
+def _unembed_matrix(api: ModelAPI, params):
+    if api.cfg.family == "audio":
+        return params["lm_head"]
+    return unembedding_matrix(params, api.cfg)
+
+
+def text_features(cfg, features):
+    """The token positions' features: a VLM's image prefix dropped."""
+    if cfg.family == "vlm":
+        return features[:, cfg.num_image_tokens:]
+    return features
 
 
 def live_leaves(tree):
@@ -87,22 +102,18 @@ def _policy_logprobs(api: ModelAPI, params, batch, *, attn_impl: str,
     features, aux = api.apply(params, batch, return_features=True,
                               attn_impl=attn_impl, scan_impl=scan_impl,
                               moe_mode=moe_mode)
-    head = unembedding_matrix(params, api.cfg)
+    features = text_features(api.cfg, features)
+    head = _unembed_matrix(api, params)
     return chunked_token_logprobs(features, head, batch["tokens"]), aux
 
 
-def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
-                    *, microbatches: int = 1, attn_impl: str = "kernel",
-                    moe_mode: str = "ep"):
-    """Build the train step ``(state, batch) -> (new_state, metrics)``.
-
-    ``microbatches > 1`` accumulates gradients over batch slices in an fp32
-    accumulator divided by m: the same mean loss, 1/m the activations.
-    The optimizer updates the state's fp32 master/m/v in place; the params
-    of the new state are new tensors.  Metrics are 0-dim tensors (``lr`` a
-    float).  ``attn_impl`` picks the attention; the recurrent families'
-    scans run their plain versions, which autograd differentiates (the
-    scan kernels have no backward and refuse inputs that need one)."""
+def make_loss_and_grad(api: ModelAPI, loss_cfg: LossConfig, *,
+                       attn_impl: str = "kernel", moe_mode: str = "ep"):
+    """``(params, batch) -> (loss, metrics, grads)``: the train step's RL
+    loss and its gradient, without the optimizer.  ``attn_impl`` picks the
+    attention; the recurrent families' scans run their plain versions,
+    which autograd differentiates (the scan kernels have no backward and
+    refuse inputs that need one)."""
     def loss_and_grad(params, batch):
         live, p_req = live_leaves(params)
         logprobs, aux = _policy_logprobs(api, p_req, batch, attn_impl=attn_impl,
@@ -110,6 +121,23 @@ def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
         loss, metrics = rl_loss(logprobs, batch, loss_cfg, aux)
         grads = unflatten(params, torch.autograd.grad(loss, live))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    return loss_and_grad
+
+
+def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
+                    *, microbatches: int = 1, attn_impl: str = "kernel",
+                    moe_mode: str = "ep"):
+    """Build the train step ``(state, batch) -> (new_state, metrics)``:
+    ``make_loss_and_grad``, then AdamW.
+
+    ``microbatches > 1`` accumulates gradients over batch slices in an fp32
+    accumulator divided by m: the same mean loss, 1/m the activations.
+    The optimizer updates the state's fp32 master/m/v in place; the params
+    of the new state are new tensors.  Metrics are 0-dim tensors (``lr`` a
+    float)."""
+    loss_and_grad = make_loss_and_grad(api, loss_cfg, attn_impl=attn_impl,
+                                       moe_mode=moe_mode)
 
     def train_step(state, batch):
         params = state["params"]
@@ -245,7 +273,7 @@ class HostTrainer:
             seq_adv = (rewards - rewards.mean()) / (rewards.std() + 1e-6)
         adv = seq_adv[:, None] * mask
 
-        return {
+        batch = {
             "tokens": tokens, "mask": mask, "advantages": adv.astype(np.float32),
             "rewards": rewards,
             "old_logprobs": old_lp,
@@ -253,6 +281,12 @@ class HostTrainer:
             "ref_logprobs": np.zeros_like(old_lp),
             "is_positive": (rewards > 0).astype(np.float32),
         }
+        cfg = self.api.cfg
+        if cfg.family == "vlm":
+            batch["patches"] = np.zeros((n, cfg.num_image_tokens, cfg.d_model), np.float32)
+        if cfg.family == "audio":
+            batch["frames"] = np.zeros((n, cfg.encoder_frames, cfg.d_model), np.float32)
+        return batch
 
     # --------------------------------------------------------------- train
     def train_on_samples(self, samples: List[Sample]) -> Dict[str, float]:

@@ -1,7 +1,8 @@
 """The port's checkpoints (``repro_torch.checkpoint``) in the JAX package's
 msgpack layout: the bytes the port writes equal ``msgpack.packb``'s (the
 JAX package's ``save_tree`` of the same state) for the train state of a
-dense, an MoE and a hybrid config and for the critic's state; a checkpoint
+dense, an MoE, a hybrid, a VLM and an enc-dec config and for the critic's
+state (dense, VLM and enc-dec); a checkpoint
 written by either package loads in the other, leaf for leaf and bit for
 bit (bf16 included); ``latest_checkpoint``'s order; and the codec's
 pieces against ``msgpack`` itself, which the port does not import."""
@@ -33,7 +34,9 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCHS = {"dense": "qwen3-4b", "moe": "qwen3-moe-235b-a22b",
-         "hybrid": "recurrentgemma-9b", "critic": "qwen3-4b"}
+         "hybrid": "recurrentgemma-9b", "critic": "qwen3-4b",
+         "vlm": "paligemma-3b", "audio": "seamless-m4t-medium",
+         "vlm_critic": "paligemma-3b", "audio_critic": "seamless-m4t-medium"}
 
 
 def _jax_state(kind, seed):
@@ -42,7 +45,7 @@ def _jax_state(kind, seed):
     cfg = tiny(ARCHS[kind])
     japi = jget_api(cfg)
     key = jax.random.PRNGKey(seed)
-    if kind == "critic":
+    if kind.endswith("critic"):
         state = jcritic.make_critic_train_state(japi, key)
     else:
         params = japi.init(key)
@@ -93,7 +96,7 @@ def test_bytes_equal_msgpack(states, tmp_path):
     assert msgpack.unpackb(want, raw=False)[0]["dtype"] == str(np.asarray(leaves[0]).dtype)
     meta = json.loads((tmp_path / "port" / "meta.json").read_text())
     assert len(meta["treedef"]["leaves"]) == len(leaves)
-    if kind != "critic":
+    if not kind.endswith("critic"):
         assert any(d == "bfloat16" for _, d, _ in meta["treedef"]["leaves"])
 
 
@@ -127,8 +130,10 @@ def test_jax_checkpoint_loads_in_port(states, tmp_path):
         assert g.dtype == r.dtype and g.device == r.device and g is not r
         assert torch.equal(g.view(torch.uint8) if g.dim() else g.reshape(1).view(torch.uint8),
                            w.view(torch.uint8) if w.dim() else w.reshape(1).view(torch.uint8))
-    assert isinstance(got["params"]["blocks"], list)
-    assert len(got["params"]["blocks"]) == cfg.num_layers
+    layers = got["params"]["decoder" if cfg.family == "audio" else "blocks"]
+    assert isinstance(layers, list) and len(layers) == cfg.num_layers
+    if cfg.family == "audio":
+        assert len(got["params"]["encoder"]) == cfg.num_encoder_layers
 
 
 def test_latest_checkpoint_ordering(tmp_path):

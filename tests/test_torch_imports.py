@@ -143,18 +143,22 @@ def test_engine_refuses_modes_not_ported(kw, exc):
 
 
 def test_other_families_are_not_ported_yet():
+    """Every family of the registry is ported now: ``get_api`` takes all
+    six, and only the dense and MoE families have the paged views (the
+    reference's ``paged.supports_paged``)."""
+    from repro_torch.configs import REGISTRY
     from repro_torch.models import get_api
-    for arch in ("paligemma-3b", "seamless-m4t-medium"):
+    families = {}
+    for arch in REGISTRY:
         cfg = ModelConfig(**dataclasses.asdict(tiny(arch)))
-        with pytest.raises(NotImplementedError):
-            get_api(cfg, device="cpu")
-    # the MoE family is ported, with the paged views
-    for arch in ("qwen3-moe-235b-a22b", "dbrx-132b"):
-        api = get_api(ModelConfig(**dataclasses.asdict(tiny(arch))), device="cpu")
-        assert api.init_paged_cache is not None and api.decode_paged is not None
-        assert api.prefill_chunk is not None and api.cache_view is not None
-    # the RWKV-6 and RecurrentGemma families are ported (slot engine only:
-    # no paged views)
-    for arch in ("rwkv6-3b", "recurrentgemma-9b"):
-        api = get_api(ModelConfig(**dataclasses.asdict(tiny(arch))), device="cpu")
-        assert api.prefill is not None and api.init_paged_cache is None
+        api = get_api(cfg, device="cpu")
+        assert api.apply and api.prefill and api.decode_step and api.init_cache
+        paged = (api.init_paged_cache, api.prefill_chunk, api.decode_paged,
+                 api.cache_view)
+        assert all(v is not None for v in paged) or all(v is None for v in paged)
+        families.setdefault(cfg.family, set()).add(paged[0] is not None)
+    assert families == {"dense": {True}, "moe": {True}, "ssm": {False},
+                        "hybrid": {False}, "vlm": {False}, "audio": {False}}
+    with pytest.raises(ValueError, match="family"):
+        get_api(dataclasses.replace(ModelConfig(**dataclasses.asdict(tiny("qwen3-4b"))),
+                                    family="diffusion"), device="cpu")
