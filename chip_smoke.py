@@ -175,8 +175,23 @@ no result):
    on 16 x 256 tokens with the reference's zero frames (24 flash launches
    a pass each way).  The rows carry these paths' counts as
    ``vlm_audio_launches``.
+15. Slice 13, the sharding plan and the concurrency analysis: ``dryrun``
+   (``python -m repro_torch.launch.dryrun --all --mesh both`` and
+   ``--pools``, two subprocesses side by side; 0 failed; the largest per-device bytes by
+   shape; then Qwen3-4B's 1x1 plan for a decode step at the serve shape,
+   B=16, S=1,024, bf16, held against the card: the materialised params
+   and cache must request exactly the plan's ``argument_bytes`` of the
+   caching allocator, and be allocated that within its rounding (512 B a
+   tensor, 1 MiB more a tensor over 1 MiB), and one ``decode_step``'s
+   ``max_memory_allocated`` is printed against the plan's ``peak_bytes``)
+   and ``sanitize`` (``build_rlvr_pipeline`` under the port's lock
+   sanitizer, Qwen3-1.7B cut to 4 layers, 2 replicas of 8 slots, alpha =
+   1, 2 steps: tracked locks, edges, inversions — none allowed —, holds
+   over 50 ms, and the runtime edges the static checker's graph lacks).
 
-Then the card's name and power limit again, one line with every kernel's
+Every phase's wall seconds are printed on a line of their own as it ends
+(``{"phase": "wall", ...}``), and their total after the last.  Then the
+card's name and power limit again, one line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``.  Weights are random, drawn from a seed
 on the card.  Imports nothing of JAX or of the JAX package.
 """
@@ -184,6 +199,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -2524,7 +2540,8 @@ def phase_model_danube() -> None:
     params = api.init(SEED)
     batch = _train_batch(cfg.vocab_size, rng)
     step = make_train_step(api, LossConfig(pg_variant="decoupled_ppo", kl_beta=1e-3),
-                           OptConfig(learning_rate=1e-3, warmup_steps=2), attn_impl="kernel")
+                           OptConfig(learning_rate=1e-3, warmup_steps=2), remat=False,
+                           attn_impl="kernel")
     fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
     state, metrics = step({"params": params, "opt": init_opt_state(params)}, batch)
     torch.cuda.synchronize()
@@ -2578,7 +2595,7 @@ def phase_train_model() -> None:
         fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
         state = {"params": params,
                  "opt": init_opt_state(params)}
-        step = make_train_step(api, loss_cfg, opt_cfg, attn_impl=impl)
+        step = make_train_step(api, loss_cfg, opt_cfg, remat=False, attn_impl=impl)
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         out[impl] = (state, metrics, fa.flash_attention.launches_fwd,
@@ -2606,8 +2623,48 @@ def phase_train_model() -> None:
     if bad or not params_err <= tol or not moved > 100 * tol:
         raise AssertionError(f"train_model: kernel vs ref {bad}, params {params_err}, "
                              f"moved {moved}")
-    del params, out, ks, rs
+    del out, ks, rs
     torch.cuda.empty_cache()
+    _remat_check(api, params, batch, loss_cfg, tol)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _remat_check(api, params, batch, loss_cfg, tol: float) -> None:
+    """The kernel route's loss and gradients with layer remat (non-reentrant
+    ``torch.utils.checkpoint`` around each block) against without, on the
+    same params and batch: equal within ``tol``, two flash forwards a
+    layer (the forward, and its recompute in the backward) against one,
+    and a lower peak of the bytes the loss and gradient allocate."""
+    torch = _torch()
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import make_loss_and_grad
+
+    layers = api.cfg.num_layers
+    out = {}
+    for remat in (False, True):
+        fn = make_loss_and_grad(api, loss_cfg, attn_impl="kernel", remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
+        loss, _, grads = fn(params, batch)
+        torch.cuda.synchronize()
+        out[remat] = (float(loss), tree_leaves(grads), torch.cuda.max_memory_allocated() - base,
+                      (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd))
+    (l0, g0, p0, n0), (l1, g1, p1, n1) = out[False], out[True]
+    loss_err = abs(l1 - l0) / max(abs(l0), 1e-12)
+    grads_err = max(_rel_err(a, b) for a, b in zip(g1, g0))
+    emit("train_model", check="remat_vs_none", layers=layers, loss=l1,
+         loss_rel_err=loss_err, grads_rel_err_max=grads_err, tol_rel=tol,
+         peak_bytes={"none": int(p0), "remat": int(p1)}, peak_ratio=p1 / p0,
+         flash_launches={"none": list(n0), "remat": list(n1)})
+    if n0 != (layers, layers) or n1 != (2 * layers, layers):
+        raise AssertionError(f"train_model: remat flash launches {n1}, none {n0}")
+    if not (loss_err <= tol and grads_err <= tol and p1 < p0):
+        raise AssertionError(f"train_model: remat loss {loss_err}, grads {grads_err}, "
+                             f"peak {p1} vs {p0}")
 
 
 def _train_tasks(vocab: int, round_: int):
@@ -4732,6 +4789,277 @@ def phase_train_audio(rows: list, gpu: str) -> None:
     _free_device()
 
 
+# ---------------------------------------------------------------------------
+# the concurrency analysis and the sharding plan / dry-run (slice 13)
+# ---------------------------------------------------------------------------
+
+DRYRUN_TIMEOUT_S = 300
+# the in-process plan held against the card: Qwen3-4B's decode step at the
+# serve shape, on a 1x1 mesh
+DRYRUN_CARD = dict(arch=ARCH, batch=SERVE["num_slots"], seq_len=SERVE["max_total_len"])
+# the caching allocator's blocks: a request is rounded up to 512 bytes, and
+# a block it splits from a cached segment keeps the segment's remainder when
+# that is too small to split off (< 512 bytes in the small-block pool, up to
+# 1 MiB in the large one, for requests over 1 MiB)
+ALLOC_ROUND = 512
+ALLOC_LARGE = 1 << 20
+# the sanitized pipeline: Qwen3-1.7B at full width, 4 of its 28 layers,
+# bf16, two replicas of 8 slots, alpha = 1, 2 RL steps
+SANITIZE_LAYERS = 4
+SANITIZE_STEPS = 2
+SANITIZE_HOLD_S = 0.05
+
+
+def _dryrun_clis(runs: dict) -> dict:
+    """``python -m repro_torch.launch.dryrun`` once per ``{log name:
+    args}``, as a user runs it, all started together (stdout and stderr to
+    files under ``build/chip_smoke/``); each exit code must be 0.  Returns
+    ``{log name: (stdout, seconds)}``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, args in runs.items():
+            with open(os.path.join(logs, name + ".out"), "w") as so, \
+                    open(os.path.join(logs, name + ".err"), "w") as se:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+                    cwd=root, env=env, stdout=so, stderr=se)
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        while len(out) < len(procs):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"dryrun: not done in {DRYRUN_TIMEOUT_S} s")
+            for name, proc in procs.items():
+                rc = proc.poll()
+                if name in out or rc is None:
+                    continue
+                with open(os.path.join(logs, name + ".out")) as f:
+                    stdout = f.read()
+                if rc != 0:
+                    with open(os.path.join(logs, name + ".err")) as f:
+                        raise AssertionError(f"dryrun {runs[name]}: exit {rc}\n"
+                                             f"{stdout[-3000:]}\n{f.read()[-3000:]}")
+                out[name] = (stdout, time.perf_counter() - t0)
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_dryrun(gpu: str) -> None:
+    """The dry-run as a user runs it — every arch x shape x mesh (16x16 and
+    2x16x16 over the fake process group; the combos whose step ran on
+    DTensors there, and DTensor's refusals of the others, counted by
+    reason), and beside it the pools — and the 1x1
+    plan of Qwen3-4B's decode step at the serve shape held against the
+    card: the params and cache it plans, materialised, must request
+    exactly its ``argument_bytes`` of the caching allocator and be
+    allocated that within the allocator's rounding (``ALLOC_ROUND``,
+    ``ALLOC_LARGE``), and one decode step's peak is printed against its
+    ``peak_bytes``."""
+    import dataclasses
+    import glob
+
+    torch = _torch()
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_api
+
+    runs = _dryrun_clis({"dryrun_all": ["--all", "--mesh", "both"],
+                         "dryrun_pools": ["--pools"]})
+    stdout, seconds = runs["dryrun_all"]
+    summary = next(line for line in stdout.splitlines() if line.startswith("=== dry-run"))
+    ok, skipped, failed, nulls = map(int, re.match(
+        r"=== dry-run: (\d+) ok, (\d+) skipped .*?, (\d+) failed; (\d+) numbers null",
+        summary).groups())
+    counts = dict(ok=ok, skipped=skipped, failed=failed, nulls=nulls)
+    recs = []
+    for path in glob.glob(os.path.join(dryrun.OUT_DIR, "*__*__*.json")):
+        with open(path) as f:
+            rec = json.load(f)
+        if rec["mesh"] in ("single", "multi"):
+            recs.append(rec)
+    if failed or ok != sum(r["status"] == "ok" for r in recs):
+        raise AssertionError(f"dryrun: {counts}, {len(recs)} records")
+    largest = {}
+    for rec in recs:
+        if rec["status"] != "ok":
+            continue
+        mem = rec["memory"]
+        cur = largest.setdefault(rec["shape"], {"peak_bytes": None, "argument_bytes": 0,
+                                                "peak_null": 0, "of": 0})
+        cur["of"] += 1
+        if mem["peak_bytes"] is None:
+            cur["peak_null"] += 1
+        else:
+            cur["peak_bytes"] = max(cur["peak_bytes"] or 0, mem["peak_bytes"])
+        if mem["argument_bytes"] > cur["argument_bytes"]:
+            cur.update(argument_bytes=mem["argument_bytes"],
+                       argument_at=f"{rec['arch']} {rec['mesh']}")
+    # the partitioned runs (DTensors over the fake group): what each gave
+    partitioned = {}
+    refusals: dict = {}
+    for rec in recs:
+        if rec["status"] != "ok":
+            continue
+        why = rec["nulls"].get("collectives")
+        if why is None:
+            partitioned[f"{rec['arch']} {rec['shape']} {rec['mesh']}"] = {
+                "peak_bytes": rec["memory"]["peak_bytes"], "collectives": rec["collectives"],
+                "seconds": rec["partitioned_s"]}
+        else:
+            refusals[why] = refusals.get(why, 0) + 1
+    emit("dryrun", gpu=gpu, command="python -m repro_torch.launch.dryrun --all --mesh both",
+         seconds=seconds, summary=summary, **counts,
+         largest_per_device_by_shape=largest, partitioned_ran=partitioned,
+         partitioned_null_reasons=refusals)
+
+    with open(os.path.join(dryrun.OUT_DIR, "pools__qwen3-8b.json")) as f:
+        pools = json.load(f)
+    if pools["status"] != "ok":
+        raise AssertionError(f"dryrun pools: {pools}")
+    emit("dryrun_pools", gpu=gpu, seconds=runs["dryrun_pools"][1], **pools)
+
+    # the 1x1 plan, held against the card
+    cfg = get_config(DRYRUN_CARD["arch"])
+    shape = InputShape("serve", DRYRUN_CARD["seq_len"], DRYRUN_CARD["batch"], "decode")
+    t0 = time.perf_counter()
+    plan = dryrun.run_combo(cfg.arch_id, "serve", "host", shape=shape, save=False,
+                            verbose=False)
+    plan_s = time.perf_counter() - t0
+    if plan["status"] != "ok":
+        raise AssertionError(f"dryrun 1x1 plan: {plan.get('error')}\n{plan.get('traceback')}")
+    _free_device()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    api = get_api(cfg, device=DEVICE)
+    params = api.init(SEED)
+    cache = api.init_cache(shape.global_batch, shape.seq_len)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 130)
+    token = torch.randint(0, cfg.vocab_size, (shape.global_batch,), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    pos = torch.full((shape.global_batch,), shape.seq_len - 1, dtype=torch.int32,
+                     device=DEVICE)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"] - requested
+    tensors = tree_leaves(params) + _tensors(cache) + [token, pos]
+    large = sum(t.nbytes > ALLOC_LARGE for t in tensors)
+    bound = ALLOC_ROUND * (len(tensors) - large) + (ALLOC_LARGE + ALLOC_ROUND) * large
+    want = plan["memory"]["argument_bytes"]
+    if requested != want or not 0 <= grown - want <= bound:
+        raise AssertionError(f"dryrun: requested {requested} bytes, allocated {grown}, "
+                             f"plan {want}, bound {bound}")
+    torch.cuda.reset_peak_memory_stats()
+    da.decode_attention.launches = 0
+    with torch.no_grad():
+        logits, _ = api.decode_step(params, token, pos, cache, attn_impl=plan["attn_impl"])
+    torch.cuda.synchronize()
+    launches = da.decode_attention.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    if tuple(logits.shape) != (shape.global_batch, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("dryrun: the planned decode step's logits")
+    if plan["attn_impl"] == "kernel" and launches != cfg.num_layers:
+        raise AssertionError(f"dryrun: {launches} decode launches, {cfg.num_layers} layers")
+    emit("dryrun_card", gpu=gpu, arch=cfg.arch_id, shape=dataclasses.asdict(shape),
+         mesh="1x1", plan_s=plan_s, attn_impl=plan["attn_impl"],
+         plan_argument_bytes=want, requested_bytes=requested, allocated_bytes=grown,
+         tensors=len(tensors), large_tensors=large,
+         bound=(f"requested == argument_bytes; allocated - argument_bytes in [0, "
+                f"{ALLOC_ROUND} x small + {ALLOC_LARGE + ALLOC_ROUND} x large = {bound}]"),
+         plan_temp_bytes=plan["memory"]["temp_bytes"],
+         plan_peak_bytes=plan["memory"]["peak_bytes"], max_allocated_bytes=peak,
+         max_allocated_over_plan_peak=peak / plan["memory"]["peak_bytes"],
+         decode_launches=launches, plan_flops=plan["flops"])
+    del api, params, cache, logits
+    _free_device()
+
+
+def phase_sanitize(gpu: str) -> None:
+    """``build_rlvr_pipeline`` built under the port's runtime lock sanitizer
+    (tracked locks from ``sanitizer.enable(True)`` to the end of the build;
+    ``enable(False)`` after it, so no other phase gets tracked locks) on
+    full-width Qwen3-1.7B cut to 4 of its 28 layers, bf16, two replicas of 8
+    slots, alpha = 1, run for 2 RL steps: the tracked locks, the lock-order
+    edges, the inversions (none allowed), every hold longer than 50 ms
+    (``REPRO_SANITIZE_HOLD_S``=0.05) by lock, and the runtime edges the
+    static graph of ``python -m repro_torch.analysis.concheck`` lacks."""
+    import dataclasses
+
+    torch = _torch()
+    from repro_torch.analysis import sanitizer
+    from repro_torch.configs import get_config
+    from repro_torch.launch.pipeline import PipelineSettings, build_rlvr_pipeline
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=SANITIZE_LAYERS)
+    _free_device()
+    sanitizer.reset()
+    threshold = sanitizer.REGISTRY.hold_threshold_s
+    sanitizer.REGISTRY.hold_threshold_s = SANITIZE_HOLD_S
+    sanitizer.enable(True)
+    try:
+        pipe = build_rlvr_pipeline(cfg, PipelineSettings(async_generation_ratio=1, **PIPE),
+                                   reward_fn=_pipeline_reward, device=DEVICE)
+    finally:
+        sanitizer.enable(False)
+    try:
+        t0 = time.perf_counter()
+        stats = pipe.run(SANITIZE_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        sanitizer.REGISTRY.hold_threshold_s = threshold
+    del pipe
+    rep = sanitizer.report()
+    graph = sanitizer.graph_json()
+    holds = {}
+    for h in rep["long_holds"]:
+        cur = holds.setdefault(h["lock"], {"count": 0, "longest_ms": 0.0})
+        cur["count"] += 1
+        cur["longest_ms"] = max(cur["longest_ms"], h["held_s"] * 1e3)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    static_path = os.path.join(root, "build", "chip_smoke", "concheck_graph.json")
+    os.makedirs(os.path.dirname(static_path), exist_ok=True)
+    cc = subprocess.run([sys.executable, "-m", "repro_torch.analysis.concheck",
+                         "--graph-out", static_path], cwd=root, capture_output=True,
+                        text=True, timeout=120,
+                        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")))
+    if cc.returncode != 0:
+        raise AssertionError(f"concheck exit {cc.returncode}\n{cc.stdout[-3000:]}")
+    with open(static_path) as f:
+        static = json.load(f)
+    static_edges = {(e["from"], e["to"]) for e in static["edges"]}
+    missing = sorted(f"{e['from']} -> {e['to']}" for e in graph["edges"]
+                     if (e["from"], e["to"]) not in static_edges)
+    emit("sanitize", gpu=gpu, arch=cfg.arch_id, layers=cfg.num_layers, steps=len(stats),
+         run_s=run_s, tracked_locks=sorted(set(graph["nodes"]) | set(rep["max_hold_s"])),
+         acquisitions=rep["acquisitions"],
+         edges=rep["edges"], inversions=rep["inversions"],
+         hold_threshold_s=SANITIZE_HOLD_S, long_holds=holds,
+         max_hold_ms={k: v * 1e3 for k, v in rep["max_hold_s"].items()},
+         static_graph={"locks": len(static["nodes"]), "edges": len(static["edges"])},
+         runtime_edges_not_in_static_graph=missing)
+    if len(stats) != SANITIZE_STEPS:
+        raise AssertionError(f"sanitize: {len(stats)} steps of {SANITIZE_STEPS}")
+    if rep["inversions"]:
+        raise AssertionError(f"sanitize: lock-order inversions {rep['inversions']}")
+    if not rep["max_hold_s"]:
+        raise AssertionError("sanitize: no lock was tracked")
+    sanitizer.reset()
+    _free_device()
+
+
 def _device_us(evt) -> float:
     for name in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, name):
@@ -4819,63 +5147,82 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, src)
+    wall = []
+
+    def timed(name, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, its wall seconds printed on a line of
+        their own."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            wall.append((name, time.perf_counter() - t0))
+            emit("wall", name=name, seconds=wall[-1][1])
+
+    t_start = time.perf_counter()
     try:
-        gpu = phase_env()
-        phase_build()
-        rows = phase_kernels()
-        rows += phase_flash_kernels()
-        rows += phase_slot_kernels()
-        scan_row, decode_extra = phase_hybrid_kernels()
+        gpu = timed("env", phase_env)
+        timed("build", phase_build)
+        rows = timed("kernels", phase_kernels)
+        rows += timed("flash_kernels", phase_flash_kernels)
+        rows += timed("slot_kernels", phase_slot_kernels)
+        scan_row, decode_extra = timed("hybrid_kernels", phase_hybrid_kernels)
         rows[4].update(decode_extra)
-        phase_split_kernels()
+        timed("split_kernels", phase_split_kernels)
         rows.append(scan_row)
-        phase_model()
-        phase_model_danube()
-        phase_model_slot()
-        phase_serve_quant(rows[1], phase_serve(rows[0]))
-        api, params = phase_serve_slot(rows[4], ARCH, "decode_attention")
-        phase_passk(api, params)
+        timed("model", phase_model)
+        timed("model_danube", phase_model_danube)
+        timed("model_slot", phase_model_slot)
+        shared = timed("serve", phase_serve, rows[0])
+        timed("serve_quant", phase_serve_quant, rows[1], shared)
+        api, params = timed("serve_slot", phase_serve_slot, rows[4], ARCH, "decode_attention")
+        timed("passk", phase_passk, api, params)
         del api, params
-        phase_serve_slot(rows[5], RWKV_ARCH, "rwkv6_scan")
+        timed("serve_rwkv", phase_serve_slot, rows[5], RWKV_ARCH, "rwkv6_scan")
         torch.cuda.empty_cache()
-        phase_model_hybrid()
-        phase_serve_hybrid(scan_row, rows[4])
-        phase_train_model()
-        shared = phase_train()
+        timed("model_hybrid", phase_model_hybrid)
+        timed("serve_hybrid", phase_serve_hybrid, scan_row, rows[4])
+        timed("train_model", phase_train_model)
+        shared = timed("train", phase_train)
         for row, key in ((rows[2], "flash_launches_fwd"), (rows[3], "flash_launches_bwd")):
             row["launches"] = sum(st[key] for st in shared["steps"])
             row["launches_per_train_on_samples"] = shared["steps"][0][key]
-        phase_profile_train(shared)
+        timed("profile_train", phase_profile_train, shared)
         del shared
-        rlvr = phase_pipeline_rlvr(gpu)
+        rlvr = timed("pipeline_rlvr", phase_pipeline_rlvr, gpu)
         runs = {"rlvr_alpha1": rlvr[1], "rlvr_alpha0": rlvr[0],
-                "agentic": phase_pipeline_agentic(gpu)}
+                "agentic": timed("pipeline_agentic", phase_pipeline_agentic, gpu)}
         # the slice-9 paths' own counts, beside each row's earlier path
         for row, count in ((rows[0], lambda r: r["paged_launches"]),
                            (rows[2], lambda r: r["flash_launches"][0]),
                            (rows[3], lambda r: r["flash_launches"][1])):
             row["pipeline_launches"] = {k: count(r) for k, r in runs.items()}
-        phase_train_cli(gpu)
+        timed("train_cli", phase_train_cli, gpu)
         # slice 10: the MoE family
-        phase_moe_kernels(rows, gpu)
-        phase_model_moe(rows, gpu)
-        phase_serve_moe(rows, gpu)
-        phase_train_moe(rows, gpu)
+        timed("moe_kernels", phase_moe_kernels, rows, gpu)
+        timed("model_moe", phase_model_moe, rows, gpu)
+        timed("serve_moe", phase_serve_moe, rows, gpu)
+        timed("train_moe", phase_train_moe, rows, gpu)
         # slice 11: the critic, checkpoints and the example twins
-        shared = phase_train_critic(rows, gpu)
-        phase_checkpoint(shared, gpu)
+        shared = timed("train_critic", phase_train_critic, rows, gpu)
+        timed("checkpoint", phase_checkpoint, shared, gpu)
         del shared
-        phase_pipeline_critic(rows, gpu)
-        phase_examples(gpu)
+        timed("pipeline_critic", phase_pipeline_critic, rows, gpu)
+        timed("examples", phase_examples, gpu)
         # slice 12: the VLM and enc-dec audio families
-        phase_vlm_audio_kernels(rows, gpu)
-        phase_model_vlm(rows, gpu)
-        phase_serve_vlm(rows, gpu)
-        phase_train_vlm(rows, gpu)
-        phase_pipeline_vlm(rows, gpu)
-        phase_model_audio(rows, gpu)
-        phase_decode_audio(rows, gpu)
-        phase_train_audio(rows, gpu)
+        timed("vlm_audio_kernels", phase_vlm_audio_kernels, rows, gpu)
+        timed("model_vlm", phase_model_vlm, rows, gpu)
+        timed("serve_vlm", phase_serve_vlm, rows, gpu)
+        timed("train_vlm", phase_train_vlm, rows, gpu)
+        timed("pipeline_vlm", phase_pipeline_vlm, rows, gpu)
+        timed("model_audio", phase_model_audio, rows, gpu)
+        timed("decode_audio", phase_decode_audio, rows, gpu)
+        timed("train_audio", phase_train_audio, rows, gpu)
+        # slice 13: the sharding plan / dry-run and the lock sanitizer
+        timed("dryrun", phase_dryrun, gpu)
+        timed("sanitize", phase_sanitize, gpu)
+        emit("wall_total", seconds=time.perf_counter() - t_start, phases=len(wall),
+             slowest=sorted(wall, key=lambda x: -x[1])[:5])
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -1,8 +1,9 @@
-"""Architecture registry: the same model configurations as the JAX
-package's ``configs``, kept as the port's own copy (the JAX registry module
-also pulls in its input-shape specs, which import JAX)."""
+"""Architecture registry: `--arch <id>` resolves here (the port's copy of
+the JAX package's ``configs``, with its input shapes as meta tensors)."""
 from __future__ import annotations
 
+from repro_torch.configs import shapes  # noqa: F401
+from repro_torch.configs.shapes import SHAPES, InputShape, input_specs, shape_applicable  # noqa: F401
 from repro_torch.models.config import ModelConfig
 
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3_0_6b

@@ -25,7 +25,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from repro_torch.core.locks import new_lock
+from repro_torch.analysis.sanitizer import new_lock
 from repro_torch.core.rollout_client import GenerationHandle, RolloutClient, Session
 from repro_torch.core.sample_buffer import SampleBuffer
 from repro_torch.core.types import GenerationResult, Trajectory, Turn, next_uid

@@ -34,7 +34,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.core.locks import new_lock
+from repro_torch.analysis.sanitizer import new_lock
 
 
 class ReplicaDeadError(RuntimeError):

@@ -23,7 +23,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Protocol
 
-from repro_torch.core.locks import new_lock
+from repro_torch.analysis.sanitizer import new_lock
 from repro_torch.core.slo import SLOConfig, stamp_deadline
 from repro_torch.core.types import (PRIORITY_NORMAL, GenerationRequest,
                                     GenerationResult, NotifyingEvent, Rejected,

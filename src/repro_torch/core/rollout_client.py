@@ -43,7 +43,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.core.locks import new_rlock
+from repro_torch.analysis.sanitizer import new_rlock
 from repro_torch.core.types import (GenerationResult, Rejected, RolloutTask,
                                     expand_replicas, next_uid)
 

@@ -71,7 +71,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
-from repro_torch.core.locks import new_condition, new_lock, new_rlock
+from repro_torch.analysis.sanitizer import new_condition, new_lock, new_rlock
 from repro_torch.core.faults import ReplicaDeadError
 from repro_torch.core.llm_proxy import LLMProxy
 from repro_torch.core.slo import SLOConfig, stamp_deadline

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-from repro_torch.core.locks import new_condition, new_lock
+from repro_torch.analysis.sanitizer import new_condition, new_lock
 from repro_torch.core.types import Sample
 
 

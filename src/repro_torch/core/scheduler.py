@@ -20,7 +20,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.locks import new_condition
+from repro_torch.analysis.sanitizer import new_condition
 from repro_torch.core.rollout_client import (GenerationHandle, GroupHandle,
                                              RolloutClient)
 from repro_torch.core.sample_buffer import SampleBuffer

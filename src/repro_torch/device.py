@@ -23,6 +23,13 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` for draws on ``device``; on the
+    ``meta`` device (shapes only, no values) a CPU generator, since torch
+    has none for meta."""
+    return torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """``ModelConfig.dtype`` string (``"bfloat16"``, ``"float32"``) -> torch."""
     dt = getattr(torch, name, None)

@@ -8,9 +8,22 @@ flags, so a changed source is rebuilt at its next use and an unchanged one
 is loaded as it is.  Nothing is built at import: the first call of a kernel
 builds it, or ``build_all`` builds every source at once, one ``nvcc``
 process each, all started together.
+
+``abstract_kernels()`` lets a wrapper evaluate abstractly: inside it, a
+wrapper given ``meta`` tensors returns its kernel's outputs' shapes and
+dtypes (on the meta device, nothing computed or launched, no count) through
+one ``torch.library`` op, ``repro_torch::kernel``, registered at its first
+use.  Tracers see that op as they see any other: ``FlopCounterMode``
+counts each kernel's products by its ``register_abstract`` formula,
+``MemTracker`` its outputs.  The dry-run (``launch/dryrun.py``) plans
+steps this way.  Outside the context a meta tensor is refused, as before.
+Every kernel is parallel over its batch (each input's dim 0, but
+RWKV-6's ``u``): on DTensors the op runs on each device's batch rows,
+every other dim gathered first.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +32,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -104,3 +119,89 @@ def library(name: str) -> ctypes.CDLL:
                 build_all()
             lib = _libs[name] = ctypes.CDLL(str(target))
         return lib
+
+
+# ---------------------------------------------------------------------------
+# abstract evaluation (shapes only) for tracers
+# ---------------------------------------------------------------------------
+
+# name -> (outputs: inputs -> [(shape, dtype)], flops: input shapes -> int)
+_ABSTRACT: Dict[str, Tuple[Callable, Callable]] = {}
+_abstract_state = threading.local()
+_abstract_op = []
+
+
+@contextlib.contextmanager
+def abstract_kernels():
+    """Within this context (on this thread) the wrappers take ``meta``
+    tensors and evaluate abstractly (``abstract_call``).  The op and its
+    FLOP formula are registered on entry: a ``FlopCounterMode`` takes a
+    copy of the formulas when it is made, so make it inside."""
+    _op()
+    prev = getattr(_abstract_state, "on", False)
+    _abstract_state.on = True
+    try:
+        yield
+    finally:
+        _abstract_state.on = prev
+
+
+def is_abstract(t: torch.Tensor) -> bool:
+    """True for a meta tensor inside ``abstract_kernels()``."""
+    return t.device.type == "meta" and getattr(_abstract_state, "on", False)
+
+
+def register_abstract(name: str, outputs: Callable, flops: Callable) -> None:
+    """``outputs(inputs)`` -> the kernel's outputs as [(shape, dtype)];
+    ``flops(input shapes)`` -> the products it computes, in
+    ``FlopCounterMode``'s convention (2 per multiply-add of a matmul-class
+    product, elementwise work not counted)."""
+    _ABSTRACT[name] = (outputs, flops)
+
+
+def _op():
+    with _lock:
+        if not _abstract_op:
+            from torch.utils.flop_counter import register_flop_formula
+
+            @torch.library.custom_op("repro_torch::kernel", mutates_args=())
+            def kernel(name: str, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+                raise RuntimeError(f"{name}: the abstract kernel op has no "
+                                   "implementation but its shapes")
+
+            @kernel.register_fake
+            def _outputs(name, inputs):
+                return [torch.empty(shape, dtype=dtype, device=inputs[0].device)
+                        for shape, dtype in _ABSTRACT[name][0](inputs)]
+
+            @register_flop_formula(torch.ops.repro_torch.kernel)
+            def _flops(name, inputs, out_shape=None, **kwargs):
+                return _ABSTRACT[name][1](inputs)
+
+            _abstract_op.append(torch.ops.repro_torch.kernel)
+        return _abstract_op[0]
+
+
+def abstract_call(name: str, *inputs: torch.Tensor) -> List[torch.Tensor]:
+    """The outputs of kernel ``name`` on meta ``inputs``, through the
+    ``repro_torch::kernel`` op.  On DTensors: each input redistributed to
+    the first input's batch sharding (``Shard(0)`` on the mesh dims that
+    shard its dim 0, replicated on the others; an input of another leading
+    size replicated), the op run on the local tensors, and the outputs, all
+    batch-first, sharded as the first input."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(inputs[0], DTensor):
+        return list(_op()(name, list(inputs)))
+    first = inputs[0]
+    mesh = first.device_mesh
+    by_batch = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                     for p in first.placements)
+    everywhere = (Replicate(),) * mesh.ndim
+    local = [x.redistribute(mesh, by_batch if x.shape[0] == first.shape[0] else everywhere)
+             .to_local() for x in inputs]
+    return [DTensor.from_local(y, mesh, by_batch, run_check=False,
+                               shape=(first.shape[0],) + tuple(y.shape[1:]),
+                               stride=torch.empty((first.shape[0],) + tuple(y.shape[1:]),
+                                                  device="meta").stride())
+            for y in _op()(name, local)]

@@ -179,6 +179,9 @@ def decode_attention(q, k, v, lengths, *, window=None):
     only positions >= len - window.  Returns (B, H, D) in q's dtype."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths, window=window)
+    if build.is_abstract(q):
+        # abstract (``build.abstract_kernels``): products over the whole cache
+        return build.abstract_call("decode_attention", q, k, v, lengths)[0]
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: device {q.device} not supported")
     _check(q, k, v, lengths, window)
@@ -211,3 +214,9 @@ def decode_attention(q, k, v, lengths, *, window=None):
 
 
 decode_attention.launches = 0
+
+# q K^T and P V of every query head over all S cache entries
+build.register_abstract(
+    "decode_attention",
+    lambda t: [(t[0].shape, t[0].dtype)],
+    lambda shapes: 4 * shapes[0][0] * shapes[0][1] * shapes[1][1] * shapes[0][2])

@@ -42,7 +42,10 @@ go in without copies and outputs come back in the inputs' layout.  The
 head_dim axis must be contiguous and 16-byte aligned.
 
 On a CPU tensor the wrappers run the plain versions (``ref.py``); on a CUDA
-tensor they launch the kernels or raise.
+tensor they launch the kernels or raise; on a meta tensor inside
+``build.abstract_kernels()`` they return the outputs' shapes (products
+counted as ``FlopCounterMode`` counts ``scaled_dot_product_attention``'s:
+the whole S x S square, the causal half included).
 """
 from __future__ import annotations
 
@@ -134,6 +137,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, return_lse=True)
+    if build.is_abstract(q):
+        return tuple(build.abstract_call("flash_attention_fwd", q, k, v))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: device {q.device} not supported")
     _check(q, k, v, causal, window, softcap)
@@ -162,6 +167,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, softcap=softcap)
+    if build.is_abstract(q):
+        return tuple(build.abstract_call("flash_attention_bwd", q, k, v, o, lse, do))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: device {q.device} not supported")
     _check(q, k, v, causal, window, softcap)
@@ -220,3 +227,20 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
 # runs the delta, dK/dV and dQ kernels)
 flash_attention.launches_fwd = 0
 flash_attention.launches_bwd = 0
+
+
+def _square(shapes) -> int:
+    """B x H x S x S x D of q (B, H, S, D) and k (B, KV, S, D)."""
+    (b, h, s, d), sk = shapes[0], shapes[1][2]
+    return b * h * s * sk * d
+
+
+# forward: Q K^T and P V; backward: Q K^T again, dV, dP, dQ and dK
+build.register_abstract(
+    "flash_attention_fwd",
+    lambda t: [(t[0].shape, t[0].dtype), (t[0].shape[:3], torch.float32)],
+    lambda shapes: 4 * _square(shapes))
+build.register_abstract(
+    "flash_attention_bwd",
+    lambda t: [(x.shape, x.dtype) for x in t[:3]],
+    lambda shapes: 10 * _square(shapes))

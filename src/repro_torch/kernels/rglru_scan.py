@@ -137,6 +137,8 @@ def rglru_scan(a, b, h0):
                            "as make_train_step does)")
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
+    if build.is_abstract(a):
+        return tuple(build.abstract_call("rglru_scan", a, b, h0))
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: device {a.device} not supported")
     _check(a, b, h0)
@@ -149,3 +151,10 @@ def rglru_scan(a, b, h0):
 
 rglru_scan.launches = 0
 rglru_scan.launches_chunked = 0
+
+# abstract (``build.abstract_kernels``): elementwise only, no matmul-class
+# products (FlopCounterMode counts none in the plain scan either)
+build.register_abstract(
+    "rglru_scan",
+    lambda t: [(t[0].shape, torch.float32), (t[2].shape, torch.float32)],
+    lambda shapes: 0)

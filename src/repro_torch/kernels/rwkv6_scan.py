@@ -142,6 +142,8 @@ def rwkv6_scan(r, k, v, w, u, state):
                            "as make_train_step does)")
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, w, u, state)
+    if build.is_abstract(r):
+        return tuple(build.abstract_call("rwkv6_scan", r, k, v, w, u, state))
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: device {r.device} not supported")
     _check(r, k, v, w, u, state)
@@ -154,3 +156,10 @@ def rwkv6_scan(r, k, v, w, u, state):
 
 rwkv6_scan.launches = 0
 rwkv6_scan.launches_chunked = 0
+
+# abstract (``build.abstract_kernels``): the products FlopCounterMode counts
+# in the plain scan, r_t (S + u k_t v_t^T) at every step: 2 B T H D^2
+build.register_abstract(
+    "rwkv6_scan",
+    lambda t: [(t[0].shape, torch.float32), (t[5].shape, torch.float32)],
+    lambda shapes: 2 * shapes[0][0] * shapes[0][1] * shapes[0][2] * shapes[0][3] ** 2)

@@ -5,7 +5,7 @@ RecurrentGemma (``hybrid``), PaliGemma (``vlm``) and Seamless-M4T
 
     api = get_api(cfg, device=)            # the card unless device= says otherwise
     params = api.init(seed)
-    logits, aux = api.apply(params, batch, attn_impl=, scan_impl=, moe_mode=)
+    logits, aux = api.apply(params, batch, attn_impl=, scan_impl=, moe_mode=, remat=)
     cache = api.init_cache(batch_size, max_len)          # KVCache | RWKVState | HybridCache
     logits, cache = api.prefill(params, batch, cache, attn_impl=, moe_mode=)
     logits, cache = api.decode_step(params, token, pos, cache, attn_impl=, moe_mode=)
@@ -50,7 +50,7 @@ class ModelAPI:
     cfg: ModelConfig
     device: torch.device
     init: Callable[..., Any]              # (seed) -> params on device
-    apply: Callable[..., Any]             # (params, batch, return_features=, attn_impl=, scan_impl=, moe_mode=) -> (logits, aux)
+    apply: Callable[..., Any]             # (params, batch, return_features=, attn_impl=, scan_impl=, moe_mode=, remat=) -> (logits, aux)
     prefill: Callable[..., Any]           # (params, batch, cache, attn_impl=, moe_mode=) -> (logits, cache)
     decode_step: Callable[..., Any]       # (params, token, pos, cache, attn_impl=, moe_mode=) -> (logits, cache)
     init_cache: Callable[..., Any]        # (batch, max_len) -> KVCache | RWKVState | HybridCache | EncDecCache
@@ -73,12 +73,12 @@ def get_api(cfg: ModelConfig, *, device=None) -> ModelAPI:
         return transformer.init_lm(cfg, seed, device=device)
 
     def apply(params, batch, *, return_features=False, attn_impl="kernel",
-              scan_impl=None, moe_mode="ep"):
+              scan_impl=None, moe_mode="ep", remat=False):
         return transformer.lm_apply(params, cfg, batch["tokens"],
                                     prefix_embeds=batch.get("patches"),
                                     return_features=return_features,
                                     attn_impl=attn_impl, scan_impl=scan_impl,
-                                    moe_mode=moe_mode)
+                                    moe_mode=moe_mode, remat=remat)
 
     def prefill(params, batch, cache, *, attn_impl="kernel", moe_mode="ep"):
         return transformer.lm_prefill(params, cfg, batch["tokens"], cache,
@@ -128,11 +128,11 @@ def _encdec_api(cfg: ModelConfig, device) -> ModelAPI:
         return encdec.init_encdec(cfg, seed, device=device)
 
     def apply(params, batch, *, return_features=False, attn_impl="kernel",
-              scan_impl=None, moe_mode="ep"):
+              scan_impl=None, moe_mode="ep", remat=False):
         del scan_impl, moe_mode      # no scans; the backbone is dense
         return encdec.encdec_apply(params, cfg, batch["frames"], batch["tokens"],
                                    return_features=return_features,
-                                   attn_impl=attn_impl)
+                                   attn_impl=attn_impl, remat=remat)
 
     def prefill(params, batch, cache, *, attn_impl="kernel", moe_mode="ep"):
         del moe_mode

@@ -35,10 +35,12 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import generator, resolve_device, torch_dtype
 from repro_torch.models import attention, ffn, module
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import constrain_activation
+from repro_torch.models.transformer import remat_block
 
 _IMPLS = ("kernel", "ref")
 
@@ -76,7 +78,7 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, *, device=None):
     _check(cfg, "ref")
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     return {
         "embed": module.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, device),
         "lm_head": module.dense_init(gen, cfg.d_model, cfg.vocab_size, dt, device),
@@ -92,17 +94,25 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
 
 
-def encode(params, cfg: ModelConfig, frames, *, attn_impl: str = "kernel"):
-    """frames: (B, T, D) stubbed frontend output -> memory (B, T, D)."""
+def _enc_layer(lp, cfg: ModelConfig, x, positions, attn_impl):
+    x = constrain_activation(x)
+    x = x + attention.self_attention(
+        lp["attn"], cfg, module.rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
+        causal=False, window=None, attn_impl=attn_impl)
+    return x + ffn.mlp(lp["mlp"], cfg, module.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+
+
+def encode(params, cfg: ModelConfig, frames, *, attn_impl: str = "kernel",
+           remat: bool = False):
+    """frames: (B, T, D) stubbed frontend output -> memory (B, T, D).
+    ``remat``: every layer under ``transformer.remat_block``."""
     _check(cfg, attn_impl)
     x = frames.to(torch_dtype(cfg.dtype))
     b, t, _ = x.shape
     positions = _positions(b, t, x.device)
+    layer = remat_block(_enc_layer, remat)
     for lp in params["encoder"]:
-        x = x + attention.self_attention(
-            lp["attn"], cfg, module.rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
-            causal=False, window=None, attn_impl=attn_impl)
-        x = x + ffn.mlp(lp["mlp"], cfg, module.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        x = layer(lp, cfg, x, positions, attn_impl)
     return module.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -166,20 +176,28 @@ def _logits(params, cfg: ModelConfig, x):
             @ params["lm_head"]).float()
 
 
+def _dec_layer_full(lp, cfg: ModelConfig, x, ck, cv, positions, attn_impl):
+    return _dec_layer(lp, cfg, constrain_activation(x), ck, cv, positions=positions,
+                      attn_impl=attn_impl)
+
+
 def encdec_apply(params, cfg: ModelConfig, frames, tokens, *,
-                 return_features: bool = False, attn_impl: str = "kernel"):
+                 return_features: bool = False, attn_impl: str = "kernel",
+                 remat: bool = False):
     """Teacher-forcing forward.  Returns (logits fp32 (B, S, V), aux: zero
     router losses) — or, with ``return_features``, the final-norm hidden
-    states (B, S, D).  Differentiable with respect to the param tensors."""
+    states (B, S, D).  Differentiable with respect to the param tensors.
+    ``remat``: every encoder and decoder layer under
+    ``transformer.remat_block``."""
     _check(cfg, attn_impl)
-    memory = encode(params, cfg, frames, attn_impl=attn_impl)
+    memory = encode(params, cfg, frames, attn_impl=attn_impl, remat=remat)
     ck_all, cv_all = _cross_kv(params, cfg, memory)
     x = params["embed"][tokens]
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
+    layer = remat_block(_dec_layer_full, remat)
     for i, lp in enumerate(params["decoder"]):
-        x = _dec_layer(lp, cfg, x, ck_all[i], cv_all[i], positions=positions,
-                       attn_impl=attn_impl)
+        x = layer(lp, cfg, x, ck_all[i], cv_all[i], positions, attn_impl)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"load_balance_loss": zero, "router_z_loss": zero}
     if return_features:

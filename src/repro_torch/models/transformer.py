@@ -40,10 +40,12 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import generator, resolve_device, torch_dtype
 from repro_torch.models import attention, ffn, moe, module, rglru, rwkv6
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import constrain_activation
 from repro_torch.quant import core as quant
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # the decoder-only families
@@ -131,7 +133,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None):
     _check_family(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     params: dict[str, Any] = {
         "embed": module.embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
                                    device),
@@ -205,6 +207,7 @@ def mlp_residual(p, cfg: ModelConfig, x, y, moe_mode: str = "ep"):
 
 
 def _attn_block_apply(p, cfg: ModelConfig, x, positions, attn_impl, moe_mode="ep"):
+    x = constrain_activation(x)
     y = attention.self_attention(p["attn"], cfg,
                                  module.rmsnorm(p["ln1"], x, cfg.norm_eps),
                                  positions, attn_impl=attn_impl)
@@ -228,6 +231,8 @@ def _attn_block_decode(p, cfg: ModelConfig, x, pos, cache, *, attn_impl,
 
 
 def _rglru_block_apply(p, cfg: ModelConfig, x, state, *, decode: bool, attn_impl):
+    if not decode:
+        x = constrain_activation(x)
     fn = rglru.recurrent_step if decode else rglru.recurrent_block
     y, state = fn(p["rec"], cfg, module.rmsnorm(p["ln1"], x, cfg.norm_eps), state,
                   attn_impl=attn_impl)
@@ -278,10 +283,29 @@ def _default_positions(b, s, device):
     return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
 
 
+def remat_block(fn, remat: bool):
+    """``fn`` itself, or with ``remat`` ``fn`` under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are not
+    kept for the backward but recomputed there, as the reference's
+    ``jax.checkpoint`` of each layer does."""
+    if not remat:
+        return fn
+
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+    return run
+
+
+def _rwkv_block_apply(lp, cfg: ModelConfig, x, state, *, attn_impl):
+    return rwkv6.block(lp, cfg, constrain_activation(x), state, attn_impl=attn_impl)
+
+
 def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
              prefix_embeds=None, return_features: bool = False,
              attn_impl: str = "kernel",
-             scan_impl: Optional[str] = None, moe_mode: str = "ep"):
+             scan_impl: Optional[str] = None, moe_mode: str = "ep",
+             remat: bool = False):
     """Full-sequence causal forward.  Returns (logits fp32, aux dict) — or,
     with ``return_features``, the final-norm hidden states (B, S, D); a
     VLM's S counts its ``prefix_embeds`` (P) first.
@@ -299,7 +323,9 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
     reference's forward; the flash kernel's fp32 route takes a group x
     head_dim of at most 512, RecurrentGemma's is 4096).  ``scan_impl``
     defaults to ``attn_impl``; the scan kernels have no backward, so a
-    forward that is differentiated passes ``"ref"``."""
+    forward that is differentiated passes ``"ref"``.  ``remat`` runs every
+    block under ``remat_block`` (the train step's memory for compute
+    trade); the values are the same either way."""
     scan_impl = attn_impl if scan_impl is None else scan_impl
     _check_family(cfg)
     _check_impl(attn_impl)
@@ -314,23 +340,27 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
     if cfg.family in ATTENTION_FAMILIES:
         if positions is None:
             positions = _default_positions(b, s, x.device)
+        block = remat_block(_attn_block_apply, remat)
         for lp in params["blocks"]:
-            x, aux = _attn_block_apply(lp, cfg, x, positions, attn_impl, moe_mode)
+            x, aux = block(lp, cfg, x, positions, attn_impl, moe_mode)
             auxs.append(aux)
     elif cfg.family == "ssm":
         state0 = rwkv6.init_rwkv_state(cfg, b, x.device)
+        block = remat_block(_rwkv_block_apply, remat)
         for i, lp in enumerate(params["blocks"]):
-            x, _ = rwkv6.block(lp, cfg, x, state0.layer(i), attn_impl=scan_impl)
+            x, _ = block(lp, cfg, x, state0.layer(i), attn_impl=scan_impl)
     else:
         if positions is None:
             positions = _default_positions(b, s, x.device)
         state0 = rglru.init_rglru_state(cfg, b, x.device).layer(0)
+        attn_block = remat_block(_attn_block_apply, remat)
+        rglru_block = remat_block(_rglru_block_apply, remat)
         for lp, (kind, _) in zip(params["blocks"], layer_kinds(cfg)):
             if kind == "attn":
-                x, _ = _attn_block_apply(lp, cfg, x, positions, "ref")
+                x, _ = attn_block(lp, cfg, x, positions, "ref")
             else:
-                x, _ = _rglru_block_apply(lp, cfg, x, state0, decode=False,
-                                          attn_impl=scan_impl)
+                x, _ = rglru_block(lp, cfg, x, state0, decode=False,
+                                   attn_impl=scan_impl)
     if cfg.is_moe:
         aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
     else:

@@ -42,7 +42,8 @@ def value_apply(vh, features):
 def make_critic_train_step(api: ModelAPI, loss_cfg: LossConfig,
                            opt_cfg: OptConfig, *, gamma: float = 1.0,
                            lam: float = 1.0, vf_coef: float = 0.5,
-                           attn_impl: str = "kernel", moe_mode: str = "ep"):
+                           attn_impl: str = "kernel", moe_mode: str = "ep",
+                           remat: bool = False):
     """PPO train step with a learned critic.
 
     State: {"params", "value", "opt", "vopt"}.  The batch carries `rewards`
@@ -66,7 +67,7 @@ def make_critic_train_step(api: ModelAPI, loss_cfg: LossConfig,
         live_v, vh = live_leaves(state["value"])
         features, aux = api.apply(params, batch, return_features=True,
                                   attn_impl=attn_impl, scan_impl="ref",
-                                  moe_mode=moe_mode)
+                                  moe_mode=moe_mode, remat=remat)
         features = text_features(cfg, features)
         head = _unembed_matrix(api, params)
         logprobs = chunked_token_logprobs(features, head, batch["tokens"])

@@ -96,28 +96,31 @@ def chunked_token_logprobs(features, head, tokens, *, chunk: int = _CE_CHUNK):
 
 
 def _policy_logprobs(api: ModelAPI, params, batch, *, attn_impl: str,
-                     scan_impl: str, moe_mode: str):
+                     scan_impl: str, moe_mode: str, remat: bool = False):
     """logprobs (B, S) aligned with batch['tokens'] (position t = logprob of
     token t given <t); position 0 is zero (never a response token)."""
     features, aux = api.apply(params, batch, return_features=True,
                               attn_impl=attn_impl, scan_impl=scan_impl,
-                              moe_mode=moe_mode)
+                              moe_mode=moe_mode, remat=remat)
     features = text_features(api.cfg, features)
     head = _unembed_matrix(api, params)
     return chunked_token_logprobs(features, head, batch["tokens"]), aux
 
 
 def make_loss_and_grad(api: ModelAPI, loss_cfg: LossConfig, *,
-                       attn_impl: str = "kernel", moe_mode: str = "ep"):
+                       attn_impl: str = "kernel", moe_mode: str = "ep",
+                       remat: bool = False):
     """``(params, batch) -> (loss, metrics, grads)``: the train step's RL
     loss and its gradient, without the optimizer.  ``attn_impl`` picks the
     attention; the recurrent families' scans run their plain versions,
     which autograd differentiates (the scan kernels have no backward and
-    refuse inputs that need one)."""
+    refuse inputs that need one).  ``remat`` recomputes each block's
+    activations in the backward (``transformer.remat_block``)."""
     def loss_and_grad(params, batch):
         live, p_req = live_leaves(params)
         logprobs, aux = _policy_logprobs(api, p_req, batch, attn_impl=attn_impl,
-                                         scan_impl="ref", moe_mode=moe_mode)
+                                         scan_impl="ref", moe_mode=moe_mode,
+                                         remat=remat)
         loss, metrics = rl_loss(logprobs, batch, loss_cfg, aux)
         grads = unflatten(params, torch.autograd.grad(loss, live))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
@@ -126,10 +129,15 @@ def make_loss_and_grad(api: ModelAPI, loss_cfg: LossConfig, *,
 
 
 def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
-                    *, microbatches: int = 1, attn_impl: str = "kernel",
-                    moe_mode: str = "ep"):
+                    *, remat: bool = True, microbatches: int = 1,
+                    attn_impl: str = "kernel", moe_mode: str = "ep"):
     """Build the train step ``(state, batch) -> (new_state, metrics)``:
     ``make_loss_and_grad``, then AdamW.
+
+    ``remat`` (the reference's default, True) recomputes every block's
+    activations in the backward: the same loss and gradients for about one
+    forward more, and only the blocks' inputs kept.  ``HostTrainer`` passes
+    False, as the reference's does.
 
     ``microbatches > 1`` accumulates gradients over batch slices in an fp32
     accumulator divided by m: the same mean loss, 1/m the activations.
@@ -137,7 +145,7 @@ def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
     of the new state are new tensors.  Metrics are 0-dim tensors (``lr`` a
     float)."""
     loss_and_grad = make_loss_and_grad(api, loss_cfg, attn_impl=attn_impl,
-                                       moe_mode=moe_mode)
+                                       moe_mode=moe_mode, remat=remat)
 
     def train_step(state, batch):
         params = state["params"]
@@ -146,8 +154,7 @@ def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
             n = batch["tokens"].shape[0]
             if n % m:
                 raise ValueError(f"batch of {n} does not split into {m} microbatches")
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params)
+            acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             losses, metricses = [], []
             for j in range(m):
                 mb = {k: v[j * n // m:(j + 1) * n // m] for k, v in batch.items()}
@@ -230,7 +237,7 @@ class HostTrainer:
                 api, loss_cfg, opt_cfg, attn_impl=attn_impl, moe_mode=moe_mode)
         elif tcfg.adv_estimator == "grpo":
             self.state = make_train_state(api, seed)
-            self._train_step = make_train_step(api, loss_cfg, opt_cfg,
+            self._train_step = make_train_step(api, loss_cfg, opt_cfg, remat=False,
                                                attn_impl=attn_impl, moe_mode=moe_mode)
         else:
             raise ValueError(f"unknown adv_estimator {tcfg.adv_estimator!r} "

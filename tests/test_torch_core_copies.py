@@ -1,8 +1,8 @@
-"""The port's framework-free core modules are copies of the JAX package's:
-each module's syntax tree equals its counterpart's once the counterpart's
-imports are rewritten (``repro.analysis.sanitizer`` -> the port's
-``repro_torch.core.locks``, ``repro.`` -> ``repro_torch.``) and the
-docstrings of both are dropped."""
+"""The port's framework-free modules are copies of the JAX package's: each
+module's syntax tree equals its counterpart's once the counterpart's
+imports are rewritten (``repro.`` -> ``repro_torch.``) and the docstrings
+of both are dropped.  The core modules take their lock factories from the
+port's own sanitizer, ``repro_torch.analysis.sanitizer``."""
 import ast
 from pathlib import Path
 
@@ -15,7 +15,9 @@ MODULES = ["core/sample_buffer.py", "core/faults.py", "core/rollout_client.py",
            "envs/base.py", "envs/sim_envs.py", "envs/__init__.py",
            "core/env_manager.py", "core/types.py", "core/slo.py",
            "core/llm_proxy.py", "models/config.py", "data/dataset.py",
-           "rewards/verifier.py", "core/simulator.py", "core/theory.py"]
+           "rewards/verifier.py", "core/simulator.py", "core/theory.py",
+           "analysis/__init__.py", "analysis/sanitizer.py", "analysis/schedules.py",
+           "analysis/static_check.py", "configs/__init__.py"]
 
 
 def _drop_docstrings(tree: ast.AST) -> None:
@@ -30,8 +32,6 @@ def _drop_docstrings(tree: ast.AST) -> None:
 
 
 def _rename(module: str) -> str:
-    if module == "repro.analysis.sanitizer":
-        return "repro_torch.core.locks"
     if module.startswith("repro."):
         return "repro_torch." + module[len("repro."):]
     return module

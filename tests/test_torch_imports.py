@@ -55,12 +55,35 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "        'repro_torch.launch', 'repro_torch.launch.pipeline',\n"
         "        'repro_torch.launch.train', 'repro_torch.core.simulator',\n"
         "        'repro_torch.core.theory', 'repro_torch.train.critic',\n"
-        "        'repro_torch.checkpoint', 'repro_torch.checkpoint.store'} <= set(names), names\n"
+        "        'repro_torch.checkpoint', 'repro_torch.checkpoint.store',\n"
+        "        'repro_torch.analysis', 'repro_torch.analysis.sanitizer',\n"
+        "        'repro_torch.analysis.schedules', 'repro_torch.analysis.static_check',\n"
+        "        'repro_torch.analysis.concheck', 'repro_torch.configs.shapes',\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.launch.dryrun',\n"
+        "        'repro_torch.models.sharding'} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# the port's own modules (package inits, the JAX bridge, device choice,
+# the kernel builder, the checker's command line) and the JAX module that
+# is not ported (a dispatcher nothing imports)
+PORT_OWN = {"__init__.py", "launch/__init__.py", "convert.py", "device.py",
+            "kernels/build.py", "analysis/concheck.py"}
+NOT_PORTED = {"kernels/ops.py"}
+
+
+def test_port_module_list_equals_the_jax_packages():
+    def modules(root):
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")
+                if "__pycache__" not in p.parts}
+
+    jax_modules = modules(ROOT / "src" / "repro")
+    assert modules(PORT) == (jax_modules - NOT_PORTED) | PORT_OWN
+    assert NOT_PORTED <= jax_modules and not (PORT_OWN & jax_modules)
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)

@@ -234,7 +234,7 @@ def test_train_step_through_the_plain_scan_matches_jax(models):
     jstate, jm = jstep({"params": jparams, "opt": jopt.init_opt_state(jparams)},
                        {k: jnp.asarray(v) for k, v in batch.items()})
     tstep = make_train_step(tapi, algos.LossConfig(**dataclasses.asdict(jloss)),
-                            OptConfig(**OPT), attn_impl="ref")
+                            OptConfig(**OPT), remat=False, attn_impl="ref")
     tstate, tm = tstep({"params": tparams, "opt": init_opt_state(tparams)},
                        {k: torch.from_numpy(v) for k, v in batch.items()})
     for k in jm:
@@ -265,7 +265,8 @@ def test_a_train_step_through_the_scan_kernel_raises(models):
         tapi.apply(live, tbatch, scan_impl="kernel")
     states, metrics = [], []
     for impl in ("kernel", "ref"):
-        step = make_train_step(tapi, algos.LossConfig(), OptConfig(**OPT), attn_impl=impl)
+        step = make_train_step(tapi, algos.LossConfig(), OptConfig(**OPT), remat=False,
+                               attn_impl=impl)
         state, m = step({"params": tparams, "opt": init_opt_state(tparams)}, tbatch)
         states.append(tree_leaves(state["params"]))
         metrics.append({k: float(v) for k, v in m.items()})

@@ -99,7 +99,7 @@ def test_train_step_matches(models, variant, microbatches):
 
     tp = params_from_jax(npp, "cpu")
     tstep = make_train_step(tapi, algos.LossConfig(**dataclasses.asdict(jloss)),
-                            OptConfig(**OPT), microbatches=microbatches)
+                            OptConfig(**OPT), remat=False, microbatches=microbatches)
     tstate, tm = tstep({"params": tp, "opt": init_opt_state(tp)},
                        {k: torch.from_numpy(v) for k, v in batch.items()})
 
