@@ -20,8 +20,9 @@ no result):
    KV=8, S=512, D=128) in bf16 and fp32, an odd one (S=300, G=4, D=64,
    window 128, softcap 30), G x D = 2,048 (H=32 over KV=2), PaliGemma's
    group (G=8, D=256) and head_dim 120 (window 128, softcap 30) in bf16
-   and fp32; the bf16 kernels must show tensor-core MMAs (HMMA) in their
-   SASS, and the build's registers and spills are printed.  Both kernels
+   and fp32; the bf16 kernels must show tensor-core MMAs in their SASS
+   (HMMA, ``mma.sync``, on the causal route; HGMMA, ``wgmma``, on the
+   non-causal one), and the build's registers and spills are printed.  Both kernels
    also at the shapes the pipeline phases give them (``_pipeline_shapes``:
    Qwen3-1.7B's replicas of 8 slots over 4 pages and its 16 x 64 train
    step; the command line's rl_100m with an int8 pool).
@@ -601,8 +602,10 @@ def _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap, causal=True)
 
 
 def _sass_hmma(name: str) -> dict:
-    """{kernel function: count of HMMA (tensor-core MMA) instructions} in the
-    SASS of ``csrc/<name>.cu``'s built library (``cuobjdump -sass``)."""
+    """{kernel function: {"hmma": n, "hgmma": m}}: the counts of tensor-core
+    MMA instructions in the SASS of ``csrc/<name>.cu``'s built library
+    (``cuobjdump -sass``), ``mma.sync`` (HMMA) and Hopper's ``wgmma``
+    (HGMMA) apart."""
     import re
     import shutil
     from repro_torch.kernels import build
@@ -614,9 +617,11 @@ def _sass_hmma(name: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            out[fn] = 0
+            out[fn] = {"hmma": 0, "hgmma": 0}
+        elif fn and "HGMMA" in line:
+            out[fn]["hgmma"] += 1
         elif fn and "HMMA" in line:
-            out[fn] += 1
+            out[fn]["hmma"] += 1
     return out
 
 
@@ -665,7 +670,8 @@ def phase_flash_kernels() -> list:
     odd shape (S=300, G=4, D=64, window 128, softcap 30), a group of 16
     (G x D = 2,048), PaliGemma's group (G=8, D=256) and H2O-Danube-3's
     head_dim 120 (window 128, softcap 30) in bf16 and fp32.  The bf16
-    kernels must compute with tensor-core MMAs (HMMA in their SASS);
+    kernels must compute with tensor-core MMAs (HMMA or, on the non-causal
+    wgmma route, HGMMA in their SASS);
     registers and spills from the build's report.  The pipeline phases'
     train steps (``_pipeline_shapes``) in their dtype.  Then the times of
     the bf16 trainer-shape case."""
@@ -693,9 +699,15 @@ def phase_flash_kernels() -> list:
     registers = _ptxas_registers("flash_attention")
     hmma = _sass_hmma("flash_attention")
     emit("kernels", kernel="flash_attention", case="build", registers=registers, hmma=hmma)
-    tensor_core = {fn: n for fn, n in hmma.items() if "_bf16_kernel" in fn}
-    if len(tensor_core) < 3 or not all(tensor_core.values()):
-        raise AssertionError(f"flash_attention: bf16 kernels without HMMA: {tensor_core}")
+    # the bf16 kernels: mma.sync (causal) and wgmma (non-causal, which must
+    # show HGMMA); either instruction holds a kernel to the tensor cores
+    tensor_core = {fn: n for fn, n in hmma.items() if "_bf16_kernel" in fn or "_wgmma_kernel" in fn}
+    wgmma = {fn: n for fn, n in tensor_core.items() if "_wgmma_kernel" in fn}
+    if (len(tensor_core) < 6 or len(wgmma) < 3
+            or not all(n["hmma"] or n["hgmma"] for n in tensor_core.values())
+            or not all(n["hgmma"] for n in wgmma.values())):
+        raise AssertionError(f"flash_attention: bf16 kernels without tensor-core MMAs: "
+                             f"{tensor_core}")
     shape = _flash_shape(main[0], main[1])
     rows = []
     for name, backward, (ms, plain, lib, err, bound_ms, bound_by, detail), call in [
@@ -709,13 +721,15 @@ def phase_flash_kernels() -> list:
                      "replaces": "src/repro/kernels/flash_attention.py:108",
                      "variant": ("backward: delta, dK/dV and dQ kernels (the TPU had none); "
                                  if backward else "forward, O and lse; ")
-                                + "bf16 on tensor cores (mma.sync m16n8k16), fp32 on CUDA cores",
+                                + "bf16 on tensor cores (causal: mma.sync m16n8k16; "
+                                  "causal=False: wgmma + TMA), fp32 on CUDA cores",
                      "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                      "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_detail": detail, "library_ms": lib, "library_call": call,
                      "shape": shape,
                      "registers": {fn: r for fn, r in registers.items() if kind in fn},
-                     "hmma": {fn: n for fn, n in hmma.items() if kind in fn}})
+                     "hmma": {fn: n["hmma"] for fn, n in hmma.items() if kind in fn},
+                     "hgmma": {fn: n["hgmma"] for fn, n in hmma.items() if kind in fn}})
     for row in rows:
         emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
     return rows
@@ -4108,6 +4122,21 @@ def _slice12_shapes() -> dict:
     }
 
 
+def _flash_repeat_check(label: str, case) -> None:
+    """The backward once more on ``_flash_case``'s inputs: dQ, dK and dV must
+    come out bit-identical (the kernels use no atomics)."""
+    torch = _torch()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do, o, lse, grads, _ = case
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    same = {name: _bits_equal(x, y) for name, x, y in zip(("dq", "dk", "dv"), grads, again)}
+    emit("kernels", kernel="flash_attention_bwd", case=label, check="bitwise_repeat",
+         route=fa.route(q.dtype, False, q.shape[-1]), bit_identical=same)
+    if not all(same.values()):
+        raise AssertionError(f"flash_attention_bwd {label}: a second run differs: {same}")
+
+
 def phase_vlm_audio_kernels(rows: list, gpu: str) -> None:
     """The kernels at this slice's shapes against their plain versions:
     flash forward and backward with ``causal=False`` at Seamless' encoder
@@ -4118,7 +4147,8 @@ def phase_vlm_audio_kernels(rows: list, gpu: str) -> None:
     bf16 and fp32; and every shape the phases below give either kernel
     (``_slice12_shapes``).  The first eight cases, PaliGemma's train step
     (causal, G=8, D=256, S=512) and Seamless' decoder (causal, S=256) are
-    timed into the rows' ``vlm_audio_shapes``."""
+    timed into the rows' ``vlm_audio_shapes``.  Every bf16 ``causal=False``
+    backward (the wgmma route) runs twice and must give the same bits."""
     torch = _torch()
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
@@ -4138,6 +4168,8 @@ def phase_vlm_audio_kernels(rows: list, gpu: str) -> None:
     for label, b, h, kv, s, d, dtype, causal in flash_cases:
         case = _flash_case(gen, label, b, h, kv, s, d, getattr(torch, dtype), None, None,
                            causal=causal)
+        if dtype == "bfloat16" and not causal:
+            _flash_repeat_check(label, case)
         if label not in timed_flash:
             del case
             continue

@@ -36,21 +36,33 @@
 // causal forward does ~8.6 GFLOP against ~50 MB of q/k/v/o: ~170 flops per
 // byte, below the ~295 at which bf16 tensor cores become the limit, so its
 // roofline bound is the bytes (~15 us; the operations take ~9 us at
-// 989 TFLOP/s).  The backward recomputes S and dP in both of its kernels:
-// 14 D flops per visible pair instead of 10 D, ~0.03 ms of operations
-// against ~0.025 ms of bytes, the price of determinism without atomics.
+// 989 TFLOP/s).  Seamless' encoder (B=16, H=KV=16, S=1024, D=64, not
+// causal) is the other way round: 6.9e10 flops against 0.13 GB, ~500 flops
+// per byte, bound by the operations (~70 us forward).  The backward
+// recomputes S and dP in both of its product kernels: 14 D flops per
+// visible pair instead of 10 D, the price of determinism without atomics.
 //
-// Routes, by dtype and nothing else:
+// Routes, by the wrapper's choice (kernels/flash_attention.py: `route`,
+// from the dtype, `causal` and the head_dim instance alone; `dispatch`
+// refuses inputs that are not the route's own):
 //
-// * bf16: tensor cores.  `mma.sync.m16n8k16` (bf16 in, fp32 accumulate)
-//   through inline PTX, operands brought from shared memory by `ldmatrix`
-//   (`.trans` where the product needs the tile's transpose).  Why not
-//   `wgmma`: the kernel is bound by bytes, and mma.sync's rate (~660
-//   TFLOP/s) already puts the operations (~0.013 ms) under that bound; what
-//   matters is keeping the tensor cores fed, not wgmma's last third of
-//   peak.  mma.sync also builds in seconds through the nvcc + ctypes route
-//   and has no shared-memory descriptor or swizzle mode to get right
-//   without a compiler to try them on.
+// * bf16, causal=False, head_dim up to 128: `wgmma` and TMA
+//   (flash_attention_sm90.cuh, whose note has the design): one block per
+//   192 query rows at D = 64 (128 at D = 128) in the forward, 128 query
+//   rows in dQ, 128 keys in dK/dV; consumer warpgroups of 64 rows and a
+//   producer warpgroup keeping a ring of 64-row tiles in flight with TMA
+//   and mbarriers; S on `wgmma` with both operands in shared memory, P
+//   rounded to bf16 in registers as the A operand of the next `wgmma`.
+//   The shapes this route runs are bound by the operations, where this
+//   file's `mma.sync` kernels (~2/3 of wgmma's rate, 64-row blocks that
+//   re-read K and V 16 times per head at S = 1,024) lost 3x to SDPA.
+// * bf16, causal (and non-causal head_dim 256, which no path runs):
+//   `mma.sync.m16n8k16` (bf16 in, fp32 accumulate) through inline PTX,
+//   operands brought from shared memory by `ldmatrix` (`.trans` where the
+//   product needs the tile's transpose).  The causal shapes the trainer
+//   runs are bound by bytes, where mma.sync's rate already puts the
+//   operations under that bound; what matters is keeping the tensor cores
+//   fed.
 //   Forward: one block of 4 warps per (query head, batch, query tile of 64
 //   rows), 16 rows per warp.  Q is staged once in shared memory and its
 //   fragments re-read by ldmatrix for each key tile; K and V tiles of 32
@@ -85,8 +97,10 @@
 //   (128 threads per query head, D/2 accumulators each), so it needs
 //   G x D <= 512 (D rounded up to 64, 128 or 256).
 //
-// A small kernel computes delta = rowsum(dO * O) first, for both routes.
+// A small kernel computes delta = rowsum(dO * O) first, on every route (on
+// the wgmma route it also writes lse * log2 e, padded, beside it).
 
+#include <cuda.h>   // CUtensorMap; the encoder is reached through the runtime (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -304,6 +318,9 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src, in
     cp_async4(dst + i, ok ? src + row0 + i : src, ok);
   }
 }
+
+// The non-causal route (wgmma + TMA), with its own note.
+#include "flash_attention_sm90.cuh"
 
 // ---------------------------------------------------------------------------
 // bf16 forward
@@ -1339,6 +1356,74 @@ int launch_bwd_bf16(const Args& a) {
 }
 
 template <int D>
+int launch_fwd_wgmma(const Args& a) {
+  using C = sm90::Fwd<D>;
+  CUtensorMap tq, tk, tv;
+  int err;
+  if ((err = sm90::make_map(&tq, a.q, a.sq, a.B, a.H, a.S, a.dh))) return err;
+  if ((err = sm90::make_map(&tk, a.k, a.sk, a.B, a.KV, a.S, a.dh))) return err;
+  if ((err = sm90::make_map(&tv, a.v, a.sv, a.B, a.KV, a.S, a.dh))) return err;
+  const int smem = sm90::smem_bytes(D, C::NWG + 2 * C::STAGES, 2 * C::STAGES + 1, 0);
+  auto kernel = sm90::flash_fwd_wgmma_kernel<D, C::NWG, C::STAGES>;
+  if ((err = set_smem(kernel, smem))) return err;
+  kernel<<<dim3(cdiv(a.S, sm90::kTileRows * C::NWG), a.H, a.B), 128 * (C::NWG + 1), smem,
+           a.stream>>>(tq, tk, tv, static_cast<bf16*>(a.out), static_cast<float*>(a.lse), a.so,
+                       a.H, a.KV, a.S, a.dh, a.window, a.scale, a.softcap);
+  return (int)cudaGetLastError();
+}
+
+// prep (lse2, delta), dK/dV (+ the sum of its partials when it splits the
+// heads), dQ.  a.delta is the workspace (sm90::workspace_floats).
+template <int D>
+int launch_bwd_wgmma(const Args& a) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err;
+  if ((err = sm90::make_map(&tq, a.q, a.sq, a.B, a.H, a.S, a.dh))) return err;
+  if ((err = sm90::make_map(&tk, a.k, a.sk, a.B, a.KV, a.S, a.dh))) return err;
+  if ((err = sm90::make_map(&tv, a.v, a.sv, a.B, a.KV, a.S, a.dh))) return err;
+  if ((err = sm90::make_map(&tdo, a.dout, a.sdo, a.B, a.H, a.S, a.dh))) return err;
+  const int S_pad = sm90::pad_rows(a.S);
+  float* lse2 = static_cast<float*>(a.delta);
+  float* delta = lse2 + (long long)a.B * a.H * S_pad;
+  float* partial = delta + (long long)a.B * a.H * S_pad;
+
+  const long long threads = (long long)a.B * a.H * S_pad * (D / 8);   // D / 8 lanes per row
+  sm90::flash_bwd_prep_kernel<D / 8><<<(unsigned)((threads + 255) / 256), 256, 0, a.stream>>>(
+      static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), lse2, delta, a.so, a.sdo, a.B, a.H, a.S, S_pad, a.dh);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  using KVc = sm90::Dkv<D>;
+  const int bn = sm90::kTileRows * KVc::NWG;
+  const int parts = sm90::dkv_parts(a.B, a.H, a.KV, a.S, bn);
+  const int smem_kv = sm90::smem_bytes(D, 2 * KVc::NWG + 2 * KVc::STAGES, 2 * KVc::STAGES + 1,
+                                       2 * KVc::STAGES * sm90::kTileRows * 4);
+  auto kv_kernel = sm90::flash_bwd_dkv_wgmma_kernel<D, KVc::NWG, KVc::STAGES>;
+  if ((err = set_smem(kv_kernel, smem_kv))) return err;
+  kv_kernel<<<dim3(cdiv(a.S, bn), a.KV * parts, a.B), 128 * (KVc::NWG + 1), smem_kv,
+              a.stream>>>(tq, tk, tv, tdo, lse2, delta, static_cast<bf16*>(a.dk),
+                          static_cast<bf16*>(a.dv), a.sdk, a.sdv, partial, parts, a.B, a.H, a.KV,
+                          a.S, S_pad, a.dh, a.window, a.scale, a.softcap);
+  if ((err = (int)cudaGetLastError())) return err;
+  if (parts > 1) {
+    const long long pairs = (long long)a.B * a.KV * a.S * a.dh / 2;
+    sm90::flash_bwd_dkv_sum_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, a.stream>>>(
+        partial, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sdk, a.sdv, parts, a.B,
+        a.KV, a.S, a.dh, a.scale);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+
+  using Qc = sm90::Dq<D>;
+  const int smem_q = sm90::smem_bytes(D, 2 * Qc::NWG + 2 * Qc::STAGES, 2 * Qc::STAGES + 1, 0);
+  auto q_kernel = sm90::flash_bwd_dq_wgmma_kernel<D, Qc::NWG, Qc::STAGES>;
+  if ((err = set_smem(q_kernel, smem_q))) return err;
+  q_kernel<<<dim3(cdiv(a.S, sm90::kTileRows * Qc::NWG), a.H, a.B), 128 * (Qc::NWG + 1), smem_q,
+             a.stream>>>(tq, tk, tv, tdo, lse2, delta, static_cast<bf16*>(a.dq), a.sdq, a.H, a.KV,
+                         a.S, S_pad, a.dh, a.window, a.scale, a.softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_fwd_f32(const Args& a) {
   const int G = a.H / a.KV;
   if (G * D > 512) return (int)cudaErrorInvalidValue;
@@ -1398,10 +1483,22 @@ int dispatch_head_dim(const Args& a) {
   return BWD ? launch_bwd_f32<256>(a) : launch_fwd_f32<256>(a);
 }
 
+// The route the wrapper chose (kernels/flash_attention.py: `route`):
+// 0 fp32 (CUDA cores), 1 bf16 mma.sync (causal, or head_dim past 128),
+// 2 bf16 wgmma (non-causal, head_dim up to 128).  A route given inputs
+// that are not its own is refused.
 template <bool BWD>
-int dispatch(int dtype, const Args& a) {
-  if (dtype == 0) return dispatch_head_dim<BWD, false>(a);
-  if (dtype == 1) return dispatch_head_dim<BWD, true>(a);
+int dispatch(int route, const Args& a) {
+  if (route == 0) return dispatch_head_dim<BWD, false>(a);
+  if (route == 1) {
+    if (!a.causal && a.dh <= 128) return (int)cudaErrorInvalidValue;
+    return dispatch_head_dim<BWD, true>(a);
+  }
+  if (route == 2) {
+    if (a.causal || a.dh < 8 || a.dh > 128 || a.dh % 8) return (int)cudaErrorInvalidValue;
+    if (a.dh <= 64) return BWD ? launch_bwd_wgmma<64>(a) : launch_fwd_wgmma<64>(a);
+    return BWD ? launch_bwd_wgmma<128>(a) : launch_fwd_wgmma<128>(a);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1409,13 +1506,14 @@ Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores), for every
-// tensor but lse/delta.  head_dim: a multiple of 8 up to 256.  strides:
+// route: 0 = float32 (CUDA cores), 1 = bfloat16 on mma.sync, 2 = bfloat16 on
+// wgmma (see `dispatch`); every tensor but lse/delta has the route's dtype.
+// head_dim: a multiple of 8 up to 256 (128 on route 2).  strides:
 // (batch, head, sequence) element strides, three per tensor, in the order
 // q, k, v, o.  window <= 0 means none, softcap <= 0 none.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   void* lse, int dtype, int B, int H, int KV, int S,
+                                   void* lse, int route, int B, int H, int KV, int S,
                                    int head_dim, const long long* strides, int causal,
                                    int window, float scale, float softcap, void* stream) {
   Args a{};
@@ -1438,14 +1536,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   a.sv = strides_at(strides, 2);
   a.so = strides_at(strides, 3);
   a.stream = static_cast<cudaStream_t>(stream);
-  return dispatch<false>(dtype, a);
+  return dispatch<false>(route, a);
 }
 
-// Three launches: delta, dK/dV, dQ.  strides: three per tensor in the
-// order q, k, v, o, do, dq, dk, dv.  delta: (B, H, S) fp32 scratch.
+// The floats of the backward's fp32 workspace (`delta` below) for these
+// shapes: (B, H, S) on routes 0 and 1; on route 2 lse2 and delta padded,
+// and the dK/dV partials when its blocks split the heads.
+extern "C" long long flash_attention_bwd_workspace(int route, int B, int H, int KV, int S,
+                                                   int head_dim) {
+  if (route == 2) return sm90::workspace_floats(B, H, KV, S, head_dim);
+  return (long long)B * H * S;
+}
+
+// Three launches (routes 0, 1: delta, dK/dV, dQ) or three to four (route
+// 2: prep, dK/dV, the partials' sum, dQ).  strides: three per tensor in the
+// order q, k, v, o, do, dq, dk, dv.  delta: the fp32 workspace
+// (flash_attention_bwd_workspace floats).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* lse, const void* dout, void* dq, void* dk,
-                                   void* dv, void* delta, int dtype, int B, int H, int KV, int S,
+                                   void* dv, void* delta, int route, int B, int H, int KV, int S,
                                    int head_dim, const long long* strides, int causal,
                                    int window, float scale, float softcap, void* stream) {
   Args a{};
@@ -1477,5 +1586,5 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   a.sdk = strides_at(strides, 6);
   a.sdv = strides_at(strides, 7);
   a.stream = static_cast<cudaStream_t>(stream);
-  return dispatch<true>(dtype, a);
+  return dispatch<true>(route, a);
 }

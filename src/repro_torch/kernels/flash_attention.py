@@ -12,25 +12,36 @@ kernels are ``src/repro_torch/csrc/flash_attention.cu``, built for
 
 What bounds it on an H100: at the trainer's shape (B=8, H=16, KV=8, S=512,
 D=128, bf16) the causal forward does ~170 flops per byte of q/k/v/o, below
-bf16's ridge (~295), so its roofline bound is the bytes.
+bf16's ridge (~295), so its roofline bound is the bytes; Seamless' encoder
+(B=16, H=KV=16, S=1024, D=64, ``causal=False``) does ~500 and is bound by
+the operations.
 
-Routes, by dtype and nothing else (no route falls back to another):
+Routes (``route``), from the dtype, ``causal`` and the head_dim instance
+alone (no route falls back to another; a failed build or launch raises):
 
-* bfloat16: tensor cores.  ``mma.sync`` m16n8k16 (bf16 in, fp32
+* ``"wgmma"``, bfloat16 with ``causal=False`` at the instances 64 and 128:
+  Hopper's warpgroup MMAs on tiles that TMA brings into shared memory
+  (``csrc/flash_attention_sm90.cuh``): consumer warpgroups of 64 query
+  rows (forward: three at instance 64, two at 128; dQ: two) or 64 keys
+  (dK/dV: two) per block, and a producer warpgroup keeping a ring of
+  64-row K/V (or Q/dO) tiles in flight.  When the dK/dV grid would leave
+  SMs idle its blocks split a group's query heads and a last kernel sums
+  their fp32 partials in a fixed order.
+* ``"mma_sync"``, bfloat16 otherwise (every causal call, and non-causal
+  head_dim 256, which no path runs): ``mma.sync`` m16n8k16 (bf16 in, fp32
   accumulate) on operands brought in by ``ldmatrix``, K/V tiles streamed
-  through a ``cp.async`` ring; P (and dS in the backward) rounded to bf16
-  in registers as the next product's operand, as the TPU kernel casts P to
-  ``v.dtype``.  ``mma.sync`` rather than ``wgmma``: bound by bytes, the
-  kernel needs the tensor cores fed, not wgmma's last third of peak, and
-  mma.sync builds in seconds through the nvcc + ctypes route.  A block
-  holds one query head, so any group size G is taken (DBRX's 6 x 128,
-  Qwen3-MoE's 16 x 128, PaliGemma's 8 x 256).
-* float32: the first version's fp32 FMAs on the CUDA cores, exact to the
-  fp32 gates (2e-5).  A block holds a whole KV group, so G x D <= 512 with
-  D the kernel's instance (64, 128 or 256).
+  through a ``cp.async`` ring.  The causal shapes the trainer runs are
+  bound by bytes, where mma.sync's rate already puts the operations under
+  that bound.  A block holds one query head, so any group size G is taken
+  (DBRX's 6 x 128, Qwen3-MoE's 16 x 128, PaliGemma's 8 x 256).
+* ``"fp32"``: the first version's fp32 FMAs on the CUDA cores, exact to
+  the fp32 gates (2e-5).  A block holds a whole KV group, so G x D <= 512
+  with D the kernel's instance (64, 128 or 256).
 
-Both routes skip every key tile outside the causal/window band, and the
-backward (delta, dK/dV, dQ kernels) uses no atomics: it is deterministic.
+Both bfloat16 routes round P (and dS in the backward) to bf16 in registers
+as the next product's operand, as the TPU kernel casts P to ``v.dtype``.
+Every route skips the key tiles outside the causal/window band, and no
+backward uses atomics: each is deterministic, the same bits run to run.
 head_dim is any multiple of 8 up to 256 (H2O-Danube-3's 120 among them):
 the kernels run their instance at the next of 64, 128, 256 with the true
 head_dim as an argument.
@@ -56,27 +67,50 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# the C entry points' route codes (csrc/flash_attention.cu: `dispatch`)
+_ROUTES = {"fp32": 0, "mma_sync": 1, "wgmma": 2}
 # the kernels' instances: head_dim (a multiple of 8 up to 256) runs the next
 # one up, with loads past head_dim zero-filled and stores masked
 _HEAD_DIM_INSTANCES = (64, 128, 256)
+# the instances the wgmma route is built for
+_WGMMA_INSTANCES = (64, 128)
 # float32 only: G x D (D the instance), 128 threads per query head of the
 # group in one block (at most 1024), D/2 fp32 accumulators each; the
 # forward's tiles then fit in shared memory.  bfloat16 has no such limit.
 _F32_MAX_GROUP_DIM = 512
 
 
+def instance(head_dim: int) -> int:
+    """The kernels' head_dim instance: the next of 64, 128, 256."""
+    return next(x for x in _HEAD_DIM_INSTANCES if x >= head_dim)
+
+
+def route(dtype: torch.dtype, causal: bool, head_dim: int) -> str:
+    """The kernels a call runs: ``"wgmma"`` (bfloat16, ``causal=False``,
+    instance 64 or 128), ``"mma_sync"`` (every other bfloat16 call) or
+    ``"fp32"``."""
+    if dtype == torch.float32:
+        return "fp32"
+    if not causal and instance(head_dim) in _WGMMA_INSTANCES:
+        return "wgmma"
+    return "mma_sync"
+
+
 def _bind(lib: ctypes.CDLL):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll_p = ctypes.POINTER(ctypes.c_longlong)
     fwd, bwd = lib.flash_attention_fwd, lib.flash_attention_bwd
+    ws = lib.flash_attention_bwd_workspace
     if fwd.argtypes is None:
         fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll_p, i, i, f, f, p]
         fwd.restype = ctypes.c_int
         bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, ll_p,
                         i, i, f, f, p]
         bwd.restype = ctypes.c_int
-    return fwd, bwd
+        ws.argtypes = [i, i, i, i, i, i]
+        ws.restype = ctypes.c_longlong
+    return fwd, bwd, ws
 
 
 def _check(q, k, v, causal, window, softcap):
@@ -93,10 +127,9 @@ def _check(q, k, v, causal, window, softcap):
     if d % 8 or not 8 <= d <= 256:
         raise ValueError(f"flash_attention: head_dim {d} not supported (a "
                          "multiple of 8 up to 256)")
-    instance = next(x for x in _HEAD_DIM_INSTANCES if x >= d)
-    if q.dtype == torch.float32 and (h // kv) * instance > _F32_MAX_GROUP_DIM:
+    if q.dtype == torch.float32 and (h // kv) * instance(d) > _F32_MAX_GROUP_DIM:
         raise ValueError(f"flash_attention: float32 with group {h // kv} x head_dim "
-                         f"{d} (instance {instance}) not supported: the float32 "
+                         f"{d} (instance {instance(d)}) not supported: the float32 "
                          f"route takes group * head_dim <= {_F32_MAX_GROUP_DIM} "
                          "(bfloat16 takes any group)")
     if b * h * s >= 2 ** 31:
@@ -146,14 +179,14 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _check_layout(o)
-    fwd, _ = _bind(build.library("flash_attention"))
+    fwd, _, _ = _bind(build.library("flash_attention"))
     c, w, cap = _flags(causal, window, softcap)
     strides = _strides(q, k, v, o)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), _DTYPES[q.dtype], b, h, k.shape[1], s, d, strides,
-                 c, w, d ** -0.5, cap, stream)
+                 lse.data_ptr(), _ROUTES[route(q.dtype, causal, d)], b, h, k.shape[1],
+                 s, d, strides, c, w, d ** -0.5, cap, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention forward: CUDA launch failed (cudaError {rc})")
     build.count_launch(flash_attention, "launches_fwd")
@@ -179,18 +212,22 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
         do = do.contiguous()   # an upstream gradient's layout is not the caller's choice
     lse = lse.contiguous()
     b, h, s, d = q.shape
+    kv = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _check_layout(o, do, dq, dk, dv)
-    _, bwd = _bind(build.library("flash_attention"))
+    _, bwd, workspace_floats = _bind(build.library("flash_attention"))
     c, w, cap = _flags(causal, window, softcap)
     strides = _strides(q, k, v, o, do, dq, dk, dv)
+    code = _ROUTES[route(q.dtype, causal, d)]
     with torch.cuda.device(q.device):
+        # delta (and, on the wgmma route, lse padded and the dK/dV partials)
+        workspace = torch.empty(workspace_floats(code, b, h, kv, s, d),
+                                dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], b, h,
-                 k.shape[1], s, d, strides, c, w, d ** -0.5, cap, stream)
+                 dv.data_ptr(), workspace.data_ptr(), code, b, h, kv, s, d, strides,
+                 c, w, d ** -0.5, cap, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: CUDA launch failed (cudaError {rc})")
     build.count_launch(flash_attention, "launches_bwd")
@@ -224,7 +261,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
 
 
 # kernel launches: forwards, and backwards (one per backward call, which
-# runs the delta, dK/dV and dQ kernels)
+# runs the delta, dK/dV and dQ kernels, and on the wgmma route the sum of
+# the dK/dV partials where its blocks split the heads)
 flash_attention.launches_fwd = 0
 flash_attention.launches_bwd = 0
 

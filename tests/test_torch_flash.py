@@ -106,6 +106,86 @@ def test_flash_backward_matches_jax_vjp(h, kv, d, s, window, softcap):
         np.testing.assert_allclose(np.asarray(w), a.grad.numpy(), **BWD_TOL)
 
 
+# ---------------------------------------------------------------------------
+# causal=False (the Seamless encoder's attention; the card's wgmma route)
+# ---------------------------------------------------------------------------
+
+# (h, kv, head_dim): G = 1 and 4 at head_dim 64 and 120
+_NONCAUSAL_HEADS = [pytest.param(4, 4, 64, id="g1-d64"), pytest.param(8, 2, 64, id="g4-d64"),
+                    pytest.param(4, 4, 120, id="g1-d120"), pytest.param(4, 1, 120, id="g4-d120")]
+
+
+@pytest.mark.parametrize("h,kv,d", _NONCAUSAL_HEADS)
+@pytest.mark.parametrize("s,block", [(128, 64), (100, 50)])   # S a multiple of 64, and ragged
+@pytest.mark.parametrize("window,softcap", [(None, None), (24, None), (24, 5.0)])
+def test_noncausal_flash_matches_pallas_interpret(h, kv, d, s, block, window, softcap):
+    q, k, v = _qkv(6, 1, h, kv, s, d)
+    want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=False, window=window, softcap=softcap,
+                               block_q=block, block_k=block, interpret=True)
+    got, lse = fa.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)), causal=False,
+                                      window=window, softcap=softcap)
+    np.testing.assert_allclose(np.asarray(want), got.numpy(), **FWD_TOL)
+    assert lse.shape == (1, h, s) and bool(torch.isfinite(lse).all())
+
+
+# (h, kv, head_dim): G = 1 and 4 at head_dim 16 and 120
+@pytest.mark.parametrize("h,kv,d", [pytest.param(4, 4, 16, id="g1-d16"),
+                                    pytest.param(8, 2, 16, id="g4-d16"),
+                                    pytest.param(4, 1, 120, id="g4-d120")])
+@pytest.mark.parametrize("s,window,softcap", [(24, None, None), (37, 10, None),
+                                              (33, None, 4.0), (19, 7, 4.0)])
+def test_noncausal_flash_backward_matches_jax_vjp(h, kv, d, s, window, softcap):
+    q, k, v = _qkv(7, 2, h, kv, s, d)
+    do = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
+
+    @jax.jit
+    def vjp(a, b_, c, g):
+        out, pull = jax.vjp(lambda x, y, z: jref.flash_attention_ref(
+            x, y, z, causal=False, window=window, softcap=softcap), a, b_, c)
+        return out, pull(g)
+
+    out, want = vjp(*map(jnp.asarray, (q, k, v, do)))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    opts = dict(causal=False, window=window, softcap=softcap)
+    o, lse = fa.flash_attention_fwd(tq, tk, tv, **opts)
+    np.testing.assert_allclose(np.asarray(out), o.numpy(), **FWD_TOL)
+    plain = fa.flash_attention_bwd(tq, tk, tv, o, lse, tdo, **opts)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    fa.FlashAttention.apply(*leaves, False, window, softcap).backward(tdo)
+    for w, p, a in zip(want, plain, leaves):
+        np.testing.assert_allclose(np.asarray(w), p.numpy(), **BWD_TOL)
+        np.testing.assert_allclose(np.asarray(w), a.grad.numpy(), **BWD_TOL)
+
+
+@pytest.mark.parametrize("dtype,causal,d,want", [
+    (torch.bfloat16, False, 64, "wgmma"),      # Seamless' encoder
+    (torch.bfloat16, False, 32, "wgmma"),      # instance 64
+    (torch.bfloat16, False, 120, "wgmma"),     # instance 128
+    (torch.bfloat16, False, 128, "wgmma"),
+    (torch.bfloat16, False, 136, "mma_sync"),  # instance 256: no wgmma instance
+    (torch.bfloat16, False, 256, "mma_sync"),
+    (torch.bfloat16, True, 64, "mma_sync"),    # every causal call
+    (torch.bfloat16, True, 128, "mma_sync"),
+    (torch.float32, False, 64, "fp32"),        # fp32 whatever the mask
+    (torch.float32, True, 120, "fp32"),
+])
+def test_route_is_picked_from_dtype_causal_and_instance(dtype, causal, d, want):
+    assert fa.route(dtype, causal, d) == want
+    # the code the C entry points dispatch on
+    assert fa._ROUTES[want] == {"fp32": 0, "mma_sync": 1, "wgmma": 2}[want]
+
+
+def test_route_ignores_everything_but_dtype_causal_and_instance():
+    """Head dims of one instance share a route; shapes, windows and softcaps
+    never enter the choice (``route`` takes nothing else)."""
+    for d in range(8, 65, 8):
+        assert fa.route(torch.bfloat16, False, d) == "wgmma"
+    for d in range(72, 129, 8):
+        assert fa.instance(d) == 128 and fa.route(torch.bfloat16, False, d) == "wgmma"
+    assert {fa.route(torch.bfloat16, True, d) for d in range(8, 257, 8)} == {"mma_sync"}
+
+
 @pytest.mark.parametrize("shape,dtype,kw,exc", [
     ((2, 4, 2, 8, 44), torch.float32, {}, ValueError),            # head_dim % 8
     ((2, 4, 2, 8, 64), torch.float16, {}, TypeError),             # dtype

@@ -433,7 +433,7 @@ def test_cuda_int8_pool_matches_plain_version(cuda_device, d, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def _flash_against_plain(device, b, h, kv, s, d, window, softcap, dtype):
+def _flash_against_plain(device, b, h, kv, s, d, window, softcap, dtype, causal=True):
     from repro_torch.kernels import flash_attention as fa
 
     tdt, tol = DTYPES[dtype][1], DTYPES[dtype][2]
@@ -441,23 +441,23 @@ def _flash_against_plain(device, b, h, kv, s, d, window, softcap, dtype):
     # q/k/v as the trainer has them: (B, S, heads, D) seen as (B, heads, S, D)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(np.float32))
                    .to(device, tdt).transpose(1, 2) for n in (h, kv, kv, h))
+    opts = dict(causal=causal, window=window, softcap=softcap)
     before = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd)
-    o, lse = fa.flash_attention_fwd(q, k, v, window=window, softcap=softcap)
-    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, window=window, softcap=softcap)
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **opts)
     torch.cuda.synchronize()
     assert (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd) == (
         before[0] + 1, before[1] + 1)
     assert o.stride() == q.stride()
-    want_o, want_lse = ref.flash_attention_ref(q, k, v, window=window, softcap=softcap,
-                                               return_lse=True)
+    want_o, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **opts)
     torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=window,
-                                       softcap=softcap)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **opts)
     for got, w in zip(grads, want):
         scale = w.float().abs().max().item()   # gradients: tolerance x max |grad|
         torch.testing.assert_close(got.float(), w.float(), rtol=tol,
                                    atol=tol * scale)
+    return q, k, v, o, lse, do, grads
 
 
 @pytest.mark.cuda
@@ -471,6 +471,30 @@ def _flash_against_plain(device, b, h, kv, s, d, window, softcap, dtype):
 def test_cuda_flash_kernels_match_plain_versions(cuda_device, b, h, kv, s, d,
                                                  window, softcap, dtype):
     _flash_against_plain(cuda_device, b, h, kv, s, d, window, softcap, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,window,softcap", [
+    (2, 16, 16, 1024, 64, None, None),   # Seamless' encoder, cut to B=2
+    (2, 16, 4, 300, 64, None, None),     # odd: ragged S, G = 4 (the dK/dV blocks split heads)
+    (2, 8, 2, 256, 128, None, None),     # head_dim 128
+    (2, 8, 2, 300, 120, 128, 30.0),      # head_dim 120, window and softcap
+    (1, 4, 1, 77, 32, None, 5.0),        # head_dim 32, one KV head, a ragged single tile
+])
+def test_cuda_noncausal_bf16_flash_matches_plain_and_repeats_bitwise(cuda_device, b, h, kv, s,
+                                                                     d, window, softcap):
+    """The wgmma route (bf16, causal=False) against the plain versions; its
+    backward, free of atomics, gives the same bits when run again."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.route(torch.bfloat16, False, d) == "wgmma"
+    q, k, v, o, lse, do, grads = _flash_against_plain(cuda_device, b, h, kv, s, d, window,
+                                                      softcap, "bfloat16", causal=False)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False, window=window,
+                                   softcap=softcap)
+    torch.cuda.synchronize()
+    for x, y in zip(grads, again):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
