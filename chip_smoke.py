@@ -189,6 +189,20 @@ no result):
    sanitizer, Qwen3-1.7B cut to 4 layers, 2 replicas of 8 slots, alpha =
    1, 2 steps: tracked locks, edges, inversions — none allowed —, holds
    over 50 ms, and the runtime edges the static checker's graph lacks).
+16. Slice 15, flash's fp32 route as 3xTF32 on the tensor cores, one query
+   head per block (any group size): ``kernels`` also holds fp32 flash at
+   the groups the first fp32 route refused (``FP32_GROUPS``: PaliGemma-3B
+   8 x 256, RecurrentGemma-9B 16 x 256 with its window of 2,048,
+   Qwen3-MoE-235B-A22B 16 x 128, DBRX-132B 6 x 128), runs every fp32
+   backward (and every non-causal one) twice for the same bits, requires
+   TF32 HMMA in each fp32 kernel's SASS, and times the fp32 cases
+   (``FP32_TIMED``, into the flash rows' ``fp32_shapes``) beside SDPA's
+   fp32 call and the 3xTF32 bound (495 / 3 TFLOP/s; the CUDA cores' 67
+   beside it).  ``model_fp32_flash``: fp32 ``api.apply`` kernel against
+   ref for those four archs at full width, cut to the fewest layers with
+   an attention layer, logits within rtol 2e-5 and atol 2e-5 x max
+   |logit|, one flash forward per attention layer; ``model_hybrid``'s
+   full-depth forwards count one flash launch per attention layer.
 
 Every phase's wall seconds are printed on a line of their own as it ends
 (``{"phase": "wall", ...}``), and their total after the last.  Then the
@@ -215,6 +229,10 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 BF16_FLOPS = 989e12         # bf16 dense on the tensor cores
+TF32_FLOPS = 495e12         # TF32 dense on the tensor cores
+# fp32-exact products as three TF32 MMAs each (the fp32 flash route's
+# "3xTF32"): the least time of its operations
+FP32_3XTF32_FLOPS = TF32_FLOPS / 3
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),    # reduction order only
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}   # bf16 inputs and output
 # fp32 full-width greedy tokens, kernel path against plain path: a
@@ -552,7 +570,9 @@ def _flash_bound(q, k, window, backward, causal=True):
     inputs need (visible pairs only; 4D flops per pair forward: QK^T and PV;
     10D backward: QK^T again, dP, dV, dK, dQ) at the dtype's peak, and the
     bytes (forward: q, k, v read, o and lse written; backward: q, k, v, o,
-    dO, lse read, dq, dk, dv written) at 3.35 TB/s."""
+    dO, lse read, dq, dk, dv written) at 3.35 TB/s.  fp32's peak is that of
+    fp32-exact products as three TF32 MMAs (495 / 3 TFLOP/s, the route's
+    design); the detail keeps the CUDA cores' 67 beside it."""
     torch = _torch()
     b, h, s, d = q.shape
     e = q.element_size()
@@ -560,11 +580,13 @@ def _flash_bound(q, k, window, backward, causal=True):
     qo, kv = q.numel() * e, k.numel() * e
     lse = 4 * b * h * s
     nbytes = (3 * qo + 4 * kv + lse) if backward else (2 * qo + 2 * kv + lse)
-    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_3XTF32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations",
-            {"flops": flops, "bytes": nbytes, "ops_ms": 1e3 * t_ops,
-             "bytes_ms": 1e3 * t_bytes, "peak_flops": peak})
+    detail = {"flops": flops, "bytes": nbytes, "ops_ms": 1e3 * t_ops,
+              "bytes_ms": 1e3 * t_bytes, "peak_flops": peak}
+    if q.dtype == torch.float32:
+        detail["bound_ms_cuda_cores"] = 1e3 * max(flops / FP32_FLOPS, t_bytes)
+    return (1e3 * max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations", detail)
 
 
 def _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap, causal=True):
@@ -602,10 +624,10 @@ def _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap, causal=True)
 
 
 def _sass_hmma(name: str) -> dict:
-    """{kernel function: {"hmma": n, "hgmma": m}}: the counts of tensor-core
-    MMA instructions in the SASS of ``csrc/<name>.cu``'s built library
-    (``cuobjdump -sass``), ``mma.sync`` (HMMA) and Hopper's ``wgmma``
-    (HGMMA) apart."""
+    """{kernel function: {"hmma": n, "hgmma": m, "hmma_tf32": t}}: the counts
+    of tensor-core MMA instructions in the SASS of ``csrc/<name>.cu``'s
+    built library (``cuobjdump -sass``), ``mma.sync`` (HMMA, t of them on
+    TF32 operands) and Hopper's ``wgmma`` (HGMMA) apart."""
     import re
     import shutil
     from repro_torch.kernels import build
@@ -617,11 +639,12 @@ def _sass_hmma(name: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            out[fn] = {"hmma": 0, "hgmma": 0}
+            out[fn] = {"hmma": 0, "hgmma": 0, "hmma_tf32": 0}
         elif fn and "HGMMA" in line:
             out[fn]["hgmma"] += 1
         elif fn and "HMMA" in line:
             out[fn]["hmma"] += 1
+            out[fn]["hmma_tf32"] += "TF32" in line
     return out
 
 
@@ -631,37 +654,53 @@ def _flash_shape(q, k, causal=True) -> str:
             f"{str(q.dtype).split('.')[-1]}, (B, S, heads, D) strided views")
 
 
-def _flash_times(case, backward: bool, causal=True) -> tuple:
+def _flash_times(case, backward: bool, causal=True, window=None, softcap=None) -> tuple:
     """(kernel ms, plain ms, library ms, max abs err, bound ms, bound by,
     bound detail) of the forward or the backward on ``_flash_case``'s
-    inputs (made with the same ``causal``).  The library yardstick (the
-    port never calls it): SDPA forward, or its backward alone (the graph of
-    one forward, replayed)."""
+    inputs (made with the same ``causal``, ``window`` and ``softcap``).
+    The library yardstick (the port never calls it): SDPA forward, or its
+    backward alone (the graph of one forward, replayed); null where SDPA
+    does not compute the same function (a softcap, a window shorter than
+    S)."""
     torch = _torch()
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
     q, k, v, do, o, lse, _, errs = case
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    same = softcap is None and (window is None or window >= q.shape[2])
     if backward:
-        ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal))
-        plain = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                                         causal=causal))
-        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
-                                             enable_gqa=True)
-        lib = _time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
-                                                   retain_graph=True))
-        del out, ql, kl, vl
+        ms = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **opts))
+        plain = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **opts))
+        lib = None
+        if same:
+            ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                                 enable_gqa=True)
+            lib = _time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                                       retain_graph=True))
+            del out, ql, kl, vl
         err = max(errs["dq"], errs["dk"], errs["dv"])
     else:
-        ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
-        plain = _time_ms(lambda: flash_attention_ref(q, k, v, causal=causal,
-                                                     return_lse=True))
+        ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, **opts))
+        plain = _time_ms(lambda: flash_attention_ref(q, k, v, return_lse=True, **opts))
         lib = _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True))
+            q, k, v, is_causal=causal, enable_gqa=True)) if same else None
         err = errs["o"]
-    return (ms, plain, lib, err) + _flash_bound(q, k, None, backward, causal)
+    return (ms, plain, lib, err) + _flash_bound(q, k, window, backward, causal)
+
+
+# fp32 flash at the groups the first fp32 route refused (G x D > 512):
+# label -> (B, H, KV, S, D, window); causal, as these archs' train steps
+FP32_GROUPS = {
+    "paligemma_fp32": (8, 8, 1, 512, 256, None),            # PaliGemma-3B, 8 x 256 (train_vlm)
+    "recurrentgemma_fp32": (1, 16, 1, 2048, 256, 2048),     # RecurrentGemma-9B, 16 x 256
+    "qwen3moe_fp32": (1, 64, 4, 512, 128, None),            # Qwen3-MoE-235B-A22B, 16 x 128
+    "dbrx_fp32": (1, 48, 8, 512, 128, None),                # DBRX-132B, 6 x 128
+}
+# the fp32 cases whose times are kept (rows' ``fp32_shapes``)
+FP32_TIMED = ("train_fp32", "odd_fp32", "d120_fp32") + tuple(FP32_GROUPS)
 
 
 def phase_flash_kernels() -> list:
@@ -669,17 +708,20 @@ def phase_flash_kernels() -> list:
     shape (Qwen3-1.7B: B=8, H=16, KV=8, S=512, D=128) in bf16 and fp32, an
     odd shape (S=300, G=4, D=64, window 128, softcap 30), a group of 16
     (G x D = 2,048), PaliGemma's group (G=8, D=256) and H2O-Danube-3's
-    head_dim 120 (window 128, softcap 30) in bf16 and fp32.  The bf16
-    kernels must compute with tensor-core MMAs (HMMA or, on the non-causal
-    wgmma route, HGMMA in their SASS);
-    registers and spills from the build's report.  The pipeline phases'
-    train steps (``_pipeline_shapes``) in their dtype.  Then the times of
-    the bf16 trainer-shape case."""
+    head_dim 120 (window 128, softcap 30) in bf16 and fp32, and fp32 at
+    the four archs' groups the first fp32 route refused (``FP32_GROUPS``).
+    The bf16 kernels must compute with tensor-core MMAs (HMMA or, on the
+    non-causal wgmma route, HGMMA in their SASS), the fp32 ones with TF32
+    HMMA; registers and spills from the build's report.  The pipeline
+    phases' train steps (``_pipeline_shapes``) in their dtype.  Then the
+    times of the bf16 trainer-shape case, and of the fp32 cases
+    (``FP32_TIMED``: kernel, plain, SDPA's fp32 call, the 3xTF32 bound)."""
     torch = _torch()
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     bf16, fp32 = torch.bfloat16, torch.float32
     main = None
+    fp32_cases = {}
     for label, b, h, kv, s, d, dtype, window, softcap in [
             ("train_bf16", 8, 16, 8, 512, 128, bf16, None, None),
             ("train_fp32", 8, 16, 8, 512, 128, fp32, None, None),
@@ -689,6 +731,8 @@ def phase_flash_kernels() -> list:
             ("g8d256_bf16", 1, 8, 1, 512, 256, bf16, None, None),
             ("d120_bf16", 2, 32, 8, 300, 120, bf16, 128, 30.0),
             ("d120_fp32", 2, 32, 8, 300, 120, fp32, 128, 30.0)] + [
+            (label, b, h, kv, s, d, fp32, window, None)
+            for label, (b, h, kv, s, d, window) in FP32_GROUPS.items()] + [
             # the pipeline phases' train steps (B=16 / 8, S=64; rl_100m:
             # B=16, H=12, KV=4, S=32, D=64)
             (phase, *shape["flash"][:5], getattr(torch, shape["flash"][5]), None, None)
@@ -696,6 +740,9 @@ def phase_flash_kernels() -> list:
         case = _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap)
         if label == "train_bf16":
             main = case
+        elif label in FP32_TIMED:
+            _flash_repeat_check(label, case, True, window, softcap)
+            fp32_cases[label] = (case, window, softcap)
     registers = _ptxas_registers("flash_attention")
     hmma = _sass_hmma("flash_attention")
     emit("kernels", kernel="flash_attention", case="build", registers=registers, hmma=hmma)
@@ -708,6 +755,11 @@ def phase_flash_kernels() -> list:
             or not all(n["hgmma"] for n in wgmma.values())):
         raise AssertionError(f"flash_attention: bf16 kernels without tensor-core MMAs: "
                              f"{tensor_core}")
+    # the fp32 kernels (forward, dQ, dK/dV at three instances): 3xTF32
+    f32 = {fn: n for fn, n in hmma.items()
+           if re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_f32(_pair)?_kernel", fn)}
+    if len(f32) != 9 or not all(n["hmma_tf32"] for n in f32.values()):
+        raise AssertionError(f"flash_attention: fp32 kernels without TF32 MMAs: {f32}")
     shape = _flash_shape(main[0], main[1])
     rows = []
     for name, backward, (ms, plain, lib, err, bound_ms, bound_by, detail), call in [
@@ -722,7 +774,8 @@ def phase_flash_kernels() -> list:
                      "variant": ("backward: delta, dK/dV and dQ kernels (the TPU had none); "
                                  if backward else "forward, O and lse; ")
                                 + "bf16 on tensor cores (causal: mma.sync m16n8k16; "
-                                  "causal=False: wgmma + TMA), fp32 on CUDA cores",
+                                  "causal=False: wgmma + TMA), fp32 as 3xTF32 on "
+                                  "tensor cores (mma.sync m16n8k8, three MMAs a product)",
                      "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                      "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_detail": detail, "library_ms": lib, "library_call": call,
@@ -730,6 +783,20 @@ def phase_flash_kernels() -> list:
                      "registers": {fn: r for fn, r in registers.items() if kind in fn},
                      "hmma": {fn: n["hmma"] for fn, n in hmma.items() if kind in fn},
                      "hgmma": {fn: n["hgmma"] for fn, n in hmma.items() if kind in fn}})
+    for label, (case, window, softcap) in fp32_cases.items():
+        causal = True
+        for row, backward in ((rows[0], False), (rows[1], True)):
+            ms, plain, lib, err, bound_ms, bound_by, detail = _flash_times(
+                case, backward, causal, window, softcap)
+            row.setdefault("fp32_shapes", {})[label] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_detail": detail, "library_ms": lib,
+                "library_call": (f"SDPA(is_causal={causal}, enable_gqa=True) fp32, TF32 off"
+                                 + (" backward alone" if backward else "")) if lib else None,
+                "window": window, "softcap": softcap,
+                "shape": _flash_shape(case[0], case[1], causal)}
+        del case
+    fp32_cases.clear()
     for row in rows:
         emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
     return rows
@@ -1891,10 +1958,17 @@ def _slot_kernel_vs_ref(arch, api, params, prompts, max_new, phase=None) -> None
         layers = _layer_divergence(params, host, prompts, _hybrid_block(api.cfg))
         del host
         plain = _apply_logits(api, params, prompts, "ref")
+        _zero_flash()
         kernel = _max_diffs(_apply_logits(api, params, prompts, "kernel"), plain)
         del plain
+        # the forwards' attention layers run flash: one launch each a prompt
+        n_attn = sum(kind == "attn" for kind, _ in transformer.layer_kinds(api.cfg))
+        flash = _flash_counts()
+        if flash != (n_attn * len(prompts), 0):
+            raise AssertionError(f"{arch}: {flash} flash launches in the kernel path's "
+                                 f"forwards, expected ({n_attn * len(prompts)}, 0)")
         diffs["logits"] = max(kernel)
-        witness = {"host_layers": HYBRID_WITNESS_LAYERS,
+        witness = {"host_layers": HYBRID_WITNESS_LAYERS, "flash_launches": list(flash),
                    "logits_per_prompt": {"kernel": kernel}}
     if ssm:
         # the witness: the plain path on the host CPU, another reduction
@@ -4122,17 +4196,19 @@ def _slice12_shapes() -> dict:
     }
 
 
-def _flash_repeat_check(label: str, case) -> None:
-    """The backward once more on ``_flash_case``'s inputs: dQ, dK and dV must
-    come out bit-identical (the kernels use no atomics)."""
+def _flash_repeat_check(label: str, case, causal=False, window=None, softcap=None) -> None:
+    """The backward once more on ``_flash_case``'s inputs (made with the same
+    ``causal``, ``window`` and ``softcap``): dQ, dK and dV must come out
+    bit-identical (the kernels use no atomics)."""
     torch = _torch()
     from repro_torch.kernels import flash_attention as fa
     q, k, v, do, o, lse, grads, _ = case
-    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                                   softcap=softcap)
     torch.cuda.synchronize()
     same = {name: _bits_equal(x, y) for name, x, y in zip(("dq", "dk", "dv"), grads, again)}
     emit("kernels", kernel="flash_attention_bwd", case=label, check="bitwise_repeat",
-         route=fa.route(q.dtype, False, q.shape[-1]), bit_identical=same)
+         route=fa.route(q.dtype, causal, q.shape[-1]), bit_identical=same)
     if not all(same.values()):
         raise AssertionError(f"flash_attention_bwd {label}: a second run differs: {same}")
 
@@ -4147,8 +4223,9 @@ def phase_vlm_audio_kernels(rows: list, gpu: str) -> None:
     bf16 and fp32; and every shape the phases below give either kernel
     (``_slice12_shapes``).  The first eight cases, PaliGemma's train step
     (causal, G=8, D=256, S=512) and Seamless' decoder (causal, S=256) are
-    timed into the rows' ``vlm_audio_shapes``.  Every bf16 ``causal=False``
-    backward (the wgmma route) runs twice and must give the same bits."""
+    timed into the rows' ``vlm_audio_shapes``.  Every ``causal=False``
+    backward (bf16: the wgmma route; fp32: 3xTF32) runs twice and must give
+    the same bits."""
     torch = _torch()
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
@@ -4168,7 +4245,7 @@ def phase_vlm_audio_kernels(rows: list, gpu: str) -> None:
     for label, b, h, kv, s, d, dtype, causal in flash_cases:
         case = _flash_case(gen, label, b, h, kv, s, d, getattr(torch, dtype), None, None,
                            causal=causal)
-        if dtype == "bfloat16" and not causal:
+        if not causal:
             _flash_repeat_check(label, case)
         if label not in timed_flash:
             del case
@@ -4822,6 +4899,84 @@ def phase_train_audio(rows: list, gpu: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# fp32 apply at every group (slice 15: the fp32 flash route's redesign)
+# ---------------------------------------------------------------------------
+
+# the archs whose fp32 group the first fp32 flash route refused, and their
+# batch: (rows, tokens); RecurrentGemma-9B's sequence is longer than its
+# window of 2,048, PaliGemma-3B's 256 image positions go before its tokens
+FP32_APPLY = {VLM_ARCH: (2, 256), HYBRID_ARCH: (1, 2304), MOE_ARCH: (2, 256),
+              DBRX_ARCH: (2, 256)}
+
+
+def _attention_depth(cfg) -> int:
+    """The fewest layers that include an attention layer: 1, or through the
+    hybrid's first attention layer."""
+    from repro_torch.models import transformer
+    kinds = [kind for kind, _ in transformer.layer_kinds(cfg)]
+    return kinds.index("attn") + 1
+
+
+def phase_model_fp32_flash(rows: list, gpu: str) -> None:
+    """fp32 ``api.apply`` with ``attn_impl="kernel"`` against ``"ref"`` at the
+    four archs whose group the first fp32 flash route refused (PaliGemma-3B
+    8 x 256 with seeded patches, RecurrentGemma-9B 16 x 256 over 2,304
+    tokens and its window of 2,048, Qwen3-MoE-235B-A22B 16 x 128,
+    DBRX-132B 6 x 128), each at full width, cut in depth to the fewest
+    layers that include an attention layer (``_attention_depth``), weights
+    from ``SEED``: logits within rtol 2e-5 and atol 2e-5 x max |logit|
+    (``_logits_gate``), and exactly one flash forward per attention layer
+    on the kernel path, none on the plain one."""
+    import dataclasses
+
+    import numpy as np
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api, transformer
+
+    out_rows = {}
+    for arch, (n, t) in FP32_APPLY.items():
+        _free_device()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=_attention_depth(full), dtype="float32")
+        n_attn = sum(kind == "attn" for kind, _ in transformer.layer_kinds(cfg))
+        api = get_api(cfg, device=DEVICE)
+        params = api.init(SEED)
+        rng = np.random.default_rng(SEED + 260)
+        batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab_size, (n, t))
+                                            .astype(np.int32)).to(DEVICE)}
+        if cfg.family == "vlm":
+            gen = torch.Generator(device=DEVICE).manual_seed(VLM_PATCHES_SEED)
+            batch["patches"] = torch.randn(n, cfg.num_image_tokens, cfg.d_model,
+                                           generator=gen, device=DEVICE)
+        logits, launches = {}, {}
+        with torch.no_grad():
+            for impl in ("kernel", "ref"):
+                _zero_flash()
+                logits[impl], _ = api.apply(params, batch, attn_impl=impl)
+                torch.cuda.synchronize()
+                launches[impl] = _flash_counts()
+        ok, diff, scale = _logits_gate(logits["kernel"], logits["ref"])
+        group = cfg.num_heads // cfg.num_kv_heads
+        record = {"layers": cfg.num_layers, "attention_layers": n_attn,
+                  "group": [group, cfg.resolved_head_dim], "window": cfg.sliding_window,
+                  "batch": [n, logits["ref"].shape[1]], "max_abs_diff": diff,
+                  "logit_scale": scale, "ok": ok,
+                  "finite": bool(torch.isfinite(logits["kernel"]).all()),
+                  "flash_launches": {k: list(v) for k, v in launches.items()}}
+        emit("model_fp32_flash", arch=arch, gpu=gpu, dtype="float32",
+             check="apply_kernel_vs_ref", **record)
+        out_rows[arch] = record
+        del logits, params, api
+        if not (ok and record["finite"]) or launches != {"kernel": (n_attn, 0),
+                                                         "ref": (0, 0)}:
+            raise AssertionError(f"model_fp32_flash {arch}: diff {diff} (scale {scale}), "
+                                 f"flash launches {launches}, expected ({n_attn}, 0)")
+    rows[2]["fp32_apply"] = out_rows
+    _free_device()
+
+
+# ---------------------------------------------------------------------------
 # the concurrency analysis and the sharding plan / dry-run (slice 13)
 # ---------------------------------------------------------------------------
 
@@ -5250,6 +5405,8 @@ def main() -> int:
         timed("model_audio", phase_model_audio, rows, gpu)
         timed("decode_audio", phase_decode_audio, rows, gpu)
         timed("train_audio", phase_train_audio, rows, gpu)
+        # slice 15: fp32 apply through the redesigned fp32 flash route
+        timed("model_fp32_flash", phase_model_fp32_flash, rows, gpu)
         # slice 13: the sharding plan / dry-run and the lock sanitizer
         timed("dryrun", phase_dryrun, gpu)
         timed("sanitize", phase_sanitize, gpu)

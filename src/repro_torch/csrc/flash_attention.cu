@@ -27,7 +27,7 @@
 // (kernels/ref.py): scores in fp32 scaled by 1/sqrt(D), the tanh softcap
 // before the mask, masked scores -1e30, an online softmax from m = -1e30,
 // l = 0, output acc / max(l, 1e-30).  Keys past S (the ragged last tile)
-// are -inf: they never count.  Any S is accepted.  Both routes visit only
+// are -inf: they never count.  Any S is accepted.  Every route visits only
 // the key tiles from the window's start to the causal diagonal (the TPU
 // kernel's tile pruning, :38-51), and the backward is two kernels with no
 // atomics (dK/dV per key tile, dQ per query tile), so it is deterministic.
@@ -92,10 +92,16 @@
 //   kernel per (head, batch, query tile of 64): S, dP, dS as above and
 //   dQ += dS K over key tiles of 32.  P and dS are rounded to bf16 as MMA
 //   operands; the accumulators stay fp32.
-// * fp32: the first version's kernels, fp32 FMAs on the CUDA cores (exact
-//   enough for the fp32 gates at 2e-5).  A block holds a whole KV group
-//   (128 threads per query head, D/2 accumulators each), so it needs
-//   G x D <= 512 (D rounded up to 64, 128 or 256).
+// * fp32: error-compensated TF32 ("3xTF32") on `mma.sync.m16n8k8`: each
+//   fp32 operand split into hi + lo TF32 parts, each product three MMAs
+//   (the fp32 section below has the design).  The fp32 CUDA cores peak at
+//   67 TFLOP/s, TF32 tensor cores at 495: with three MMAs a product the
+//   bound of fp32-exact products is 165, which Seamless' encoder shape
+//   meets in the operations.  The blocks are the bf16 route's (one query
+//   head per block, any group size), tiles stream through a cp.async ring,
+//   dK/dV cuts each key tile's (query head, query tile) steps into even
+//   parts over the grid (fp32 partials summed in a fixed order), and from
+//   D = 128 the backward runs warp pairs.
 //
 // A small kernel computes delta = rowsum(dO * O) first, on every route (on
 // the wgmma route it also writes lse * log2 e, padded, beside it).
@@ -235,9 +241,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of
 // row i % 8 of matrix i / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
@@ -311,9 +317,9 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long
 }
 
 // rows [row0, row0 + ROWS) of a (S,) fp32 vector, asynchronously; 0 past S.
-template <int ROWS>
+template <int ROWS, int THREADS = kThreads>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src, int row0, int S) {
-  for (int i = threadIdx.x; i < ROWS; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
     const bool ok = row0 + i < S;
     cp_async4(dst + i, ok ? src + row0 + i : src, ok);
   }
@@ -838,445 +844,1103 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ===========================================================================
-// fp32 route: fp32 FMAs on the CUDA cores
+// fp32 route: error-compensated TF32 on the tensor cores (mma.sync m16n8k8)
 // ===========================================================================
+//
+// Every fp32 operand x is split into two TF32 values, hi = rna(x) and
+// lo = x - hi, and a product a b is formed as al bh + ah bl + ah bh by
+// three `mma.sync.m16n8k8` TF32 MMAs accumulating in fp32 ("3xTF32"): the
+// dropped al bl and lo's TF32 precision leave ~2^-21 of each product, well
+// inside the fp32 gates (2e-5).  The split is integer work on the CUDA
+// cores (`split_tf32`); it and the MMAs bound the kernels, not memory.
+// Scale, softcap, masks, the online softmax, lse and delta stay fp32 on
+// the CUDA cores.  The blocks are the bf16
+// route's: 4 warps of 16 rows, one query head per block in the forward and
+// dQ (any group size), one KV head and a share of its group's query heads
+// in dK/dV; tiles stream through a 2-stage cp.async ring into shared memory
+// padded by 4 floats a row (no bank conflicts for ldmatrix or for the
+// column reads of `ldb_kn_f32`).
+//
+// Fragments (m16n8k8 TF32; lane = 4 g + c, g = lane / 4, c = lane % 4):
+//   A 16x8:  a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4)
+//   B 8x8:   b0 (k c, n g), b1 (k c + 4, n g)
+//   C 16x8:  c0, c1 (g, 2c..); c2, c3 (g + 8, 2c..)
+// An 8x8 b16 ldmatrix tile is an 8x4 fp32 one whose float (i / 4, i % 4) is
+// lane i's register, so A and B fragments of a row-major fp32 tile load by
+// ldmatrix.x4.  A C fragment is not an A fragment, but a product's k order
+// is free: taking the 8 keys of an n tile in the order 0, 2, 4, 6, 1, 3,
+// 5, 7, the scores' fragment {c0, c2, c1, c3} is the A fragment of P V,
+// with B read at rows 2c and 2c + 1 (`c_to_a`, `ldb_kn_f32`).
 
-constexpr int kF32BQ = 64;          // forward: query rows per head per block
-constexpr int kF32BK = 32;          // forward: keys per tile
-constexpr int kHeadThreads = 128;   // forward: threads per query head
-constexpr int kBwdThreads = 256;
-constexpr int kKvBK = 64;           // dK/dV kernel: keys per block
-constexpr int kKvBQ = 32;           // dK/dV kernel: queries per tile
-constexpr int kDqBQ = 64;           // dQ kernel: queries per block
-constexpr int kDqBK = 32;           // dQ kernel: keys per tile
-
-// Rows [row0, row0 + rows) of one (batch, head) into a shared tile of
-// row pitch D + 1 (no bank conflicts on column walks), times `mul`; rows
-// at or past S and columns at or past dh are zero.
+// Tiles by head_dim instance (D = 256 fits in 227 KB of shared memory).
+// The backward runs one warp per 16 rows at D = 64; from D = 128 warp
+// pairs (flash_bwd_*_f32_pair_kernel), which halve what a warp holds in
+// registers: at D = 256 a single warp's dK and dV accumulators would not
+// fit, nor its dQ, S and dP without spilling.
 template <int D>
-__device__ __forceinline__ void load_tile_f32(const float* __restrict__ base, Strides st, int b,
-                                              int head, int row0, int rows, int S, int dh,
-                                              float mul, float* tile) {
-  constexpr int VPR = D / 4;
-  const float* p = base + b * st.b + head * st.h;
-  for (int i = threadIdx.x; i < rows * VPR; i += blockDim.x) {
-    const int r = i / VPR;
-    const int c = (i - r * VPR) * 4;
-    const int pos = row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (pos < S && c < dh) x = *reinterpret_cast<const float4*>(p + pos * st.s + c);
-    float* dst = tile + r * (D + 1) + c;
-    dst[0] = x.x * mul;
-    dst[1] = x.y * mul;
-    dst[2] = x.z * mul;
-    dst[3] = x.w * mul;
+struct F32Tiles {
+  static constexpr int P = D + 4;   // row pitch (floats)
+  static constexpr int STAGES = 2;
+  static constexpr bool PAIRS = D >= 128;
+  static constexpr int FWD_BK = D <= 64 ? 64 : 32;                    // forward: keys a tile
+  static constexpr int DQ_BK = PAIRS ? (D <= 128 ? 32 : 16) : 64;     // dQ: keys a tile
+  static constexpr int KV_QT = D <= 128 ? 32 : 16;                    // dK/dV: queries a tile
+  // the S (dP) products take n tiles in pairs (ldb_f32)
+  static_assert(FWD_BK % 16 == 0 && DQ_BK % 16 == 0 && KV_QT % 16 == 0,
+                "fp32 flash tiles: 16 keys or queries at least");
+};
+// query rows (forward, dQ) or keys (dK/dV) per block
+constexpr int kF32Rows = 16 * kWarps;
+
+// An operand fragment as hi + lo TF32 parts.
+template <int N>
+struct Split {
+  uint32_t hi[N], lo[N];
+};
+
+// hi: x rounded to TF32, to nearest with ties away from zero (half a TF32
+// ulp added to the bits, then the 13 low bits cleared: the bits of
+// cvt.rna.tf32.f32, at less cost on sm_90, for the finite values attention
+// feeds it); lo = x - hi, exact, which the MMA reads at TF32 precision (to
+// ~2^-21 of x, the size of the dropped lo lo').
+template <int N>
+__device__ __forceinline__ Split<N> split_tf32(const uint32_t* x) {
+  Split<N> s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s.hi[i] = (x[i] + 0x1000u) & 0xffffe000u;
+    s.lo[i] = __float_as_uint(__uint_as_float(x[i]) - __uint_as_float(s.hi[i]));
+  }
+  return s;
+}
+
+// c (16x8 fp32) += a (16x8 TF32, row) * b (8x8 TF32, col)
+__device__ __forceinline__ void mma1688(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b to fp32 accuracy: the cross terms first, then hi hi
+__device__ __forceinline__ void mma3(float* c, const Split<4>& a, const Split<2>& b) {
+  mma1688(c, a.lo, b.hi[0], b.hi[1]);
+  mma1688(c, a.hi, b.lo[0], b.lo[1]);
+  mma1688(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// c += the products of a tile's J k steps, a_j b_j for j < J, for an
+// accumulator that lives across tiles (O, dQ, dK, dV): the tile's 3 J MMAs
+// into a fresh fragment, then one fp32 add.  The tensor cores do not round
+// their fp32 accumulation to nearest, so a chain of thousands of MMA
+// accumulations drifts (dK/dV at RecurrentGemma-9B's group sums 16 x 2,048
+// products: ~1e-4 of the largest gradient), where round-to-nearest adds of
+// each tile's sum do not.  `b(j, frag)` loads the B fragment of k step j.
+template <int J, typename LoadB>
+__device__ __forceinline__ void mma3_tile_add(float* c, const Split<4>* a, LoadB b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    uint32_t bb[2];
+    b(j, bb);
+    mma3(t, a[j], split_tf32<2>(bb));
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+// A fragment of rows [r0, r0 + 16), columns [k0, k0 + 8) of a row-major
+// fp32 shared tile with pitch P.
+template <int P>
+__device__ __forceinline__ void lda_f32(uint32_t* a, const float* tile, int r0, int k0,
+                                        int lane) {
+  ldsm_x4(a, tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + k0 + (lane >> 4) * 4);
+}
+
+// B fragments of two n tiles from a tile stored (n, k): rows n0..n0+15 are
+// the n index, columns k0..k0+7 the k index (b[0], b[1] for n0; b[2], b[3]
+// for n0 + 8).  For S = Q K^T with K stored (key, d).
+template <int P>
+__device__ __forceinline__ void ldb_f32(uint32_t* b, const float* tile, int n0, int k0,
+                                        int lane) {
+  ldsm_x4(b, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * P + k0 + ((lane >> 3) & 1) * 4);
+}
+
+// B fragment of one n tile from a tile stored (k, n), its 8 k rows from k0
+// in the order 0, 2, 4, 6, 1, 3, 5, 7: rows k0 + 2c and k0 + 2c + 1,
+// column n0 + g.  For O += P V with V stored (key, d).
+template <int P>
+__device__ __forceinline__ void ldb_kn_f32(uint32_t* b, const float* tile, int k0, int n0,
+                                           int lane) {
+  const float* p = tile + (k0 + 2 * (lane & 3)) * P + n0 + (lane >> 2);
+  b[0] = __float_as_uint(p[0]);
+  b[1] = __float_as_uint(p[P]);
+}
+
+// The A fragment, over the columns of an n tile in `ldb_kn_f32`'s order,
+// of a C fragment.
+__device__ __forceinline__ void c_to_a(uint32_t* a, const float* c) {
+  a[0] = __float_as_uint(c[0]);
+  a[1] = __float_as_uint(c[2]);
+  a[2] = __float_as_uint(c[1]);
+  a[3] = __float_as_uint(c[3]);
+}
+
+// Rows [row0, row0 + ROWS) of one (batch, head)'s (S, dh) fp32 matrix into
+// a shared tile of pitch D + 4, asynchronously; zeros past S and past dh.
+template <int ROWS, int D, int THREADS = kThreads>
+__device__ __forceinline__ void load_tile_f32_async(float* dst, const float* src,
+                                                    long long stride, int row0, int S, int dh) {
+  constexpr int CPR = D / 4;   // 16-byte chunks per row
+  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 4;
+    const bool ok = row0 + r < S && c < dh;
+    cp_async16(dst + r * (D + 4) + c, ok ? src + (long long)(row0 + r) * stride + c : src, ok);
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 forward
+// ---------------------------------------------------------------------------
+
+// One block per (query tile of 64 rows, head, batch), 16 rows a warp; Q
+// staged once, K and V tiles of FWD_BK keys through the ring.
 template <int D>
-__global__ void __launch_bounds__(kHeadThreads * (512 / D))
+__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
                          Strides so, int H, int KV, int S, int dh, int causal, int window,
                          float scale, float softcap) {
-  constexpr int LD = D + 1;
-  constexpr int LDP = kF32BK + 1;
-  constexpr int CPT = D / 8;  // accumulator columns per thread
-  const int G = H / KV;
-  const int q0 = blockIdx.x * kF32BQ;
-  const int kvh = blockIdx.y;
+  using T = F32Tiles<D>;
+  constexpr int BK = T::FWD_BK;
+  constexpr int BQ = kF32Rows;
+  constexpr int P = T::P;
+  constexpr int ST = T::STAGES;
+  constexpr int NT = BK / 8;    // n tiles of S per key tile
+  constexpr int DT = D / 8;     // n tiles of O
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // latest (heaviest) tiles first
+  const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int g = threadIdx.x / kHeadThreads;  // this thread's head in the group
-  const int ht = threadIdx.x % kHeadThreads;
-  const int tr = ht / 8;  // rows tr + 16 i
-  const int tc = ht % 8;  // score columns tc + 8 j, accumulator columns tc + 8 c
-  const int h = kvh * G + g;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wr = warp * 16;
 
-  extern __shared__ float smem[];
-  float* qs = smem;                     // G x (kF32BQ, LD): q * scale
-  float* ks = qs + G * kF32BQ * LD;     // (kF32BK, LD)
-  float* vs = ks + kF32BK * LD;         // (kF32BK, LD)
-  float* ps = vs + kF32BK * LD;         // G x (kF32BQ, LDP): P of the tile
-  const float* my_q = qs + g * kF32BQ * LD;
-  float* my_p = ps + g * kF32BQ * LDP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);   // (BQ, P)
+  float* ks = qs + BQ * P;                          // ST x (BK, P)
+  float* vs = ks + ST * BK * P;                     // ST x (BK, P)
 
-  for (int gg = 0; gg < G; ++gg)
-    load_tile_f32<D>(q, sq, b, kvh * G + gg, q0, kF32BQ, S, dh, scale, qs + gg * kF32BQ * LD);
+  const float* kg = k + b * sk.b + kvh * sk.h;
+  const float* vg = v + b * sv.b + kvh * sv.h;
+  int k_lo, k_hi;
+  key_range(q0, BQ, S, causal, window, BK, &k_lo, &k_hi);
+  const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
 
-  float m[4], l[4], acc[4][CPT];
+  load_tile_f32_async<BQ, D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S, dh);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_tiles) {
+      load_tile_f32_async<BK, D>(ks + i * BK * P, kg, sk.s, k_lo + i * BK, S, dh);
+      load_tile_f32_async<BK, D>(vs + i * BK * P, vg, sv.s, k_lo + i * BK, S, dh);
+    }
+    cp_async_commit();
   }
 
-  int k_lo, k_hi;
-  key_range(q0, kF32BQ, S, causal, window, kF32BK, &k_lo, &k_hi);
-  for (int k0 = k_lo; k0 < k_hi; k0 += kF32BK) {
-    __syncthreads();  // every head is done with the previous tile
-    load_tile_f32<D>(k, sk, b, kvh, k0, kF32BK, S, dh, 1.f, ks);
-    load_tile_f32<D>(v, sv, b, kvh, k0, kF32BK, S, dh, 1.f, vs);
-    __syncthreads();
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int r_lo = q0 + wr;             // this warp's rows [r_lo, r_hi]
+  const int r_hi = r_lo + 15;
 
-    float s[4][4];
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();   // tile t is in; every warp is done with the stage refilled next
+    if (t + ST - 1 < n_tiles) {
+      const int nxt = (t + ST - 1) % ST;
+      const int kn = k_lo + (t + ST - 1) * BK;
+      load_tile_f32_async<BK, D>(ks + nxt * BK * P, kg, sk.s, kn, S, dh);
+      load_tile_f32_async<BK, D>(vs + nxt * BK * P, vg, sv.s, kn, S, dh);
+    }
+    cp_async_commit();
+    const int k0 = k_lo + t * BK;
+    const float* kt = ks + (t % ST) * BK * P;
+    const float* vt = vs + (t % ST) * BK * P;
+
+    // a tile none of this warp's rows can see adds exactly nothing
+    if ((causal && k0 > r_hi) || (window > 0 && r_lo - (k0 + BK - 1) >= window)) continue;
+
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = my_q[(tr + 16 * i) * LD + d];
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t a[4];
+      lda_f32<P>(a, qs, wr, 8 * kk, lane);
+      const Split<4> qa = split_tf32<4>(a);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = ks[(tc + 8 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t bb[4];
+        ldb_f32<P>(bb, kt, 16 * j, 8 * kk, lane);
+        mma3(s[2 * j], qa, split_tf32<2>(bb));
+        mma3(s[2 * j + 1], qa, split_tf32<2>(bb + 2));
+      }
     }
 
+    const bool need_mask = (causal && k0 + BK - 1 > r_lo) ||
+                           (window > 0 && r_hi - k0 >= window) || k0 + BK > S;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = tr + 16 * i;
-      const int qpos = q0 + row;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = r_lo + lane / 4 + 8 * hf;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tc + 8 * j;
-        float x = s[i][j];
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        if (kpos >= S) {
-          x = -INFINITY;
-        } else if (!visible(qpos, kpos, causal, window)) {
-          x = kNegInf;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      // the 8 threads of a row are lanes of one warp
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int off = 4; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+        for (int e = 0; e < 2; ++e) {
+          float x = s[j][2 * hf + e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          if (need_mask) {
+            const int kpos = k0 + 8 * j + 2 * (lane & 3) + e;
+            if (kpos >= S) {
+              x = -INFINITY;
+            } else if (!visible(row, kpos, causal, window)) {
+              x = kNegInf;
+            }
+          }
+          s[j][2 * hf + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hf], mx);
+      const float alpha = exp2f((m[hf] - m_new) * kLog2e);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        my_p[row * LDP + tc + 8 * j] = p;
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // the difference first: a row masked so far has s = m = -1e30
+          // and must weigh 1 (then 0 once a key is seen), as in ref.py
+          const float p = exp2f((s[j][2 * hf + e] - m_new) * kLog2e);
+          s[j][2 * hf + e] = p;
+          rs += p;
+        }
       }
+      l[hf] = l[hf] * alpha + rs;   // this lane's part; the quad sums at the end
+      m[hf] = m_new;
 #pragma unroll
-      for (int off = 4; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
+      for (int j = 0; j < DT; ++j) {
+        acc[j][2 * hf] *= alpha;
+        acc[j][2 * hf + 1] *= alpha;
+      }
     }
-    __syncwarp();  // a row's P is read back only by the lanes that wrote it
 
-#pragma unroll 4
-    for (int t = 0; t < kF32BK; ++t) {
-      float pa[4];
+    // O += P V
+    Split<4> pa[NT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = my_p[(tr + 16 * i) * LDP + t];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float vb = vs[t * LD + tc + 8 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pa[i], vb, acc[i][c]);
-      }
+    for (int j = 0; j < NT; ++j) {
+      uint32_t a[4];
+      c_to_a(a, s[j]);
+      pa[j] = split_tf32<4>(a);
     }
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      mma3_tile_add<NT>(acc[n], pa, [&](int j, uint32_t* bb) {
+        ldb_kn_f32<P>(bb, vt, 8 * j, 8 * n, lane);
+      });
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + tr + 16 * i;
-    if (qpos >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* op = o + b * so.b + h * so.h + qpos * so.s;
+  for (int hf = 0; hf < 2; ++hf) {
+    float lsum = l[hf];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    const int row = r_lo + lane / 4 + 8 * hf;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
+    float* op = o + b * so.b + h * so.h + row * so.s;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      if (tc + 8 * c < dh) op[tc + 8 * c] = acc[i][c] / denom;
-    if (tc == 0) lse[((long long)b * H + h) * S + qpos] = m[i] + logf(l[i]);
-  }
-}
-
-// dK, dV for a (batch, KV head, 64-key tile), summed over the G heads.
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             float* __restrict__ dk, float* __restrict__ dv, Strides sq,
-                             Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                             int H, int KV, int S, int dh, int causal, int window, float scale,
-                             float softcap) {
-  constexpr int LD = D + 1;
-  constexpr int LDT = kKvBQ + 1;
-  constexpr int CPT = D / 16;
-  const int G = H / KV;
-  const int k0 = blockIdx.x * kKvBK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tk = threadIdx.x / 16;  // keys tk + 16 i
-  const int tq = threadIdx.x % 16;  // queries tq + 16 j; accumulator columns tq + 16 c
-
-  extern __shared__ float smem[];
-  float* ks = smem;                   // (kKvBK, LD)
-  float* vs = ks + kKvBK * LD;        // (kKvBK, LD)
-  float* qs = vs + kKvBK * LD;        // (kKvBQ, LD): q * scale
-  float* dos = qs + kKvBQ * LD;       // (kKvBQ, LD)
-  float* pt = dos + kKvBQ * LD;       // (kKvBK, LDT): P^T
-  float* dst = pt + kKvBK * LDT;      // (kKvBK, LDT): dS^T
-  float* lse_s = dst + kKvBK * LDT;   // (kKvBQ,)
-  float* delta_s = lse_s + kKvBQ;     // (kKvBQ,)
-
-  load_tile_f32<D>(k, sk, b, kvh, k0, kKvBK, S, dh, 1.f, ks);
-  load_tile_f32<D>(v, sv, b, kvh, k0, kKvBK, S, dh, 1.f, vs);
-
-  float dk_acc[4][CPT], dv_acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  // the query tiles that see a key of this tile
-  int q_lo = causal ? k0 : 0;
-  int q_hi = S;
-  if (window > 0) q_hi = min(S, k0 + kKvBK - 1 + window);
-  q_lo = (q_lo / kKvBQ) * kKvBQ;
-
-  for (int gg = 0; gg < G; ++gg) {
-    const int h = kvh * G + gg;
-    const float* lse_h = lse + ((long long)b * H + h) * S;
-    const float* delta_h = delta + ((long long)b * H + h) * S;
-    for (int q0 = q_lo; q0 < q_hi; q0 += kKvBQ) {
-      __syncthreads();  // the previous tile's readers are done
-      load_tile_f32<D>(q, sq, b, h, q0, kKvBQ, S, dh, scale, qs);
-      load_tile_f32<D>(dout, sdo, b, h, q0, kKvBQ, S, dh, 1.f, dos);
-      for (int r = threadIdx.x; r < kKvBQ; r += blockDim.x) {
-        lse_s[r] = q0 + r < S ? lse_h[q0 + r] : 0.f;
-        delta_s[r] = q0 + r < S ? delta_h[q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      float st[4][2], dpt[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float ka[4], va[4], qb[2], ob[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ka[i] = ks[(tk + 16 * i) * LD + d];
-          va[i] = vs[(tk + 16 * i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          qb[j] = qs[(tq + 16 * j) * LD + d];
-          ob[j] = dos[(tq + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            st[i][j] = fmaf(ka[i], qb[j], st[i][j]);
-            dpt[i][j] = fmaf(va[i], ob[j], dpt[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + tk + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int qrow = tq + 16 * j;
-          const int qpos = q0 + qrow;
-          float p = 0.f, ds = 0.f;
-          if (kpos < S && qpos < S && visible(qpos, kpos, causal, window)) {
-            float x = st[i][j];
-            float th = 0.f;
-            if (softcap > 0.f) {
-              th = tanhf(x / softcap);
-              x = softcap * th;
-            }
-            p = expf(x - lse_s[qrow]);
-            ds = p * (dpt[i][j] - delta_s[qrow]);
-            if (softcap > 0.f) ds *= 1.f - th * th;
-          }
-          pt[(tk + 16 * i) * LDT + qrow] = p;
-          dst[(tk + 16 * i) * LDT + qrow] = ds;
-        }
-      }
-      __syncwarp();  // a key row's P^T and dS^T are read back by the lanes that wrote them
-
-#pragma unroll 4
-      for (int t = 0; t < kKvBQ; ++t) {
-        float pa[4], da[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pa[i] = pt[(tk + 16 * i) * LDT + t];
-          da[i] = dst[(tk + 16 * i) * LDT + t];
-        }
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const float ob = dos[t * LD + tq + 16 * c];
-          const float qb = qs[t * LD + tq + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv_acc[i][c] = fmaf(pa[i], ob, dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(da[i], qb, dk_acc[i][c]);
-          }
-        }
-      }
+    for (int j = 0; j < DT; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      if (col < dh)
+        *reinterpret_cast<float2*>(op + col) =
+            make_float2(acc[j][2 * hf] * inv, acc[j][2 * hf + 1] * inv);
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + tk + 16 * i;
-    if (kpos >= S) continue;
-    float* dkp = dk + b * sdk.b + kvh * sdk.h + kpos * sdk.s;
-    float* dvp = dv + b * sdv.b + kvh * sdv.h + kpos * sdv.s;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      if (tq + 16 * c >= dh) continue;
-      dkp[tq + 16 * c] = dk_acc[i][c];  // q was stored pre-scaled
-      dvp[tq + 16 * c] = dv_acc[i][c];
-    }
+    if ((lane & 3) == 0) lse[((long long)b * H + h) * S + row] = m[hf] + logf(lsum);
   }
 }
 
-// dQ for a (batch, head, 64-row query tile).
+// ---------------------------------------------------------------------------
+// fp32 backward
+// ---------------------------------------------------------------------------
+
+// dQ for a (query tile of 64 rows, head, batch), 16 rows a warp, over key
+// tiles of DQ_BK: S = Q K^T and dP = dO V^T, dS (`scores_to_grads`), then
+// dQ += dS K.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const float* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             float* __restrict__ dq, Strides sq, Strides sk, Strides sv,
                             Strides sdo, Strides sdq, int H, int KV, int S, int dh, int causal,
                             int window, float scale, float softcap) {
-  constexpr int LD = D + 1;
-  constexpr int LDS = kDqBK + 1;
-  constexpr int CPT = D / 16;
-  const int G = H / KV;
-  const int q0 = blockIdx.x * kDqBQ;
+  using T = F32Tiles<D>;
+  constexpr int BK = T::DQ_BK;
+  constexpr int BQ = kF32Rows;
+  constexpr int P = T::P;
+  constexpr int ST = T::STAGES;
+  constexpr int NT = BK / 8;
+  constexpr int DT = D / 8;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int kvh = h / G;
-  const int tr = threadIdx.x / 16;  // rows tr + 16 i
-  const int tc = threadIdx.x % 16;  // keys tc + 16 j; accumulator columns tc + 16 c
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wr = warp * 16;
 
-  extern __shared__ float smem[];
-  float* qs = smem;                   // (kDqBQ, LD): q * scale
-  float* dos = qs + kDqBQ * LD;       // (kDqBQ, LD)
-  float* ks = dos + kDqBQ * LD;       // (kDqBK, LD)
-  float* vs = ks + kDqBK * LD;        // (kDqBK, LD)
-  float* dss = vs + kDqBK * LD;       // (kDqBQ, LDS): dS
-  float* lse_s = dss + kDqBQ * LDS;   // (kDqBQ,)
-  float* delta_s = lse_s + kDqBQ;     // (kDqBQ,)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);   // (BQ, P)
+  float* dos = qs + BQ * P;                         // (BQ, P)
+  float* ks = dos + BQ * P;                         // ST x (BK, P)
+  float* vs = ks + ST * BK * P;                     // ST x (BK, P)
 
-  load_tile_f32<D>(q, sq, b, h, q0, kDqBQ, S, dh, scale, qs);
-  load_tile_f32<D>(dout, sdo, b, h, q0, kDqBQ, S, dh, 1.f, dos);
+  const float* kg = k + b * sk.b + kvh * sk.h;
+  const float* vg = v + b * sv.b + kvh * sv.h;
+  int k_lo, k_hi;
+  key_range(q0, BQ, S, causal, window, BK, &k_lo, &k_hi);
+  const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
+
+  load_tile_f32_async<BQ, D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S, dh);
+  load_tile_f32_async<BQ, D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, dh);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_tiles) {
+      load_tile_f32_async<BK, D>(ks + i * BK * P, kg, sk.s, k_lo + i * BK, S, dh);
+      load_tile_f32_async<BK, D>(vs + i * BK * P, vg, sv.s, k_lo + i * BK, S, dh);
+    }
+    cp_async_commit();
+  }
+
   const float* lse_h = lse + ((long long)b * H + h) * S;
   const float* delta_h = delta + ((long long)b * H + h) * S;
-  for (int r = threadIdx.x; r < kDqBQ; r += blockDim.x) {
-    lse_s[r] = q0 + r < S ? lse_h[q0 + r] : 0.f;
-    delta_s[r] = q0 + r < S ? delta_h[q0 + r] : 0.f;
-  }
+  const int r0 = q0 + wr + lane / 4;
+  const float lse0 = r0 < S ? lse_h[r0] : 0.f, lse1 = r0 + 8 < S ? lse_h[r0 + 8] : 0.f;
+  const float dl0 = r0 < S ? delta_h[r0] : 0.f, dl1 = r0 + 8 < S ? delta_h[r0 + 8] : 0.f;
 
-  float dq_acc[4][CPT];
+  float acc[DT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < DT; ++j)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) dq_acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int r_lo = q0 + wr, r_hi = r_lo + 15;
 
-  int k_lo, k_hi;
-  key_range(q0, kDqBQ, S, causal, window, kDqBK, &k_lo, &k_hi);
-  for (int k0 = k_lo; k0 < k_hi; k0 += kDqBK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_f32<D>(k, sk, b, kvh, k0, kDqBK, S, dh, 1.f, ks);
-    load_tile_f32<D>(v, sv, b, kvh, k0, kDqBK, S, dh, 1.f, vs);
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<ST - 2>();
     __syncthreads();
+    if (t + ST - 1 < n_tiles) {
+      const int nxt = (t + ST - 1) % ST;
+      const int kn = k_lo + (t + ST - 1) * BK;
+      load_tile_f32_async<BK, D>(ks + nxt * BK * P, kg, sk.s, kn, S, dh);
+      load_tile_f32_async<BK, D>(vs + nxt * BK * P, vg, sv.s, kn, S, dh);
+    }
+    cp_async_commit();
+    const int k0 = k_lo + t * BK;
+    const float* kt = ks + (t % ST) * BK * P;
+    const float* vt = vs + (t % ST) * BK * P;
+    if ((causal && k0 > r_hi) || (window > 0 && r_lo - (k0 + BK - 1) >= window)) continue;
 
-    float s[4][2], dp[4][2];
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], kb[2], vb[2];
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = qs[(tr + 16 * i) * LD + d];
-        oa[i] = dos[(tr + 16 * i) * LD + d];
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t a[4];
+      lda_f32<P>(a, qs, wr, 8 * kk, lane);
+      const Split<4> qa = split_tf32<4>(a);
+      lda_f32<P>(a, dos, wr, 8 * kk, lane);
+      const Split<4> oa = split_tf32<4>(a);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t bk[4], bv[4];
+        ldb_f32<P>(bk, kt, 16 * j, 8 * kk, lane);
+        ldb_f32<P>(bv, vt, 16 * j, 8 * kk, lane);
+        mma3(s[2 * j], qa, split_tf32<2>(bk));
+        mma3(s[2 * j + 1], qa, split_tf32<2>(bk + 2));
+        mma3(dp[2 * j], oa, split_tf32<2>(bv));
+        mma3(dp[2 * j + 1], oa, split_tf32<2>(bv + 2));
       }
+    }
+    const bool need_mask = (causal && k0 + BK - 1 > r_lo) ||
+                           (window > 0 && r_hi - k0 >= window) || k0 + BK > S ||
+                           q0 + BQ > S;
+    scores_to_grads<false, NT>(s, dp, r_lo, k0, lane, nullptr, nullptr, lse0, lse1, dl0, dl1,
+                               need_mask, S, causal, window, scale, softcap);
+    // dQ += dS K
+    Split<4> da[NT];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        kb[j] = ks[(tc + 16 * j) * LD + d];
-        vb[j] = vs[(tc + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-        }
+    for (int j = 0; j < NT; ++j) {
+      uint32_t a[4];
+      c_to_a(a, dp[j]);
+      da[j] = split_tf32<4>(a);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = tr + 16 * i;
-      const int qpos = q0 + row;
+    for (int n = 0; n < DT; ++n)
+      mma3_tile_add<NT>(acc[n], da, [&](int j, uint32_t* bb) {
+        ldb_kn_f32<P>(bb, kt, 8 * j, 8 * n, lane);
+      });
+  }
+
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + tc + 16 * j;
-        float ds = 0.f;
-        if (kpos < S && qpos < S && visible(qpos, kpos, causal, window)) {
-          float x = s[i][j];
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = r0 + 8 * hf;
+    if (row >= S) continue;
+    float* p = dq + b * sdq.b + h * sdq.h + row * sdq.s;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      if (col < dh)
+        *reinterpret_cast<float2*>(p + col) =
+            make_float2(acc[j][2 * hf] * scale, acc[j][2 * hf + 1] * scale);
+    }
+  }
+}
+
+// The fp32 dK/dV kernel's work for key tile `tile` (keys [64 tile, 64 tile
+// + 64)): its steps, one per (query head of the group, query tile of QT
+// that sees a key of the tile), G heads in turn; *q_lo the first query
+// tile's row.  Under causality tile 0 has the most, the last the fewest.
+__host__ __device__ inline int f32_kv_steps(int tile, int S, int G, int QT, int causal,
+                                            int window, int* q_lo) {
+  const int k0 = tile * kF32Rows;
+  int lo = causal ? k0 : 0;
+  int hi = S;
+  if (window > 0 && window < S - k0 - (kF32Rows - 1)) hi = k0 + kF32Rows - 1 + window;
+  lo = (lo / QT) * QT;
+  *q_lo = lo;
+  return G * ((hi - lo + QT - 1) / QT);
+}
+
+// A key tile's steps are cut into ceil(steps / chunk) parts of even size,
+// one block each; where a tile has more than one part its blocks write
+// fp32 partials that flash_bwd_dkv_sum_f32_kernel sums in a fixed order.
+__host__ __device__ inline int f32_kv_parts(int steps, int chunk) {
+  return (steps + chunk - 1) / chunk;
+}
+
+// dK, dV for a (tile of 64 keys, KV head, batch), 16 keys a warp, summed
+// over a part of the tile's steps (query heads of the group x query tiles
+// of KV_QT: the grid's blocks get even shares of the work, the heavy early
+// key tiles under causality more parts): S^T = K Q^T and dP^T = V dO^T,
+// dS^T, then dV += P^T dO and dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv, Strides sq,
+                             Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                             float* __restrict__ partial, int chunk, int max_parts, int B,
+                             int H, int KV, int S, int dh, int causal, int window,
+                             float scale, float softcap) {
+  using T = F32Tiles<D>;
+  constexpr int QT = T::KV_QT;
+  constexpr int BKV = kF32Rows;
+  constexpr int P = T::P;
+  constexpr int ST = T::STAGES;
+  constexpr int NT = QT / 8;    // n tiles of S^T (queries)
+  constexpr int OT = D / 8;     // n tiles of dK, dV
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  // this block's key tile (the earliest, with the most queries, first) and
+  // its part [s0, s1) of the tile's steps
+  int tile = 0, part = blockIdx.x, steps, parts, q_lo;
+  for (;; ++tile) {
+    steps = f32_kv_steps(tile, S, G, QT, causal, window, &q_lo);
+    parts = f32_kv_parts(steps, chunk);
+    if (part < parts) break;
+    part -= parts;
+  }
+  const int k0 = tile * BKV;
+  const int s0 = (int)((long long)part * steps / parts);
+  const int n_steps = (int)((long long)(part + 1) * steps / parts) - s0;
+  const int n_qt = steps / G;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wk = warp * 16;             // this warp's first key in the tile
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);   // (BKV, P)
+  float* vs = ks + BKV * P;                         // (BKV, P)
+  float* qs = vs + BKV * P;                         // ST x (QT, P)
+  float* dos = qs + ST * QT * P;                    // ST x (QT, P)
+  float* lse_s = dos + ST * QT * P;                 // ST x QT
+  float* dl_s = lse_s + ST * QT;                    // ST x QT
+
+  // this block's step i: the tile's step s0 + i, whose head is s / n_qt of
+  // the group and query tile q_lo + (s % n_qt) * QT
+  auto prefetch = [&](int i) {
+    const int hh = kvh * G + (s0 + i) / n_qt;
+    const int qq = q_lo + (s0 + i) % n_qt * QT;
+    const int st = i % ST;
+    load_tile_f32_async<QT, D>(qs + st * QT * P, q + b * sq.b + hh * sq.h, sq.s, qq, S, dh);
+    load_tile_f32_async<QT, D>(dos + st * QT * P, dout + b * sdo.b + hh * sdo.h, sdo.s, qq, S,
+                               dh);
+    load_rows_async<QT>(lse_s + st * QT, lse + ((long long)b * H + hh) * S, qq, S);
+    load_rows_async<QT>(dl_s + st * QT, delta + ((long long)b * H + hh) * S, qq, S);
+  };
+
+  load_tile_f32_async<BKV, D>(ks, k + b * sk.b + kvh * sk.h, sk.s, k0, S, dh);
+  load_tile_f32_async<BKV, D>(vs, v + b * sv.b + kvh * sv.h, sv.s, k0, S, dh);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_steps) prefetch(i);
+    cp_async_commit();
+  }
+
+  float dk_acc[OT][4], dv_acc[OT][4];
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  const int kw_lo = k0 + wk, kw_hi = kw_lo + 15;
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    if (i + ST - 1 < n_steps) prefetch(i + ST - 1);
+    cp_async_commit();
+    const int q0 = q_lo + (s0 + i) % n_qt * QT;
+    const int stage = i % ST;
+    const float* qt = qs + stage * QT * P;
+    const float* dt = dos + stage * QT * P;
+    if ((causal && kw_lo > q0 + QT - 1) || (window > 0 && q0 - kw_hi >= window)) continue;
+
+    float sT[NT][4], dpT[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+    // S^T = K Q^T and dP^T = V dO^T over the whole head_dim
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t a[4];
+      lda_f32<P>(a, ks, wk, 8 * kk, lane);
+      const Split<4> ka = split_tf32<4>(a);
+      lda_f32<P>(a, vs, wk, 8 * kk, lane);
+      const Split<4> va = split_tf32<4>(a);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t bq[4], bo[4];
+        ldb_f32<P>(bq, qt, 16 * j, 8 * kk, lane);
+        ldb_f32<P>(bo, dt, 16 * j, 8 * kk, lane);
+        mma3(sT[2 * j], ka, split_tf32<2>(bq));
+        mma3(sT[2 * j + 1], ka, split_tf32<2>(bq + 2));
+        mma3(dpT[2 * j], va, split_tf32<2>(bo));
+        mma3(dpT[2 * j + 1], va, split_tf32<2>(bo + 2));
+      }
+    }
+    const bool need_mask = (causal && k0 + BKV - 1 > q0) ||
+                           (window > 0 && q0 + QT - 1 - k0 >= window) || q0 + QT > S ||
+                           k0 + BKV > S;
+    scores_to_grads<true, NT>(sT, dpT, kw_lo, q0, lane, lse_s + stage * QT,
+                              dl_s + stage * QT, 0.f, 0.f, 0.f, 0.f, need_mask, S, causal,
+                              window, scale, softcap);
+    // dV += P^T dO and dK += dS^T Q
+    Split<4> pa[NT], da[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t a[4];
+      c_to_a(a, sT[j]);
+      pa[j] = split_tf32<4>(a);
+      c_to_a(a, dpT[j]);
+      da[j] = split_tf32<4>(a);
+    }
+#pragma unroll
+    for (int n = 0; n < OT; ++n) {
+      mma3_tile_add<NT>(dv_acc[n], pa, [&](int j, uint32_t* bb) {
+        ldb_kn_f32<P>(bb, dt, 8 * j, 8 * n, lane);
+      });
+      mma3_tile_add<NT>(dk_acc[n], da, [&](int j, uint32_t* bb) {
+        ldb_kn_f32<P>(bb, qt, 8 * j, 8 * n, lane);
+      });
+    }
+  }
+
+  const long long n_el = (long long)B * KV * S * dh;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kpos = kw_lo + lane / 4 + 8 * hf;
+    if (kpos >= S) continue;
+    const long long row = ((long long)b * KV + kvh) * S + kpos;
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      if (col >= dh) continue;
+      if (parts == 1) {
+        *reinterpret_cast<float2*>(dk + b * sdk.b + kvh * sdk.h + kpos * sdk.s + col) =
+            make_float2(dk_acc[j][2 * hf] * scale, dk_acc[j][2 * hf + 1] * scale);
+        *reinterpret_cast<float2*>(dv + b * sdv.b + kvh * sdv.h + kpos * sdv.s + col) =
+            make_float2(dv_acc[j][2 * hf], dv_acc[j][2 * hf + 1]);
+      } else {
+        *reinterpret_cast<float2*>(partial + part * n_el + row * dh + col) =
+            make_float2(dk_acc[j][2 * hf], dk_acc[j][2 * hf + 1]);
+        *reinterpret_cast<float2*>(partial + (max_parts + part) * n_el + row * dh + col) =
+            make_float2(dv_acc[j][2 * hf], dv_acc[j][2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// Named barrier `id` over `n` threads: arrive without waiting, or wait.
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// dK, dV as flash_bwd_dkv_f32_kernel computes them, with each 16-key group's
+// work split between two warps of a block of 8: warp g (g < 4) forms
+// S^T = K Q^T, P^T and dV += P^T dO; warp 4 + g forms dP^T = V dO^T,
+// dS^T = P^T (dP^T - delta) and dK += dS^T Q, taking P^T (times 1 - t^2
+// under a softcap) through shared memory behind a named barrier of the
+// pair.  Each warp holds one accumulator over the whole head_dim, so no
+// product is formed twice (the single-warp kernel splits D = 256 over two
+// blocks, each forming S^T and dP^T).
+template <int D>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_bwd_dkv_f32_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta, float* __restrict__ dk,
+                                  float* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                                  Strides sdo, Strides sdk, Strides sdv,
+                                  float* __restrict__ partial, int chunk, int max_parts, int B,
+                                  int H, int KV, int S, int dh, int causal, int window,
+                                  float scale, float softcap) {
+  using T = F32Tiles<D>;
+  constexpr int THREADS = 2 * kThreads;
+  constexpr int QT = T::KV_QT;
+  constexpr int GP = QT + 8;    // the exchange's row pitch (floats)
+  constexpr int BKV = kF32Rows;
+  constexpr int P = T::P;
+  constexpr int ST = T::STAGES;
+  constexpr int NT = QT / 8;    // n tiles of S^T / dP^T (queries)
+  constexpr int OT = D / 8;     // n tiles of dK, dV
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  int tile = 0, part = blockIdx.x, steps, parts, q_lo;
+  for (;; ++tile) {
+    steps = f32_kv_steps(tile, S, G, QT, causal, window, &q_lo);
+    parts = f32_kv_parts(steps, chunk);
+    if (part < parts) break;
+    part -= parts;
+  }
+  const int k0 = tile * BKV;
+  const int s0 = (int)((long long)part * steps / parts);
+  const int n_steps = (int)((long long)(part + 1) * steps / parts) - s0;
+  const int n_qt = steps / G;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int grp = warp % kWarps;        // the key group: keys [16 grp, 16 grp + 16)
+  const bool first = warp < kWarps;     // S^T, P^T, dV (else dP^T, dS^T, dK)
+  const int wk = grp * 16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);   // (BKV, P)
+  float* vs = ks + BKV * P;                         // (BKV, P)
+  float* qs = vs + BKV * P;                         // ST x (QT, P)
+  float* dos = qs + ST * QT * P;                    // ST x (QT, P)
+  float* lse_s = dos + ST * QT * P;                 // ST x QT
+  float* dl_s = lse_s + ST * QT;                    // ST x QT
+  float* gs = dl_s + ST * QT + grp * 16 * GP;       // this pair's (16, GP): P^T (1 - t^2)
+
+  auto prefetch = [&](int i) {
+    const int hh = kvh * G + (s0 + i) / n_qt;
+    const int qq = q_lo + (s0 + i) % n_qt * QT;
+    const int st = i % ST;
+    load_tile_f32_async<QT, D, THREADS>(qs + st * QT * P, q + b * sq.b + hh * sq.h, sq.s, qq,
+                                        S, dh);
+    load_tile_f32_async<QT, D, THREADS>(dos + st * QT * P, dout + b * sdo.b + hh * sdo.h,
+                                        sdo.s, qq, S, dh);
+    load_rows_async<QT, THREADS>(lse_s + st * QT, lse + ((long long)b * H + hh) * S, qq, S);
+    load_rows_async<QT, THREADS>(dl_s + st * QT, delta + ((long long)b * H + hh) * S, qq, S);
+  };
+
+  load_tile_f32_async<BKV, D, THREADS>(ks, k + b * sk.b + kvh * sk.h, sk.s, k0, S, dh);
+  load_tile_f32_async<BKV, D, THREADS>(vs, v + b * sv.b + kvh * sv.h, sv.s, k0, S, dh);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_steps) prefetch(i);
+    cp_async_commit();
+  }
+
+  float acc[OT][4];   // dV (first) or dK
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int kw_lo = k0 + wk, kw_hi = kw_lo + 15;
+  const float* a_tile = first ? ks : vs;
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    if (i + ST - 1 < n_steps) prefetch(i + ST - 1);
+    cp_async_commit();
+    const int q0 = q_lo + (s0 + i) % n_qt * QT;
+    const int stage = i % ST;
+    const float* qt = qs + stage * QT * P;
+    const float* dt = dos + stage * QT * P;
+    if ((causal && kw_lo > q0 + QT - 1) || (window > 0 && q0 - kw_hi >= window)) continue;
+
+    // S^T = K Q^T (first) or dP^T = V dO^T over the whole head_dim
+    const float* b_tile = first ? qt : dt;
+    float x[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t a[4];
+      lda_f32<P>(a, a_tile, wk, 8 * kk, lane);
+      const Split<4> sa = split_tf32<4>(a);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t bb[4];
+        ldb_f32<P>(bb, b_tile, 16 * j, 8 * kk, lane);
+        mma3(x[2 * j], sa, split_tf32<2>(bb));
+        mma3(x[2 * j + 1], sa, split_tf32<2>(bb + 2));
+      }
+    }
+    const bool need_mask = (causal && k0 + BKV - 1 > q0) ||
+                           (window > 0 && q0 + QT - 1 - k0 >= window) || q0 + QT > S ||
+                           k0 + BKV > S;
+    if (first) {
+      // P^T, and P^T (1 - t^2) for the pair's other warp; 0 where masked
+      const float* lse_c = lse_s + stage * QT;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = lane / 4 + 8 * (e >> 1);
+          const int c = 8 * j + 2 * (lane & 3) + (e & 1);
+          float xs = x[j][e] * scale;
           float th = 0.f;
           if (softcap > 0.f) {
-            th = tanhf(x / softcap);
-            x = softcap * th;
+            th = tanhf(xs / softcap);
+            xs = softcap * th;
           }
-          const float p = expf(x - lse_s[row]);
-          ds = p * (dp[i][j] - delta_s[row]);
-          if (softcap > 0.f) ds *= 1.f - th * th;
+          float p = exp2f((xs - lse_c[c]) * kLog2e);
+          if (need_mask && (q0 + c >= S || kw_lo + r >= S ||
+                            !visible(q0 + c, kw_lo + r, causal, window)))
+            p = 0.f;
+          x[j][e] = p;
+          gs[r * GP + c] = softcap > 0.f ? p * (1.f - th * th) : p;
         }
-        dss[row * LDS + tc + 16 * j] = ds;
       }
-    }
-    __syncwarp();  // a row's dS is read back by the lanes that wrote it
-
-#pragma unroll 4
-    for (int t = 0; t < kDqBK; ++t) {
-      float da[4];
+      named_arrive(1 + grp, 64);
+      // dV += P^T dO
+      Split<4> pa[NT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) da[i] = dss[(tr + 16 * i) * LDS + t];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float kb = ks[t * LD + tc + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dq_acc[i][c] = fmaf(da[i], kb, dq_acc[i][c]);
+      for (int j = 0; j < NT; ++j) {
+        uint32_t a[4];
+        c_to_a(a, x[j]);
+        pa[j] = split_tf32<4>(a);
       }
+#pragma unroll
+      for (int n = 0; n < OT; ++n)
+        mma3_tile_add<NT>(acc[n], pa, [&](int j, uint32_t* bb) {
+          ldb_kn_f32<P>(bb, dt, 8 * j, 8 * n, lane);
+        });
+    } else {
+      // dS^T = P^T (1 - t^2) (dP^T - delta)
+      const float* dl_c = dl_s + stage * QT;
+      named_sync(1 + grp, 64);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = lane / 4 + 8 * (e >> 1);
+          const int c = 8 * j + 2 * (lane & 3) + (e & 1);
+          x[j][e] = gs[r * GP + c] * (x[j][e] - dl_c[c]);
+        }
+      }
+      // dK += dS^T Q
+      Split<4> da[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t a[4];
+        c_to_a(a, x[j]);
+        da[j] = split_tf32<4>(a);
+      }
+#pragma unroll
+      for (int n = 0; n < OT; ++n)
+        mma3_tile_add<NT>(acc[n], da, [&](int j, uint32_t* bb) {
+          ldb_kn_f32<P>(bb, qt, 8 * j, 8 * n, lane);
+        });
     }
   }
 
+  const long long n_el = (long long)B * KV * S * dh;
+  const float mul = first ? 1.f : scale;
+  float* out = first ? dv : dk;
+  const Strides so = first ? sdv : sdk;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + tr + 16 * i;
-    if (qpos >= S) continue;
-    float* dqp = dq + b * sdq.b + h * sdq.h + qpos * sdq.s;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kpos = kw_lo + lane / 4 + 8 * hf;
+    if (kpos >= S) continue;
+    const long long row = ((long long)b * KV + kvh) * S + kpos;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      if (tc + 16 * c < dh) dqp[tc + 16 * c] = dq_acc[i][c] * scale;
+    for (int j = 0; j < OT; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      if (col >= dh) continue;
+      if (parts == 1) {
+        *reinterpret_cast<float2*>(out + b * so.b + kvh * so.h + kpos * so.s + col) =
+            make_float2(acc[j][2 * hf] * mul, acc[j][2 * hf + 1] * mul);
+      } else {
+        *reinterpret_cast<float2*>(partial + ((first ? max_parts : 0) + part) * n_el +
+                                   row * dh + col) =
+            make_float2(acc[j][2 * hf], acc[j][2 * hf + 1]);
+      }
+    }
   }
+}
+
+// dQ as flash_bwd_dq_f32_kernel computes it, with each 16-row group's work
+// split between two warps of a block of 8: warp g (g < 4) forms S = Q K^T
+// and P (times 1 - t^2 under a softcap), warp 4 + g forms dP = dO V^T; they
+// trade P and dP through shared memory behind a named barrier of the pair,
+// both form dS = P (dP - delta), and each adds dS K into half of dQ's
+// columns.  Each warp holds half an accumulator (the single-warp kernel
+// holds dQ, S and dP whole: 255 registers at D = 256).
+template <int D>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_bwd_dq_f32_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 float* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+                                 Strides sdo, Strides sdq, int H, int KV, int S, int dh,
+                                 int causal, int window, float scale, float softcap) {
+  using T = F32Tiles<D>;
+  constexpr int THREADS = 2 * kThreads;
+  constexpr int BK = T::DQ_BK;
+  constexpr int XP = BK + 8;    // the exchange's row pitch (floats)
+  constexpr int BQ = kF32Rows;
+  constexpr int P = T::P;
+  constexpr int ST = T::STAGES;
+  constexpr int NT = BK / 8;
+  constexpr int HT = D / 16;    // n tiles of this warp's half of dQ
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int grp = warp % kWarps;        // rows [16 grp, 16 grp + 16) of the block
+  const bool first = warp < kWarps;     // S and P (else dP)
+  const int wr = grp * 16;
+  const int c0 = first ? 0 : D / 2;     // this warp's dQ columns [c0, c0 + D / 2)
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);   // (BQ, P)
+  float* dos = qs + BQ * P;                         // (BQ, P)
+  float* ks = dos + BQ * P;                         // ST x (BK, P)
+  float* vs = ks + ST * BK * P;                     // ST x (BK, P)
+  float* xs = vs + ST * BK * P + grp * 2 * 16 * XP; // this pair's P (16, XP), then dP
+  float* mine = xs + (first ? 0 : 16 * XP);
+  const float* theirs = xs + (first ? 16 * XP : 0);
+
+  const float* kg = k + b * sk.b + kvh * sk.h;
+  const float* vg = v + b * sv.b + kvh * sv.h;
+  int k_lo, k_hi;
+  key_range(q0, BQ, S, causal, window, BK, &k_lo, &k_hi);
+  const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
+
+  load_tile_f32_async<BQ, D, THREADS>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S, dh);
+  load_tile_f32_async<BQ, D, THREADS>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, dh);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_tiles) {
+      load_tile_f32_async<BK, D, THREADS>(ks + i * BK * P, kg, sk.s, k_lo + i * BK, S, dh);
+      load_tile_f32_async<BK, D, THREADS>(vs + i * BK * P, vg, sv.s, k_lo + i * BK, S, dh);
+    }
+    cp_async_commit();
+  }
+
+  const float* lse_h = lse + ((long long)b * H + h) * S;
+  const float* delta_h = delta + ((long long)b * H + h) * S;
+  const int r0 = q0 + wr + lane / 4;
+  const float lse0 = r0 < S ? lse_h[r0] : 0.f, lse1 = r0 + 8 < S ? lse_h[r0 + 8] : 0.f;
+  const float dl0 = r0 < S ? delta_h[r0] : 0.f, dl1 = r0 + 8 < S ? delta_h[r0 + 8] : 0.f;
+
+  float acc[HT][4];
+#pragma unroll
+  for (int j = 0; j < HT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int r_lo = q0 + wr, r_hi = r_lo + 15;
+  const float* a_tile = first ? qs : dos;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    if (t + ST - 1 < n_tiles) {
+      const int nxt = (t + ST - 1) % ST;
+      const int kn = k_lo + (t + ST - 1) * BK;
+      load_tile_f32_async<BK, D, THREADS>(ks + nxt * BK * P, kg, sk.s, kn, S, dh);
+      load_tile_f32_async<BK, D, THREADS>(vs + nxt * BK * P, vg, sv.s, kn, S, dh);
+    }
+    cp_async_commit();
+    const int k0 = k_lo + t * BK;
+    const float* kt = ks + (t % ST) * BK * P;
+    const float* b_tile = first ? kt : vs + (t % ST) * BK * P;
+    if ((causal && k0 > r_hi) || (window > 0 && r_lo - (k0 + BK - 1) >= window)) continue;
+
+    // S = Q K^T (first) or dP = dO V^T over the whole head_dim
+    float x[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t a[4];
+      lda_f32<P>(a, a_tile, wr, 8 * kk, lane);
+      const Split<4> sa = split_tf32<4>(a);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t bb[4];
+        ldb_f32<P>(bb, b_tile, 16 * j, 8 * kk, lane);
+        mma3(x[2 * j], sa, split_tf32<2>(bb));
+        mma3(x[2 * j + 1], sa, split_tf32<2>(bb + 2));
+      }
+    }
+    const bool need_mask = (causal && k0 + BK - 1 > r_lo) ||
+                           (window > 0 && r_hi - k0 >= window) || k0 + BK > S ||
+                           q0 + BQ > S;
+    if (first) {
+      // P (1 - t^2 under a softcap), 0 where masked
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = lane / 4 + 8 * (e >> 1);
+          const int c = 8 * j + 2 * (lane & 3) + (e & 1);
+          float xv = x[j][e] * scale;
+          float th = 0.f;
+          if (softcap > 0.f) {
+            th = tanhf(xv / softcap);
+            xv = softcap * th;
+          }
+          float p = exp2f((xv - ((e >> 1) ? lse1 : lse0)) * kLog2e);
+          if (need_mask && (r_lo + r >= S || k0 + c >= S ||
+                            !visible(r_lo + r, k0 + c, causal, window)))
+            p = 0.f;
+          if (softcap > 0.f) p *= 1.f - th * th;
+          x[j][e] = p;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mine[(lane / 4 + 8 * (e >> 1)) * XP + 8 * j + 2 * (lane & 3) + (e & 1)] = x[j][e];
+    }
+    named_sync(1 + grp, 64);
+    // dS = P (dP - delta)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float other =
+            theirs[(lane / 4 + 8 * (e >> 1)) * XP + 8 * j + 2 * (lane & 3) + (e & 1)];
+        const float p = first ? x[j][e] : other;
+        const float dp = first ? other : x[j][e];
+        x[j][e] = p * (dp - ((e >> 1) ? dl1 : dl0));
+      }
+    }
+    // dQ[:, c0 .. c0 + D / 2) += dS K
+    Split<4> da[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t a[4];
+      c_to_a(a, x[j]);
+      da[j] = split_tf32<4>(a);
+    }
+#pragma unroll
+    for (int n = 0; n < HT; ++n)
+      mma3_tile_add<NT>(acc[n], da, [&](int j, uint32_t* bb) {
+        ldb_kn_f32<P>(bb, kt, 8 * j, c0 + 8 * n, lane);
+      });
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = r0 + 8 * hf;
+    if (row >= S) continue;
+    float* p = dq + b * sdq.b + h * sdq.h + row * sdq.s;
+#pragma unroll
+    for (int j = 0; j < HT; ++j) {
+      const int col = c0 + 8 * j + 2 * (lane & 3);
+      if (col < dh)
+        *reinterpret_cast<float2*>(p + col) =
+            make_float2(acc[j][2 * hf] * scale, acc[j][2 * hf + 1] * scale);
+    }
+  }
+}
+
+// dK = scale x the sum of the dK partials, dV the sum of the dV partials,
+// parts in order (the same bits every run), for the keys of tiles cut into
+// more than one part (the others were written whole); two columns a
+// thread.
+__global__ void flash_bwd_dkv_sum_f32_kernel(const float* __restrict__ partial,
+                                             float* __restrict__ dk, float* __restrict__ dv,
+                                             Strides sdk, Strides sdv, int chunk, int max_parts,
+                                             int B, int H, int KV, int S, int dh, int QT,
+                                             int causal, int window, float scale) {
+  const long long n = (long long)B * KV * S * dh;
+  const long long e = 2 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= n) return;
+  const int col = (int)(e % dh);
+  const long long row = e / dh;
+  const int s = (int)(row % S);
+  int q_lo;
+  const int parts = f32_kv_parts(f32_kv_steps(s / kF32Rows, S, H / KV, QT, causal, window,
+                                              &q_lo),
+                                 chunk);
+  if (parts == 1) return;
+  float2 sk = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
+  for (int p = 0; p < parts; ++p) {
+    const float2 x = *reinterpret_cast<const float2*>(partial + p * n + e);
+    const float2 y = *reinterpret_cast<const float2*>(partial + (max_parts + p) * n + e);
+    sk.x += x.x;
+    sk.y += x.y;
+    sv.x += y.x;
+    sv.y += y.y;
+  }
+  const int kvh = (int)((row / S) % KV);
+  const int b = (int)(row / ((long long)S * KV));
+  *reinterpret_cast<float2*>(dk + b * sdk.b + kvh * sdk.h + s * sdk.s + col) =
+      make_float2(sk.x * scale, sk.y * scale);
+  *reinterpret_cast<float2*>(dv + b * sdv.b + kvh * sdv.h + s * sdv.s + col) = sv;
 }
 
 // ---------------------------------------------------------------------------
@@ -1423,49 +2087,136 @@ int launch_bwd_wgmma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// How the fp32 dK/dV kernel cuts its work: `chunk`, the most steps a block
+// takes (an even share of all steps over two blocks an SM, or a whole key
+// tile's where that is more); `blocks` along x, the key tiles' parts
+// together; `max_parts`, the most parts of one tile (1: no partials).
+struct F32KvPlan {
+  int chunk, blocks, max_parts;
+};
+
+template <int D>
+F32KvPlan f32_kv_plan(int B, int H, int KV, int S, int causal, int window) {
+  constexpr int QT = F32Tiles<D>::KV_QT;
+  const int G = H / KV, tiles = cdiv(S, kF32Rows);
+  long long total = 0;
+  int most = 1, q_lo;
+  for (int t = 0; t < tiles; ++t) {
+    const int steps = f32_kv_steps(t, S, G, QT, causal, window, &q_lo);
+    total += steps;
+    most = steps > most ? steps : most;
+  }
+  const long long others = (long long)KV * B;   // grid y and z
+  const long long want = 2LL * sm90::sm_count();
+  long long chunk = (total * others + want - 1) / want;
+  chunk = chunk < 1 ? 1 : (chunk > most ? most : chunk);
+  F32KvPlan plan{(int)chunk, 0, f32_kv_parts(most, (int)chunk)};
+  for (int t = 0; t < tiles; ++t)
+    plan.blocks += f32_kv_parts(f32_kv_steps(t, S, G, QT, causal, window, &q_lo), plan.chunk);
+  return plan;
+}
+
+// floats of the fp32 backward's delta, (B, H, S), rounded up to 16 bytes
+// so that the dK/dV partials after it are aligned
+inline long long f32_delta_floats(int B, int H, int S) {
+  return ((long long)B * H * S + 3) / 4 * 4;
+}
+
+inline long long f32_workspace_floats(int B, int H, int KV, int S, int dh, int causal,
+                                      int window) {
+  const int parts = (dh <= 64    ? f32_kv_plan<64>(B, H, KV, S, causal, window)
+                     : dh <= 128 ? f32_kv_plan<128>(B, H, KV, S, causal, window)
+                                 : f32_kv_plan<256>(B, H, KV, S, causal, window))
+                        .max_parts;
+  return f32_delta_floats(B, H, S) + (parts > 1 ? 2LL * parts * B * KV * S * dh : 0);
+}
+
 template <int D>
 int launch_fwd_f32(const Args& a) {
-  const int G = a.H / a.KV;
-  if (G * D > 512) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)G * kF32BQ * (D + 1) + 2 * kF32BK * (D + 1) +
-                                       (size_t)G * kF32BQ * (kF32BK + 1));
+  using T = F32Tiles<D>;
+  const size_t smem = sizeof(float) * (size_t)(kF32Rows + 2 * T::STAGES * T::FWD_BK) * T::P;
   auto kernel = flash_fwd_f32_kernel<D>;
   int err = set_smem(kernel, smem);
   if (err) return err;
-  kernel<<<dim3(cdiv(a.S, kF32BQ), a.KV, a.B), G * kHeadThreads, smem, a.stream>>>(
+  kernel<<<dim3(cdiv(a.S, kF32Rows), a.H, a.B), kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out), static_cast<float*>(a.lse),
       a.sq, a.sk, a.sv, a.so, a.H, a.KV, a.S, a.dh, a.causal, a.window, a.scale, a.softcap);
   return (int)cudaGetLastError();
 }
 
+// delta, dK/dV (+ the sum of its partials when it splits the heads), dQ.
+// a.delta is the workspace (f32_workspace_floats).
 template <int D>
 int launch_bwd_f32(const Args& a) {
+  using T = F32Tiles<D>;
   int err = launch_delta<float>(a);
   if (err) return err;
 
-  const size_t smem_kv = sizeof(float) * (2 * kKvBK * (D + 1) + 2 * kKvBQ * (D + 1) +
-                                          2 * kKvBK * (kKvBQ + 1) + 2 * kKvBQ);
-  auto kv_kernel = flash_bwd_dkv_f32_kernel<D>;
-  if ((err = set_smem(kv_kernel, smem_kv))) return err;
-  kv_kernel<<<dim3(cdiv(a.S, kKvBK), a.KV, a.B), kBwdThreads, smem_kv, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk,
-      a.sdv, a.H, a.KV, a.S, a.dh, a.causal, a.window, a.scale, a.softcap);
+  const F32KvPlan plan = f32_kv_plan<D>(a.B, a.H, a.KV, a.S, a.causal, a.window);
+  float* partial = static_cast<float*>(a.delta) + f32_delta_floats(a.B, a.H, a.S);
+  const dim3 kv_grid(plan.blocks, a.KV, a.B);
+  if constexpr (T::PAIRS) {
+    constexpr int QT = T::KV_QT;
+    const size_t smem = sizeof(float) * ((size_t)(2 * kF32Rows + 2 * T::STAGES * QT) * T::P +
+                                         2 * T::STAGES * QT + kWarps * 16 * (QT + 8));
+    auto kernel = flash_bwd_dkv_f32_pair_kernel<D>;
+    if ((err = set_smem(kernel, smem))) return err;
+    kernel<<<kv_grid, 2 * kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk,
+        a.sdv, partial, plan.chunk, plan.max_parts, a.B, a.H, a.KV, a.S, a.dh, a.causal,
+        a.window, a.scale, a.softcap);
+  } else {
+    const size_t smem = sizeof(float) * ((size_t)(2 * kF32Rows + 2 * T::STAGES * T::KV_QT) *
+                                             T::P +
+                                         2 * T::STAGES * T::KV_QT);
+    auto kernel = flash_bwd_dkv_f32_kernel<D>;
+    if ((err = set_smem(kernel, smem))) return err;
+    kernel<<<kv_grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk,
+        a.sdv, partial, plan.chunk, plan.max_parts, a.B, a.H, a.KV, a.S, a.dh, a.causal,
+        a.window, a.scale, a.softcap);
+  }
   if ((err = (int)cudaGetLastError())) return err;
+  if (plan.max_parts > 1) {
+    const long long pairs = (long long)a.B * a.KV * a.S * a.dh / 2;
+    flash_bwd_dkv_sum_f32_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, a.stream>>>(
+        partial, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sdk, a.sdv, plan.chunk,
+        plan.max_parts, a.B, a.H, a.KV, a.S, a.dh, T::KV_QT, a.causal, a.window, a.scale);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
 
-  const size_t smem_q = sizeof(float) * (2 * kDqBQ * (D + 1) + 2 * kDqBK * (D + 1) +
-                                         kDqBQ * (kDqBK + 1) + 2 * kDqBQ);
-  auto q_kernel = flash_bwd_dq_f32_kernel<D>;
-  if ((err = set_smem(q_kernel, smem_q))) return err;
-  q_kernel<<<dim3(cdiv(a.S, kDqBQ), a.H, a.B), kBwdThreads, smem_q, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.H, a.KV, a.S, a.dh,
-      a.causal, a.window, a.scale, a.softcap);
+  const dim3 q_grid(cdiv(a.S, kF32Rows), a.H, a.B);
+  if constexpr (T::PAIRS) {
+    constexpr int BK = T::DQ_BK;
+    const size_t smem = sizeof(float) * ((size_t)(2 * kF32Rows + 2 * T::STAGES * BK) * T::P +
+                                         kWarps * 2 * 16 * (BK + 8));
+    auto kernel = flash_bwd_dq_f32_pair_kernel<D>;
+    if ((err = set_smem(kernel, smem))) return err;
+    kernel<<<q_grid, 2 * kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.H, a.KV, a.S, a.dh,
+        a.causal, a.window, a.scale, a.softcap);
+  } else {
+    const size_t smem =
+        sizeof(float) * (size_t)(2 * kF32Rows + 2 * T::STAGES * T::DQ_BK) * T::P;
+    auto kernel = flash_bwd_dq_f32_kernel<D>;
+    if ((err = set_smem(kernel, smem))) return err;
+    kernel<<<q_grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.H, a.KV, a.S, a.dh,
+        a.causal, a.window, a.scale, a.softcap);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1484,7 +2235,7 @@ int dispatch_head_dim(const Args& a) {
 }
 
 // The route the wrapper chose (kernels/flash_attention.py: `route`):
-// 0 fp32 (CUDA cores), 1 bf16 mma.sync (causal, or head_dim past 128),
+// 0 fp32 (3xTF32 on mma.sync), 1 bf16 mma.sync (causal, or head_dim past 128),
 // 2 bf16 wgmma (non-causal, head_dim up to 128).  A route given inputs
 // that are not its own is refused.
 template <bool BWD>
@@ -1506,7 +2257,7 @@ Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i
 
 }  // namespace
 
-// route: 0 = float32 (CUDA cores), 1 = bfloat16 on mma.sync, 2 = bfloat16 on
+// route: 0 = float32 (3xTF32 on mma.sync), 1 = bfloat16 on mma.sync, 2 = bfloat16 on
 // wgmma (see `dispatch`); every tensor but lse/delta has the route's dtype.
 // head_dim: a multiple of 8 up to 256 (128 on route 2).  strides:
 // (batch, head, sequence) element strides, three per tensor, in the order
@@ -1540,17 +2291,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // The floats of the backward's fp32 workspace (`delta` below) for these
-// shapes: (B, H, S) on routes 0 and 1; on route 2 lse2 and delta padded,
-// and the dK/dV partials when its blocks split the heads.
+// shapes: delta (B, H, S) on route 1; on route 0 delta, padded to 16
+// bytes, on route 2 lse2 and delta padded; on routes 0 and 2 then the dK/dV
+// partials when their blocks split the heads.
 extern "C" long long flash_attention_bwd_workspace(int route, int B, int H, int KV, int S,
-                                                   int head_dim) {
+                                                   int head_dim, int causal, int window) {
   if (route == 2) return sm90::workspace_floats(B, H, KV, S, head_dim);
+  if (route == 0) return f32_workspace_floats(B, H, KV, S, head_dim, causal, window);
   return (long long)B * H * S;
 }
 
-// Three launches (routes 0, 1: delta, dK/dV, dQ) or three to four (route
-// 2: prep, dK/dV, the partials' sum, dQ).  strides: three per tensor in the
-// order q, k, v, o, do, dq, dk, dv.  delta: the fp32 workspace
+// Three launches (route 1: delta, dK/dV, dQ) or three to four (route 0:
+// delta, dK/dV, the partials' sum, dQ; route 2: prep, dK/dV, the sum, dQ).
+// strides: three per tensor in the order q, k, v, o, do, dq, dk, dv.  delta: the fp32 workspace
 // (flash_attention_bwd_workspace floats).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* lse, const void* dout, void* dq, void* dk,

@@ -34,9 +34,17 @@ alone (no route falls back to another; a failed build or launch raises):
   bound by bytes, where mma.sync's rate already puts the operations under
   that bound.  A block holds one query head, so any group size G is taken
   (DBRX's 6 x 128, Qwen3-MoE's 16 x 128, PaliGemma's 8 x 256).
-* ``"fp32"``: the first version's fp32 FMAs on the CUDA cores, exact to
-  the fp32 gates (2e-5).  A block holds a whole KV group, so G x D <= 512
-  with D the kernel's instance (64, 128 or 256).
+* ``"fp32"``: error-compensated TF32 on the tensor cores (``mma.sync``
+  m16n8k8): each fp32 operand split into two TF32 parts, hi and lo, each
+  product three MMAs (lo hi + hi lo + hi hi, fp32 accumulate), which leaves
+  ~2^-21 of a product, inside the fp32 gates (2e-5).  What bounds it: the
+  fp32 CUDA cores peak at 67 TFLOP/s and the TF32 tensor cores at 495, so
+  fp32-exact products on them are bound at 495 / 3 = 165, which Seamless'
+  encoder shape meets in the operations.  Blocks as on ``"mma_sync"``: one
+  query head per block (any group size), K/V tiles through a ``cp.async``
+  ring; dK/dV cuts each key tile's (query head, query tile) steps into
+  even parts over the grid, and a last kernel sums their fp32 partials in
+  a fixed order; from head_dim 128 the backward runs warp pairs.
 
 Both bfloat16 routes round P (and dS in the backward) to bf16 in registers
 as the next product's operand, as the TPU kernel casts P to ``v.dtype``.
@@ -75,10 +83,6 @@ _ROUTES = {"fp32": 0, "mma_sync": 1, "wgmma": 2}
 _HEAD_DIM_INSTANCES = (64, 128, 256)
 # the instances the wgmma route is built for
 _WGMMA_INSTANCES = (64, 128)
-# float32 only: G x D (D the instance), 128 threads per query head of the
-# group in one block (at most 1024), D/2 fp32 accumulators each; the
-# forward's tiles then fit in shared memory.  bfloat16 has no such limit.
-_F32_MAX_GROUP_DIM = 512
 
 
 def instance(head_dim: int) -> int:
@@ -108,7 +112,7 @@ def _bind(lib: ctypes.CDLL):
         bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, ll_p,
                         i, i, f, f, p]
         bwd.restype = ctypes.c_int
-        ws.argtypes = [i, i, i, i, i, i]
+        ws.argtypes = [i, i, i, i, i, i, i, i]
         ws.restype = ctypes.c_longlong
     return fwd, bwd, ws
 
@@ -127,11 +131,6 @@ def _check(q, k, v, causal, window, softcap):
     if d % 8 or not 8 <= d <= 256:
         raise ValueError(f"flash_attention: head_dim {d} not supported (a "
                          "multiple of 8 up to 256)")
-    if q.dtype == torch.float32 and (h // kv) * instance(d) > _F32_MAX_GROUP_DIM:
-        raise ValueError(f"flash_attention: float32 with group {h // kv} x head_dim "
-                         f"{d} (instance {instance(d)}) not supported: the float32 "
-                         f"route takes group * head_dim <= {_F32_MAX_GROUP_DIM} "
-                         "(bfloat16 takes any group)")
     if b * h * s >= 2 ** 31:
         raise ValueError(f"flash_attention: B * H * S = {b * h * s} rows (the kernels "
                          "index rows in 32 bits)")
@@ -220,8 +219,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     strides = _strides(q, k, v, o, do, dq, dk, dv)
     code = _ROUTES[route(q.dtype, causal, d)]
     with torch.cuda.device(q.device):
-        # delta (and, on the wgmma route, lse padded and the dK/dV partials)
-        workspace = torch.empty(workspace_floats(code, b, h, kv, s, d),
+        # delta (and lse padded on the wgmma route), and the dK/dV partials
+        # where the fp32 or wgmma dK/dV blocks split their work
+        workspace = torch.empty(workspace_floats(code, b, h, kv, s, d, c, w),
                                 dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -261,8 +261,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
 
 
 # kernel launches: forwards, and backwards (one per backward call, which
-# runs the delta, dK/dV and dQ kernels, and on the wgmma route the sum of
-# the dK/dV partials where its blocks split the heads)
+# runs the delta, dK/dV and dQ kernels, and on the fp32 and wgmma routes the
+# sum of the dK/dV partials where their blocks split the heads)
 flash_attention.launches_fwd = 0
 flash_attention.launches_bwd = 0
 

@@ -29,9 +29,9 @@ Entry points:
 "dense").
 
 ``attn_impl`` ("kernel" | "ref") picks the dense and MoE families' attention
-kernels, the RWKV-6 family's WKV scan kernel, and the hybrid's RG-LRU scan
-and decode-attention kernels against their plain versions (``lm_apply``
-takes the scans' choice apart, as ``scan_impl``).  Quantized
+kernels, the RWKV-6 family's WKV scan kernel, and the hybrid's RG-LRU scan,
+flash and decode-attention kernels against their plain versions
+(``lm_apply`` takes the scans' choice apart, as ``scan_impl``).  Quantized
 trees (``quant.quantize_params``, with ``block_groups(cfg)``) are
 dequantized one layer at a time inside the layer loops.
 """
@@ -309,19 +309,18 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
     """Full-sequence causal forward.  Returns (logits fp32, aux dict) — or,
     with ``return_features``, the final-norm hidden states (B, S, D); a
     VLM's S counts its ``prefix_embeds`` (P) first.
-    Dense, MoE and VLM: differentiable with respect to the param tensors;
-    ``attn_impl`` ``"kernel"`` (flash attention; masks by index, so
-    ``positions`` must be left to the default 0..S-1; its fp32 route takes
-    a group x head_dim of at most 512, so an fp32 MoE or VLM config at full
-    heads passes ``"ref"``) or ``"ref"`` (plain ``attend``).  MoE: the router's
+    Dense, MoE, VLM and the hybrid's attention layers: differentiable with
+    respect to the param tensors; ``attn_impl`` ``"kernel"`` (flash
+    attention, any group size in either dtype; masks by index, so
+    ``positions`` must be left to the default 0..S-1) or ``"ref"`` (plain
+    ``attend``).  MoE: the router's
     load-balance and z losses averaged over the layers, through
     ``moe_mode``'s path (dense families: zeros).  RWKV-6:
     every block from a zero state, the WKV scan kernel or its plain version
     (``scan_impl``); ``positions`` are unused.  Hybrid: the RG-LRU layers
     from a zero state through the scan kernel or the reference's doubling
-    scan (``scan_impl``); the attention layers run plain ``attend`` (the
-    reference's forward; the flash kernel's fp32 route takes a group x
-    head_dim of at most 512, RecurrentGemma's is 4096).  ``scan_impl``
+    scan (``scan_impl``); the attention layers as the dense family's, by
+    ``attn_impl`` (windowed flash attention or plain ``attend``).  ``scan_impl``
     defaults to ``attn_impl``; the scan kernels have no backward, so a
     forward that is differentiated passes ``"ref"``.  ``remat`` runs every
     block under ``remat_block`` (the train step's memory for compute
@@ -330,8 +329,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
     _check_family(cfg)
     _check_impl(attn_impl)
     _check_impl(scan_impl)
-    if (positions is not None and attn_impl == "kernel"
-            and cfg.family in ATTENTION_FAMILIES):
+    if positions is not None and attn_impl == "kernel" and cfg.family != "ssm":
         raise ValueError("lm_apply: explicit positions need attn_impl='ref' "
                          "(the flash kernel masks by sequence index)")
     x = _embed(params, cfg, tokens, prefix_embeds)
@@ -357,7 +355,7 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
         rglru_block = remat_block(_rglru_block_apply, remat)
         for lp, (kind, _) in zip(params["blocks"], layer_kinds(cfg)):
             if kind == "attn":
-                x, _ = attn_block(lp, cfg, x, positions, "ref")
+                x, _ = attn_block(lp, cfg, x, positions, attn_impl)
             else:
                 x, _ = rglru_block(lp, cfg, x, state0, decode=False,
                                    attn_impl=scan_impl)

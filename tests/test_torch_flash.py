@@ -40,12 +40,14 @@ def _qkv(seed, b, h, kv, s, d):
 
 
 # (h, kv, head_dim): G = 1, 2, 4 at head_dim 64 (ids: h-kv), a group of 16
-# and H2O-Danube-3's head_dim 120
+# and H2O-Danube-3's head_dim 120; G x D past 512 (the fp32 kernel's old
+# limit): 16 x 64 and 8 x 128
 @pytest.mark.parametrize("h,kv,d", [pytest.param(4, 4, 64, id="4-4"),
                                     pytest.param(4, 2, 64, id="4-2"),
                                     pytest.param(8, 2, 64, id="8-2"),
                                     pytest.param(16, 1, 64, id="16-1"),
-                                    pytest.param(8, 2, 120, id="8-2-d120")])
+                                    pytest.param(8, 2, 120, id="8-2-d120"),
+                                    pytest.param(8, 1, 128, id="8-1-d128")])
 @pytest.mark.parametrize("window,softcap", [(None, None), (48, None),
                                             (None, 5.0), (40, 5.0)])
 def test_flash_ref_matches_pallas_interpret(h, kv, d, window, softcap):
@@ -74,12 +76,15 @@ def test_flash_ref_matches_jax_oracle_at_ragged_lengths(s, causal, window, softc
     assert lse.shape == (2, 8, s) and lse.dtype == torch.float32
 
 
-# (h, kv, head_dim): head_dim 16 (ids: h-kv), a group of 16 and head_dim 120
+# (h, kv, head_dim): head_dim 16 (ids: h-kv), a group of 16 and head_dim
+# 120; G x D past 512: 8 x 128 and 16 x 64 (the window and softcap cases)
 @pytest.mark.parametrize("h,kv,d", [pytest.param(4, 4, 16, id="4-4"),
                                     pytest.param(4, 2, 16, id="4-2"),
                                     pytest.param(8, 2, 16, id="8-2"),
                                     pytest.param(16, 1, 16, id="16-1"),
-                                    pytest.param(4, 2, 120, id="4-2-d120")])
+                                    pytest.param(4, 2, 120, id="4-2-d120"),
+                                    pytest.param(8, 1, 128, id="8-1-d128"),
+                                    pytest.param(16, 1, 64, id="16-1-d64")])
 @pytest.mark.parametrize("s,window,softcap", [(24, None, None), (37, 10, None),
                                               (33, None, 4.0), (19, 7, 4.0)])
 def test_flash_backward_matches_jax_vjp(h, kv, d, s, window, softcap):
@@ -110,9 +115,11 @@ def test_flash_backward_matches_jax_vjp(h, kv, d, s, window, softcap):
 # causal=False (the Seamless encoder's attention; the card's wgmma route)
 # ---------------------------------------------------------------------------
 
-# (h, kv, head_dim): G = 1 and 4 at head_dim 64 and 120
+# (h, kv, head_dim): G = 1 and 4 at head_dim 64 and 120; G x D past 512:
+# 8 x 128 and 16 x 64
 _NONCAUSAL_HEADS = [pytest.param(4, 4, 64, id="g1-d64"), pytest.param(8, 2, 64, id="g4-d64"),
-                    pytest.param(4, 4, 120, id="g1-d120"), pytest.param(4, 1, 120, id="g4-d120")]
+                    pytest.param(4, 4, 120, id="g1-d120"), pytest.param(4, 1, 120, id="g4-d120"),
+                    pytest.param(8, 1, 128, id="g8-d128"), pytest.param(16, 1, 64, id="g16-d64")]
 
 
 @pytest.mark.parametrize("h,kv,d", _NONCAUSAL_HEADS)
@@ -129,10 +136,13 @@ def test_noncausal_flash_matches_pallas_interpret(h, kv, d, s, block, window, so
     assert lse.shape == (1, h, s) and bool(torch.isfinite(lse).all())
 
 
-# (h, kv, head_dim): G = 1 and 4 at head_dim 16 and 120
+# (h, kv, head_dim): G = 1 and 4 at head_dim 16 and 120; G x D past 512:
+# 8 x 128 and 16 x 64
 @pytest.mark.parametrize("h,kv,d", [pytest.param(4, 4, 16, id="g1-d16"),
                                     pytest.param(8, 2, 16, id="g4-d16"),
-                                    pytest.param(4, 1, 120, id="g4-d120")])
+                                    pytest.param(4, 1, 120, id="g4-d120"),
+                                    pytest.param(8, 1, 128, id="g8-d128"),
+                                    pytest.param(16, 1, 64, id="g16-d64")])
 @pytest.mark.parametrize("s,window,softcap", [(24, None, None), (37, 10, None),
                                               (33, None, 4.0), (19, 7, 4.0)])
 def test_noncausal_flash_backward_matches_jax_vjp(h, kv, d, s, window, softcap):
@@ -189,12 +199,10 @@ def test_route_ignores_everything_but_dtype_causal_and_instance():
 @pytest.mark.parametrize("shape,dtype,kw,exc", [
     ((2, 4, 2, 8, 44), torch.float32, {}, ValueError),            # head_dim % 8
     ((2, 4, 2, 8, 64), torch.float16, {}, TypeError),             # dtype
-    ((2, 16, 2, 8, 128), torch.float32, {}, ValueError),          # fp32 group * D > 512
     ((2, 4, 3, 8, 64), torch.float32, {}, ValueError),            # H % KV
     ((2, 4, 2, 8, 64), torch.float32, {"window": 0}, ValueError),
     ((2, 4, 2, 8, 64), torch.float32, {"softcap": -1.0}, ValueError),
     ((2, 4, 2, 8, 264), torch.bfloat16, {}, ValueError),          # head_dim > 256
-    ((2, 8, 1, 8, 120), torch.float32, {}, ValueError),           # fp32: 8 x 128 (instance)
 ])
 def test_kernel_checks_refuse_what_the_kernel_does_not_take(shape, dtype, kw, exc):
     b, h, kv, s, d = shape
@@ -210,13 +218,19 @@ def test_kernel_checks_refuse_what_the_kernel_does_not_take(shape, dtype, kw, ex
     ((1, 8, 1, 8, 256), torch.bfloat16),     # PaliGemma's 8 x 256
     ((1, 48, 8, 8, 128), torch.bfloat16),    # DBRX's 6 x 128
     ((1, 32, 8, 8, 120), torch.bfloat16),    # H2O-Danube-3: head_dim 120
-    ((1, 32, 8, 8, 120), torch.float32),     # fp32: 4 x 128 (the instance) = 512
+    ((1, 32, 8, 8, 120), torch.float32),     # fp32: 4 x 128 (the instance)
     ((1, 4, 2, 8, 8), torch.float32),        # the smallest head_dim
+    ((2, 16, 2, 8, 128), torch.float32),     # fp32: 8 x 128
+    ((2, 8, 1, 8, 120), torch.float32),      # fp32: 8 x 128 (the instance)
+    ((1, 8, 1, 8, 256), torch.float32),      # PaliGemma-3B's 8 x 256
+    ((1, 16, 1, 8, 256), torch.float32),     # RecurrentGemma-9B's 16 x 256
+    ((1, 64, 4, 8, 128), torch.float32),     # Qwen3-MoE-235B-A22B's 16 x 128
+    ((1, 48, 8, 8, 128), torch.float32),     # DBRX-132B's 6 x 128
 ])
-def test_kernel_checks_take_any_bf16_group_and_head_dims_of_8s(shape, dtype):
-    """bf16 runs one query head per block: no group limit.  head_dim is any
-    multiple of 8 up to 256 (the kernel's instance is the next of 64, 128,
-    256)."""
+def test_kernel_checks_take_any_group_and_head_dims_of_8s(shape, dtype):
+    """Both dtypes run one query head per block: no group limit.  head_dim
+    is any multiple of 8 up to 256 (the kernel's instance is the next of
+    64, 128, 256)."""
     b, h, kv, s, d = shape
     q = torch.zeros(b, h, s, d, dtype=dtype)
     k = torch.zeros(b, kv, s, d, dtype=dtype)

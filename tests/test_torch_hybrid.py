@@ -334,6 +334,39 @@ def test_kernel_switch_reaches_both_wrappers(models, monkeypatch):
                                    cache, attn_impl="pallas")
 
 
+def test_lm_apply_attention_layers_run_flash_attention(models, monkeypatch):
+    """``lm_apply(attn_impl="kernel")`` sends each attention layer through
+    ``flash_attention`` (its plain version on the CPU), once per forward,
+    with the config's window, and its logits equal the JAX package's
+    ``lm_apply`` (fp32, 1e-5) over a sequence longer than the window."""
+    from repro.models import transformer as jtransformer
+
+    cfg, (_, jparams), (tapi, tparams) = models
+    calls = []
+
+    def counted(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw["window"]))
+        return flash(q, k, v, **kw)
+
+    flash = attention.flash_attention
+    monkeypatch.setattr(attention, "flash_attention", counted)
+    tokens = np.random.default_rng(6).integers(3, cfg.vocab_size, (2, 30)).astype(np.int32)
+    want, _ = jtransformer.lm_apply(jparams, cfg, jnp.asarray(tokens))
+    got, _ = transformer.lm_apply(tparams, tapi.cfg, torch.from_numpy(tokens),
+                                  attn_impl="kernel")
+    _close(want, got)
+    n_attn = sum(kind == "attn" for kind, _ in transformer.layer_kinds(tapi.cfg))
+    assert n_attn >= 1
+    d = cfg.resolved_head_dim
+    assert calls == [((2, cfg.num_heads, 30, d), (2, cfg.num_kv_heads, 30, d),
+                      cfg.sliding_window)] * n_attn
+    transformer.lm_apply(tparams, tapi.cfg, torch.from_numpy(tokens), attn_impl="ref")
+    assert len(calls) == n_attn
+    with pytest.raises(ValueError, match="positions"):
+        transformer.lm_apply(tparams, tapi.cfg, torch.from_numpy(tokens),
+                             positions=torch.arange(30)[None].expand(2, 30))
+
+
 def test_the_scan_kernel_refuses_a_gradient_and_the_plain_scan_takes_one(models):
     """The RG-LRU kernel has no backward: a differentiable forward on
     ``attn_impl="kernel"`` raises on every device; ``"ref"`` (the doubling

@@ -509,6 +509,60 @@ def test_cuda_bf16_flash_takes_groups_beyond_the_fp32_limit(cuda_device, b, h, k
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,window,softcap", [
+    (1, 8, 1, 300, 256, None, None),     # PaliGemma-3B's group, 8 x 256, ragged S
+    (1, 16, 1, 2100, 256, 2048, None),   # RecurrentGemma-9B's 16 x 256 and its window
+    (1, 64, 4, 200, 128, None, 30.0),    # Qwen3-MoE-235B-A22B's 16 x 128, a softcap
+    (1, 48, 8, 300, 128, None, None),    # DBRX-132B's 6 x 128
+    (2, 32, 2, 300, 120, 128, 30.0),     # a group of 16 at head_dim 120, window, softcap
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_fp32_flash_takes_every_group_and_repeats_bitwise(cuda_device, b, h, kv, s, d,
+                                                               window, softcap, causal):
+    """The fp32 route (3xTF32, one query head per block) at the groups the
+    old route refused, within 2e-5 of the plain versions; its backward,
+    free of atomics, gives the same bits when run again."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.route(torch.float32, causal, d) == "fp32"
+    q, k, v, o, lse, do, grads = _flash_against_plain(cuda_device, b, h, kv, s, d, window,
+                                                      softcap, "float32", causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                                   softcap=softcap)
+    torch.cuda.synchronize()
+    for x, y in zip(grads, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_flash_kernels_run_tf32_mmas(cuda_device):
+    """Every fp32 forward, dQ and dK/dV kernel instance computes its products
+    with TF32 tensor-core MMAs (HMMA ... TF32 in its SASS)."""
+    import re
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    build.library("flash_attention")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build._target(build.sources()["flash_attention"]))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    kernel = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_f32(_pair)?_kernel")
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if kernel.search(m.group(1)) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    assert len(counts) == 9, counts        # 3 kernels x 3 head_dim instances
+    assert all(counts.values()), counts
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kv,s,d,window", [
     (16, 32, 8, 1024, 128, None),   # the slot engine's serve shape (Qwen3-4B)
     (3, 8, 2, 300, 64, 128),        # odd: ragged S, G = 4, a window
