@@ -4984,6 +4984,9 @@ DRYRUN_TIMEOUT_S = 300
 # the in-process plan held against the card: Qwen3-4B's decode step at the
 # serve shape, on a 1x1 mesh
 DRYRUN_CARD = dict(arch=ARCH, batch=SERVE["num_slots"], seq_len=SERVE["max_total_len"])
+# the one (arch, shape) whose partitioned temp and peak bytes may be null:
+# RWKV-6's train step, whose plain WKV scan is not traced at full length
+DRYRUN_TEMP_EXCUSED = ("rwkv6-3b", "train_4k")
 # the caching allocator's blocks: a request is rounded up to 512 bytes, and
 # a block it splits from a cached segment keeps the segment's remainder when
 # that is too small to split off (< 512 bytes in the small-block pool, up to
@@ -5091,23 +5094,33 @@ def phase_dryrun(gpu: str) -> None:
         if mem["argument_bytes"] > cur["argument_bytes"]:
             cur.update(argument_bytes=mem["argument_bytes"],
                        argument_at=f"{rec['arch']} {rec['mesh']}")
-    # the partitioned runs (DTensors over the fake group): what each gave
-    partitioned = {}
-    refusals: dict = {}
+    # the partitioned runs (DTensors over the fake group): every record the
+    # reference fills is filled — temp, peak, collectives, bytes accessed —
+    # but RWKV-6's train temp (its null names what is missing)
+    partitioned, missing, null_reasons = {}, [], {}
     for rec in recs:
         if rec["status"] != "ok":
             continue
-        why = rec["nulls"].get("collectives")
-        if why is None:
-            partitioned[f"{rec['arch']} {rec['shape']} {rec['mesh']}"] = {
-                "peak_bytes": rec["memory"]["peak_bytes"], "collectives": rec["collectives"],
-                "seconds": rec["partitioned_s"]}
-        else:
-            refusals[why] = refusals.get(why, 0) + 1
+        for why in rec["nulls"].values():
+            null_reasons[why] = null_reasons.get(why, 0) + 1
+        excused = ({"temp_bytes", "peak_bytes"}
+                   if (rec["arch"], rec["shape"]) == DRYRUN_TEMP_EXCUSED else set())
+        values = {"temp_bytes": rec["memory"]["temp_bytes"],
+                  "peak_bytes": rec["memory"]["peak_bytes"],
+                  "collectives": rec["collectives"], "bytes_accessed": rec["bytes_accessed"]}
+        missing += [f"{rec['arch']} {rec['shape']} {rec['mesh']} {k}"
+                    for k, v in values.items() if v is None and k not in excused]
+        coll = rec["collectives"] or {}
+        partitioned[f"{rec['arch']} {rec['shape']} {rec['mesh']}"] = [
+            rec["memory"]["peak_bytes"], sum(coll.get(k, 0) for k in dryrun._COLLECTIVES),
+            coll.get("count"), rec["partitioned_s"]]
+    if missing:
+        raise AssertionError(f"dryrun: null where the reference has a number: {missing}")
     emit("dryrun", gpu=gpu, command="python -m repro_torch.launch.dryrun --all --mesh both",
-         seconds=seconds, summary=summary, **counts,
-         largest_per_device_by_shape=largest, partitioned_ran=partitioned,
-         partitioned_null_reasons=refusals)
+         seconds=seconds, summary=summary, **counts, torch=torch.__version__,
+         largest_per_device_by_shape=largest, nulls_by_reason=null_reasons,
+         partitioned_fields="[peak_bytes, collective bytes, collectives, seconds]",
+         partitioned=partitioned)
 
     with open(os.path.join(dryrun.OUT_DIR, "pools__qwen3-8b.json")) as f:
         pools = json.load(f)

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from repro_torch.algos.off_policy import (LossConfig, engine_mismatch_weight,
                                           kl_k3, policy_loss)
+from repro_torch.models import sharding as shd
 
 
 def token_logprobs(logits, tokens):
@@ -16,6 +17,8 @@ def token_logprobs(logits, tokens):
     logits: (B, S, V) fp32 *aligned with tokens* (logits[t] predicts tokens[t])
     tokens: (B, S) int
     """
+    if shd.ON_DTENSORS:
+        return shd.vocab_logprobs(logits, tokens)
     mx = logits.max(-1, keepdim=True).values
     logz = (logits - mx).exp().sum(-1).log()
     picked = logits.gather(-1, tokens[..., None].long())[..., 0]

@@ -18,8 +18,11 @@ counts each kernel's products by its ``register_abstract`` formula,
 ``MemTracker`` its outputs.  The dry-run (``launch/dryrun.py``) plans
 steps this way.  Outside the context a meta tensor is refused, as before.
 Every kernel is parallel over its batch (each input's dim 0, but
-RWKV-6's ``u``): on DTensors the op runs on each device's batch rows,
-every other dim gathered first.
+RWKV-6's ``u``) and registers the other dims it runs independently over
+(heads, channels) and any it reduces over (the decode kernel's cache
+sequence): on DTensors the op runs on each device's batch rows, those
+dims kept split where every operand splits them, every other dim
+gathered first (``abstract_call``).
 """
 from __future__ import annotations
 
@@ -125,8 +128,10 @@ def library(name: str) -> ctypes.CDLL:
 # abstract evaluation (shapes only) for tracers
 # ---------------------------------------------------------------------------
 
-# name -> (outputs: inputs -> [(shape, dtype)], flops: input shapes -> int)
-_ABSTRACT: Dict[str, Tuple[Callable, Callable]] = {}
+# name -> (outputs: inputs -> [(shape, dtype)], flops: input shapes -> int,
+#          {input index: a dim the kernel reduces over},
+#          ({input index: a dim it is parallel over}, [that dim of each output]))
+_ABSTRACT: Dict[str, Tuple[Callable, Callable, Dict[int, int], tuple]] = {}
 _abstract_state = threading.local()
 _abstract_op = []
 
@@ -151,12 +156,18 @@ def is_abstract(t: torch.Tensor) -> bool:
     return t.device.type == "meta" and getattr(_abstract_state, "on", False)
 
 
-def register_abstract(name: str, outputs: Callable, flops: Callable) -> None:
+def register_abstract(name: str, outputs: Callable, flops: Callable,
+                      reduced: Dict[int, int] | None = None,
+                      parallel: tuple = ({}, [])) -> None:
     """``outputs(inputs)`` -> the kernel's outputs as [(shape, dtype)];
     ``flops(input shapes)`` -> the products it computes, in
     ``FlopCounterMode``'s convention (2 per multiply-add of a matmul-class
-    product, elementwise work not counted)."""
-    _ABSTRACT[name] = (outputs, flops)
+    product, elementwise work not counted).  ``reduced``: {input index:
+    dim} of inputs whose dim the kernel reduces over (a decode kernel's
+    cache sequence); ``parallel``: ({input index: dim}, [dim of each
+    output]), the dims besides the batch that it runs independently over
+    (heads, channels).  Either can stay split over devices (below)."""
+    _ABSTRACT[name] = (outputs, flops, reduced or {}, parallel)
 
 
 def _op():
@@ -188,20 +199,50 @@ def abstract_call(name: str, *inputs: torch.Tensor) -> List[torch.Tensor]:
     the first input's batch sharding (``Shard(0)`` on the mesh dims that
     shard its dim 0, replicated on the others; an input of another leading
     size replicated), the op run on the local tensors, and the outputs, all
-    batch-first, sharded as the first input."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    batch-first, sharded as the first input.  On a mesh dim the batch is
+    not split over: where every input the kernel reduces over
+    (``register_abstract``'s ``reduced``) is sharded on that dim, it stays
+    so (the other inputs replicated) and each device's outputs, its part of
+    the reduction, are combined by one sum (the bytes of the kernel's own
+    split combine, its log-sum-exp weights aside); else, where every input
+    with a ``parallel`` dim is sharded on it, they stay so and the outputs
+    are sharded on theirs; else everything is replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     if not isinstance(inputs[0], DTensor):
         return list(_op()(name, list(inputs)))
     first = inputs[0]
     mesh = first.device_mesh
+    _, _, reduced, (par_in, par_out) = _ABSTRACT[name]
     by_batch = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
                      for p in first.placements)
-    everywhere = (Replicate(),) * mesh.ndim
-    local = [x.redistribute(mesh, by_batch if x.shape[0] == first.shape[0] else everywhere)
-             .to_local() for x in inputs]
-    return [DTensor.from_local(y, mesh, by_batch, run_check=False,
-                               shape=(first.shape[0],) + tuple(y.shape[1:]),
-                               stride=torch.empty((first.shape[0],) + tuple(y.shape[1:]),
-                                                  device="meta").stride())
-            for y in _op()(name, local)]
+
+    def all_on(dims, m):
+        return bool(dims) and all(inputs[i].placements[m] == Shard(d) for i, d in dims.items())
+
+    free = [m for m in range(mesh.ndim) if not by_batch[m].is_shard()]
+    split = [m for m in free if all_on(reduced, m)]
+    par = [m for m in free if m not in split and all_on(par_in, m)]
+
+    def placements(i, x):
+        base = by_batch if x.shape[0] == first.shape[0] else (Replicate(),) * mesh.ndim
+        return tuple(Shard(reduced[i]) if m in split and i in reduced else
+                     Shard(par_in[i]) if m in par and i in par_in else
+                     Replicate() if m in split + par else p
+                     for m, p in enumerate(base))
+
+    local = [x.redistribute(mesh, placements(i, x)).to_local() for i, x in enumerate(inputs)]
+    outs = []
+    for j, y in enumerate(_op()(name, local)):
+        shape = [first.shape[0]] + list(y.shape[1:])
+        out = tuple(Shard(par_out[j]) if m in par else p for m, p in enumerate(by_batch))
+        for m in par:
+            shape[par_out[j]] *= mesh.shape[m]
+        stride = [1]
+        for n in reversed(shape[1:]):
+            stride.insert(0, stride[0] * n)
+        t = DTensor.from_local(y, mesh, tuple(Partial() if m in split else p
+                                              for m, p in enumerate(out)),
+                               run_check=False, shape=tuple(shape), stride=tuple(stride))
+        outs.append(t.redistribute(mesh, out) if split else t)
+    return outs

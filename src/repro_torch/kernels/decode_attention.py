@@ -219,4 +219,5 @@ decode_attention.launches = 0
 build.register_abstract(
     "decode_attention",
     lambda t: [(t[0].shape, t[0].dtype)],
-    lambda shapes: 4 * shapes[0][0] * shapes[0][1] * shapes[1][1] * shapes[0][2])
+    lambda shapes: 4 * shapes[0][0] * shapes[0][1] * shapes[1][1] * shapes[0][2],
+    reduced={1: 1, 2: 1}, parallel=({0: 1, 1: 2, 2: 2}, [1]))

@@ -277,8 +277,10 @@ def _square(shapes) -> int:
 build.register_abstract(
     "flash_attention_fwd",
     lambda t: [(t[0].shape, t[0].dtype), (t[0].shape[:3], torch.float32)],
-    lambda shapes: 4 * _square(shapes))
+    lambda shapes: 4 * _square(shapes),
+    parallel=({0: 1, 1: 1, 2: 1}, [1, 1]))
 build.register_abstract(
     "flash_attention_bwd",
     lambda t: [(x.shape, x.dtype) for x in t[:3]],
-    lambda shapes: 10 * _square(shapes))
+    lambda shapes: 10 * _square(shapes),
+    parallel=({i: 1 for i in range(6)}, [1, 1, 1]))

@@ -157,4 +157,5 @@ rglru_scan.launches_chunked = 0
 build.register_abstract(
     "rglru_scan",
     lambda t: [(t[0].shape, torch.float32), (t[2].shape, torch.float32)],
-    lambda shapes: 0)
+    lambda shapes: 0,
+    parallel=({0: 2, 1: 2, 2: 1}, [2, 1]))

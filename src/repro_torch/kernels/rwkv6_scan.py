@@ -162,4 +162,5 @@ rwkv6_scan.launches_chunked = 0
 build.register_abstract(
     "rwkv6_scan",
     lambda t: [(t[0].shape, torch.float32), (t[5].shape, torch.float32)],
-    lambda shapes: 2 * shapes[0][0] * shapes[0][1] * shapes[0][2] * shapes[0][3] ** 2)
+    lambda shapes: 2 * shapes[0][0] * shapes[0][1] * shapes[0][2] * shapes[0][3] ** 2,
+    parallel=({0: 2, 1: 2, 2: 2, 3: 2, 4: 0, 5: 1}, [2, 1]))

@@ -21,6 +21,7 @@ KV cache with its prefill and decode steps, and ``cross_attention``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -31,6 +32,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention as decode_attention_kernel)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import module
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig
 
 _DIRECT_PATH_MAX_SEQ = 2048  # below this, materialise scores directly
@@ -182,6 +184,13 @@ def _attend_blockwise(q, k, v, q_pos, kv_pos, kv_valid, **kwargs):
 
 
 def attend(q, k, v, q_pos, kv_pos, kv_valid, *, window=None, softcap=None):
+    if shd.ON_DTENSORS:
+        return shd.attend_local(_attend, q, k, v, q_pos, kv_pos, kv_valid,
+                                window=window, softcap=softcap)
+    return _attend(q, k, v, q_pos, kv_pos, kv_valid, window=window, softcap=softcap)
+
+
+def _attend(q, k, v, q_pos, kv_pos, kv_valid, *, window, softcap):
     if k.shape[1] <= _DIRECT_PATH_MAX_SEQ:
         return _attend_direct(q, k, v, q_pos, kv_pos, kv_valid, window=window,
                               softcap=softcap)
@@ -196,19 +205,18 @@ def attend(q, k, v, q_pos, kv_pos, kv_valid, *, window=None, softcap=None):
 def _project_q(p, cfg: ModelConfig, x, positions):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    q = shd.view(x @ p["wq"], b, s, cfg.num_heads, hd)
     if cfg.qk_norm and "q_norm" in p:
         q = module.rmsnorm_head(p["q_norm"], q, cfg.norm_eps)
     q = module.apply_rope(q, positions, cfg.rope_theta)
-    return q.reshape(b, s, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
-                     hd)
+    return shd.view(q, b, s, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, hd)
 
 
 def _project_kv(p, cfg: ModelConfig, x, positions):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    k = shd.view(x @ p["wk"], b, s, cfg.num_kv_heads, hd)
+    v = shd.view(x @ p["wv"], b, s, cfg.num_kv_heads, hd)
     if cfg.qk_norm and "k_norm" in p:
         k = module.rmsnorm_head(p["k_norm"], k, cfg.norm_eps)
     k = module.apply_rope(k, positions, cfg.rope_theta)
@@ -241,18 +249,19 @@ def self_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True,
     k, v = _project_kv(p, cfg, x, positions)
     if attn_impl == "kernel":
         out = flash_attention(
-            q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim).transpose(1, 2),
+            shd.view(q, b, s, cfg.num_heads, cfg.resolved_head_dim).transpose(1, 2),
             k.transpose(1, 2), v.transpose(1, 2), causal=causal,
             window=w, softcap=cfg.attn_logit_softcap)
         out = out.transpose(1, 2)
     elif attn_impl == "ref":
-        kv_valid = torch.ones((b, s), dtype=torch.bool, device=x.device)
+        kv_valid = shd.batched(x, lambda n: torch.ones((n, s), dtype=torch.bool,
+                                                       device=x.device))
         q_pos = positions if causal else torch.full_like(positions, _INT32_MAX)
         out = attend(q, k, v, q_pos, positions, kv_valid,
                      window=w, softcap=cfg.attn_logit_softcap)
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
-    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+    return shd.view(out, b, s, cfg.q_dim) @ p["wo"]
 
 
 def prefill_attention(p, cfg: ModelConfig, x, positions, cache: KVCache, *,
@@ -268,16 +277,22 @@ def prefill_attention(p, cfg: ModelConfig, x, positions, cache: KVCache, *,
     b, s, _ = x.shape
     q = _project_q(p, cfg, x, positions)
     k, v = _project_kv(p, cfg, x, positions)
-    kv_valid = (torch.ones((b, s), dtype=torch.bool, device=x.device)
+    kv_valid = (shd.batched(x, lambda n: torch.ones((n, s), dtype=torch.bool,
+                                                    device=x.device))
                 if valid is None else valid)
     idx = (positions % cache.k.shape[1]).long()
     bidx = torch.arange(b, device=x.device)[:, None]
-    cache.k[bidx, idx] = k
-    cache.v[bidx, idx] = v
-    cache.pos[bidx, idx] = torch.where(kv_valid, positions, -1).to(torch.int32)
+    if shd.ON_DTENSORS:
+        new_pos = torch.where(kv_valid, positions, -1).to(torch.int32)
+        for dst, src in ((cache.k, k), (cache.v, v), (cache.pos, new_pos)):
+            shd.write_slots(dst, bidx, idx, src)
+    else:
+        cache.k[bidx, idx] = k
+        cache.v[bidx, idx] = v
+        cache.pos[bidx, idx] = torch.where(kv_valid, positions, -1).to(torch.int32)
     out = attend(q, k, v, positions, positions, kv_valid,
                  window=_window(cfg, window), softcap=cfg.attn_logit_softcap)
-    return out.reshape(b, s, cfg.q_dim) @ p["wo"], cache
+    return shd.view(out, b, s, cfg.q_dim) @ p["wo"], cache
 
 
 def decode_attention(p, cfg: ModelConfig, x, pos, cache: KVCache, *,
@@ -306,20 +321,26 @@ def decode_attention(p, cfg: ModelConfig, x, pos, cache: KVCache, *,
     k_new, v_new = _project_kv(p, cfg, x, positions)
     idx = (pos % cache.k.shape[1]).long()
     bidx = torch.arange(b, device=x.device)
-    cache.k[bidx, idx] = k_new[:, 0]
-    cache.v[bidx, idx] = v_new[:, 0]
-    cache.pos[bidx, idx] = pos.to(torch.int32)
+    if shd.ON_DTENSORS:
+        for dst, src in ((cache.k, k_new[:, 0]), (cache.v, v_new[:, 0]),
+                         (cache.pos, pos.to(torch.int32))):
+            shd.write_slots(dst, bidx, idx, src)
+    else:
+        cache.k[bidx, idx] = k_new[:, 0]
+        cache.v[bidx, idx] = v_new[:, 0]
+        cache.pos[bidx, idx] = pos.to(torch.int32)
     if attn_impl == "kernel":
         out = decode_attention_kernel(
-            q.reshape(b, cfg.num_heads, cfg.resolved_head_dim), cache.k,
+            shd.view(q, b, cfg.num_heads, cfg.resolved_head_dim), cache.k,
             cache.v, pos + 1, window=w)
     elif attn_impl == "ref":
-        out = _attend_direct(q, cache.k, cache.v, positions, cache.pos,
-                             cache.pos >= 0, window=w,
-                             softcap=cfg.attn_logit_softcap)
+        direct = (functools.partial(shd.attend_local, _attend_direct) if shd.ON_DTENSORS
+                  else _attend_direct)
+        out = direct(q, cache.k, cache.v, positions, cache.pos, cache.pos >= 0, window=w,
+                     softcap=cfg.attn_logit_softcap)
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
-    return out.reshape(b, 1, cfg.q_dim) @ p["wo"], cache
+    return shd.view(out, b, 1, cfg.q_dim) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------
@@ -331,7 +352,7 @@ def cross_kv(p, cfg: ModelConfig, memory):
     no RoPE, no qk-norm."""
     b, t, _ = memory.shape
     shape = (b, t, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return (memory @ p["wk"]).reshape(shape), (memory @ p["wv"]).reshape(shape)
+    return shd.view(memory @ p["wk"], *shape), shd.view(memory @ p["wv"], *shape)
 
 
 def cross_attend(p, cfg: ModelConfig, x, k, v, memory_valid=None):
@@ -340,14 +361,17 @@ def cross_attend(p, cfg: ModelConfig, x, k, v, memory_valid=None):
     (queries at ``INT32_MAX``, keys at 0)."""
     b, s, _ = x.shape
     t = k.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_kv_heads,
-                              cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim)
+    q = shd.view(x @ p["wq"], b, s, cfg.num_kv_heads,
+                 cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim)
     if memory_valid is None:
-        memory_valid = torch.ones((b, t), dtype=torch.bool, device=x.device)
-    q_pos = torch.full((b, s), _INT32_MAX, dtype=torch.int32, device=x.device)
-    kv_pos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+        memory_valid = shd.batched(x, lambda n: torch.ones((n, t), dtype=torch.bool,
+                                                           device=x.device))
+    q_pos = shd.batched(x, lambda n: torch.full((n, s), _INT32_MAX, dtype=torch.int32,
+                                                device=x.device))
+    kv_pos = shd.batched(x, lambda n: torch.zeros((n, t), dtype=torch.int32,
+                                                  device=x.device))
     out = attend(q, k, v, q_pos, kv_pos, memory_valid, window=None, softcap=None)
-    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+    return shd.view(out, b, s, cfg.q_dim) @ p["wo"]
 
 
 def cross_attention(p, cfg: ModelConfig, x, memory, memory_valid=None):

@@ -39,6 +39,7 @@ from repro_torch.device import generator, resolve_device, torch_dtype
 from repro_torch.models import attention, ffn, module
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.sharding import constrain_activation
 from repro_torch.models.transformer import remat_block
 
@@ -95,11 +96,13 @@ def _positions(b: int, s: int, device):
 
 
 def _enc_layer(lp, cfg: ModelConfig, x, positions, attn_impl):
+    if shd.ON_DTENSORS:
+        lp = shd.gather_fsdp(lp)
     x = constrain_activation(x)
-    x = x + attention.self_attention(
+    x = shd.residual(x, attention.self_attention(
         lp["attn"], cfg, module.rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
-        causal=False, window=None, attn_impl=attn_impl)
-    return x + ffn.mlp(lp["mlp"], cfg, module.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        causal=False, window=None, attn_impl=attn_impl))
+    return shd.residual(x, ffn.mlp(lp["mlp"], cfg, module.rmsnorm(lp["ln2"], x, cfg.norm_eps)))
 
 
 def encode(params, cfg: ModelConfig, frames, *, attn_impl: str = "kernel",
@@ -109,7 +112,7 @@ def encode(params, cfg: ModelConfig, frames, *, attn_impl: str = "kernel",
     _check(cfg, attn_impl)
     x = frames.to(torch_dtype(cfg.dtype))
     b, t, _ = x.shape
-    positions = _positions(b, t, x.device)
+    positions = shd.batched(x, lambda n: _positions(n, t, x.device))
     layer = remat_block(_enc_layer, remat)
     for lp in params["encoder"]:
         x = layer(lp, cfg, x, positions, attn_impl)
@@ -118,8 +121,9 @@ def encode(params, cfg: ModelConfig, frames, *, attn_impl: str = "kernel",
 
 def _cross_kv(params, cfg: ModelConfig, memory):
     """Cross K/V of every decoder layer: (L, B, T, KV, hd) each."""
-    ks, vs = zip(*(attention.cross_kv(lp["cross"], cfg, memory)
-                   for lp in params["decoder"]))
+    ks, vs = zip(*(attention.cross_kv(
+        shd.gather_fsdp(lp["cross"]) if shd.ON_DTENSORS else lp["cross"], cfg, memory)
+        for lp in params["decoder"]))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -156,6 +160,8 @@ def _dec_layer(lp, cfg: ModelConfig, x, ck, cv, *, positions=None, cache=None,
     """One decoder block: ``mode`` "full" (causal self-attention over x),
     "prefill" (the same through plain ``attend``, writing ``cache``, one
     layer's view) or "decode" (one token at ``pos``)."""
+    if shd.ON_DTENSORS:
+        lp = shd.gather_fsdp(lp)
     h = module.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if mode == "full":
         y = attention.self_attention(lp["attn"], cfg, h, positions, window=None,
@@ -166,14 +172,24 @@ def _dec_layer(lp, cfg: ModelConfig, x, ck, cv, *, positions=None, cache=None,
     else:
         y, _ = attention.decode_attention(lp["attn"], cfg, h, pos, cache, window=None,
                                           attn_impl=attn_impl)
-    x = x + y
-    x = x + _cross_attend(lp, cfg, module.rmsnorm(lp["ln2"], x, cfg.norm_eps), ck, cv)
-    return x + ffn.mlp(lp["mlp"], cfg, module.rmsnorm(lp["ln3"], x, cfg.norm_eps))
+    x = shd.residual(x, y)
+    x = shd.residual(x, _cross_attend(lp, cfg, module.rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                                      ck, cv))
+    return shd.residual(x, ffn.mlp(lp["mlp"], cfg, module.rmsnorm(lp["ln3"], x, cfg.norm_eps)))
 
 
 def _logits(params, cfg: ModelConfig, x):
-    return (module.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-            @ params["lm_head"]).float()
+    head = shd.gather_fsdp(params["lm_head"]) if shd.ON_DTENSORS else params["lm_head"]
+    return (module.rmsnorm(params["final_norm"], x, cfg.norm_eps) @ head).float()
+
+
+def _embed(params, tokens, reduced: bool):
+    """The tokens' embeddings; on the partitioned step a vocab-parallel
+    lookup, its partial sums reduced where ``reduced``."""
+    if not shd.ON_DTENSORS:
+        return params["embed"][tokens]
+    x = shd.embed_lookup(params["embed"], tokens)
+    return shd.batch_only(x) if reduced else x
 
 
 def _dec_layer_full(lp, cfg: ModelConfig, x, ck, cv, positions, attn_impl):
@@ -192,9 +208,9 @@ def encdec_apply(params, cfg: ModelConfig, frames, tokens, *,
     _check(cfg, attn_impl)
     memory = encode(params, cfg, frames, attn_impl=attn_impl, remat=remat)
     ck_all, cv_all = _cross_kv(params, cfg, memory)
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, reduced=False)
     b, s, _ = x.shape
-    positions = _positions(b, s, x.device)
+    positions = shd.batched(x, lambda n: _positions(n, s, x.device))
     layer = remat_block(_dec_layer_full, remat)
     for i, lp in enumerate(params["decoder"]):
         x = layer(lp, cfg, x, ck_all[i], cv_all[i], positions, attn_impl)
@@ -218,12 +234,16 @@ def encdec_prefill(params, cfg: ModelConfig, frames, tokens, cache: EncDecCache,
         raise ValueError(f"encdec_prefill: cross K/V {tuple(ck_all.shape)} from "
                          f"{tuple(frames.shape)} frames, cache holds "
                          f"{tuple(cache.cross_k.shape)}")
-    cache.cross_k.copy_(ck_all)
-    cache.cross_v.copy_(cv_all)
+    if shd.ON_DTENSORS:
+        shd.assign(cache.cross_k, ck_all)
+        shd.assign(cache.cross_v, cv_all)
+    else:
+        cache.cross_k.copy_(ck_all)
+        cache.cross_v.copy_(cv_all)
     del ck_all, cv_all
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, reduced=True)
     b, s, _ = x.shape
-    positions = _positions(b, s, x.device)
+    positions = shd.batched(x, lambda n: _positions(n, s, x.device))
     for i, lp in enumerate(params["decoder"]):
         x = _dec_layer(lp, cfg, x, cache.cross_k[i], cache.cross_v[i],
                        positions=positions, cache=cache.self_kv.layer(i), mode="prefill")
@@ -236,7 +256,7 @@ def encdec_decode_step(params, cfg: ModelConfig, token, pos, cache: EncDecCache,
     in the cache; writes the self cache in place.  Returns (logits (B, V)
     fp32, cache)."""
     _check(cfg, attn_impl)
-    x = params["embed"][token][:, None, :]
+    x = _embed(params, token, reduced=True)[:, None, :]
     for i, lp in enumerate(params["decoder"]):
         x = _dec_layer(lp, cfg, x, cache.cross_k[i], cache.cross_v[i], pos=pos,
                        cache=cache.self_kv.layer(i), mode="decode", attn_impl=attn_impl)

@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.models import sharding as shd
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
                scale: float | None = None):
@@ -39,6 +41,9 @@ def rmsnorm(params, x, eps: float = 1e-6):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
+    if shd.ON_DTENSORS:
+        # the sequence-parallel stream gathered before the projections
+        return shd.batch_only((y * params["scale"]).to(dt))
     return (y * params["scale"]).to(dt)
 
 

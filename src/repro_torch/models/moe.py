@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import torch_dtype
 from repro_torch.models import module
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig
 
 _GROUP = 512
@@ -121,6 +122,8 @@ def dispatch_plan(cfg: ModelConfig, idx):
 
 def moe_ep(p, cfg: ModelConfig, x):
     """Capacity-dispatch path. x: (B, S, d)."""
+    if shd.ON_DTENSORS:
+        return _moe_ep_partitioned(p, cfg, x)
     b, s, d = x.shape
     gs = min(s, _GROUP)
     assert s % gs == 0, f"seq {s} not divisible by moe group {gs}"
@@ -145,6 +148,46 @@ def moe_ep(p, cfg: ModelConfig, x):
     picked = out_e[torch.where(keep, row, 0).reshape(-1)].view(g * gs, k, d)
     out = _combine(picked, gates.reshape(g * gs, k), keep.reshape(g * gs, k))
     return out.reshape(b, s, d).to(x.dtype), _aux_losses(cfg, logits, probs, idx)
+
+
+def _moe_ep_partitioned(p, cfg: ModelConfig, x):
+    """``moe_ep`` on the partitioned step: x (B, S, d) sharded by batch
+    only, the experts sharded over ``model`` (the rules' expert
+    parallelism), as the reference's dispatch and combine einsums are
+    partitioned.  Each device routes its tokens over every expert, fills
+    and runs the buffers of its own experts and combines their outputs: the
+    fp32 combine is a partial sum over the experts' mesh dims, reduced
+    before the cast; the router losses are means over the batch's."""
+    edims = [m for m, pl in enumerate(p["w_gate"].placements) if pl.is_shard()]
+    bdims = [m for m, pl in enumerate(x.placements) if pl.is_shard()]
+    xl = x.to_local()
+    pl = {n: shd.batch_only(t).to_local() if n == "router" else t.to_local()
+          for n, t in p.items()}
+    b, s, d = xl.shape
+    gs = min(s, _GROUP)
+    assert s % gs == 0, f"seq {s} not divisible by moe group {gs}"
+    g = b * (s // gs)
+    e_local, k = pl["w_gate"].shape[0], cfg.num_experts_per_tok
+    cap = capacity(cfg, gs)
+
+    xg = xl.reshape(g, gs, d)
+    logits, probs, gates, idx = _router(pl, cfg, xg)
+    slot, keep = dispatch_plan(cfg, idx)
+    flat = idx.reshape(g, gs * k) - shd.shard_offset(p["w_gate"], 0, edims)
+    mine = keep & (flat >= 0) & (flat < e_local)
+    group = torch.arange(g, device=xl.device)[:, None]
+    row = (flat * g + group) * cap + slot
+    n_rows = e_local * g * cap
+    dest = torch.where(mine, row, n_rows).reshape(-1)
+    src = xg.repeat_interleave(k, dim=1).reshape(-1, d)
+    buf = xl.new_zeros(n_rows + 1, d).index_copy(0, dest, src)
+    out_e = _expert_ffn(pl, buf[:n_rows].view(e_local, g * cap, d)).reshape(n_rows, d)
+    picked = out_e[torch.where(mine, row, 0).reshape(-1)].view(g * gs, k, d)
+    part = _combine(picked, gates.reshape(g * gs, k), mine.reshape(g * gs, k))
+    out = shd.from_partial(part.reshape(b, s, d), x, edims, "sum")
+    aux = {n: shd.from_partial(v, x, bdims, "avg", global_shape=())
+           for n, v in _aux_losses(cfg, logits, probs, idx).items()}
+    return out.to(x.dtype), aux
 
 
 def moe_apply(p, cfg: ModelConfig, x, *, mode: str = "ep"):

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.device import torch_dtype
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models import module
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig
 
 _C = 8.0
@@ -42,7 +43,10 @@ class RGLRUState(NamedTuple):
     def write_layer(self, i: int, new: "RGLRUState") -> None:
         """Copy one layer's new state into layer ``i`` (in place)."""
         for dst, src in zip(self.layer(i), new):
-            dst.copy_(src)
+            if shd.ON_DTENSORS:
+                shd.assign(dst, src)
+            else:
+                dst.copy_(src)
 
 
 def _width(cfg: ModelConfig) -> int:
@@ -84,7 +88,10 @@ def _causal_conv(p, x, conv_state):
     k = p["conv_w"].shape[0]
     full = torch.cat([conv_state, x], dim=1)     # (B, K-1+S, W)
     s = x.shape[1]
-    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    if shd.ON_DTENSORS:
+        acc = torch.zeros_like(x, dtype=torch.float32)
+    else:
+        acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(k):
         acc = acc + full[:, i:i + s].float() * p["conv_w"][k - 1 - i].float()
     return (acc + p["conv_b"]).to(x.dtype), full[:, -(k - 1):]
@@ -126,14 +133,29 @@ def _scan(a, b, h0, attn_impl):
     raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
 
 
+def _replicated_branch(p, state):
+    """On the partitioned step the branch's products run on each device's
+    batch rows, replicated over the other mesh axes: its weights are
+    FSDP-only in the rules (gathered with the layer's), but for the conv
+    taps, gathered here with the state's width."""
+    return shd.replicate(p), RGLRUState(*(shd.batch_only(t) for t in state))
+
+
 def recurrent_block(p, cfg: ModelConfig, x, state: RGLRUState, *,
                     attn_impl: str = "kernel"):
     """x: (B, S, D); ``state``: one layer's (B, ...) state.  Returns (out
     (B, S, D), the layer's new RGLRUState); ``state`` is not modified."""
+    if shd.ON_DTENSORS:
+        p, state = _replicated_branch(p, state)
     gate = F.gelu(x @ p["wy"], approximate="tanh")
     xc, conv_state = _causal_conv(p, x @ p["wx"], state.conv)
     a, b = _gates(p, xc)
-    hs, h_last = _scan(a, b, state.h, attn_impl)
+    h0 = state.h
+    if shd.ON_DTENSORS:
+        # the recurrence is elementwise over the width: split it over the
+        # tensor-parallel axis, as the fp32 (B, S, W) activations it keeps
+        a, b, h0 = (shd.split_last(t, "model") for t in (a, b, h0))
+    hs, h_last = _scan(a, b, h0, attn_impl)
     out = (hs.to(x.dtype) * gate) @ p["wo"]
     return out, RGLRUState(h=h_last, conv=conv_state)
 
@@ -142,6 +164,8 @@ def recurrent_step(p, cfg: ModelConfig, x, state: RGLRUState, *,
                    attn_impl: str = "kernel"):
     """Decode: x (B, 1, D).  ``"kernel"``: the scan kernel over one step;
     ``"ref"``: the reference's elementwise step."""
+    if shd.ON_DTENSORS:
+        p, state = _replicated_branch(p, state)
     gate = F.gelu(x @ p["wy"], approximate="tanh")
     xc, conv_state = _causal_conv(p, x @ p["wx"], state.conv)
     a, b = _gates(p, xc)                                   # (B, 1, W)

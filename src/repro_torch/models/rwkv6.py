@@ -22,6 +22,7 @@ from repro_torch.device import torch_dtype
 from repro_torch.kernels.ref import rwkv6_scan_ref
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.models import module
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig
 
 _MIX_LORA = 32
@@ -45,7 +46,10 @@ class RWKVState(NamedTuple):
     def write_layer(self, i: int, new: "RWKVState") -> None:
         """Copy one layer's new state into layer ``i`` (in place)."""
         for dst, src in zip(self.layer(i), new):
-            dst.copy_(src)
+            if shd.ON_DTENSORS:
+                shd.assign(dst, src)
+            else:
+                dst.copy_(src)
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device) -> RWKVState:
@@ -129,7 +133,7 @@ def _token_shift_inputs(p, x, prev):
     xxx = x + sx * p["mu_x"]
     a = torch.tanh(xxx @ p["mix_a"])                    # (B,S,5r)
     b, s, _ = a.shape
-    a = a.reshape(b, s, 5, _MIX_LORA)
+    a = shd.view(a, b, s, 5, _MIX_LORA)
     adj = torch.einsum("bsnr,nrd->bsnd", a, p["mix_b"])  # (B,S,5,D)
     mus = torch.stack([p["mu_w"], p["mu_k"], p["mu_v"], p["mu_r"], p["mu_g"]])
     mixed = x[:, :, None, :] + sx[:, :, None, :] * (mus + adj)
@@ -150,6 +154,8 @@ def wkv_scan(r, k, v, w, u, state, *, attn_impl: str = "kernel"):
     if attn_impl == "kernel":
         return rwkv6_scan(r, k, v, w, u, state)
     if attn_impl == "ref":
+        if shd.ON_DTENSORS:
+            return shd.local_rows(rwkv6_scan_ref, r, k, v, w, u, state)
         return rwkv6_scan_ref(r, k, v, w, u, state)
     raise ValueError(f"unknown attn_impl {attn_impl!r} (expected kernel | ref)")
 
@@ -158,13 +164,13 @@ def time_mix(p, cfg: ModelConfig, x, prev, wkv_state, *, attn_impl="kernel"):
     b, s, d = x.shape
     h, hd = cfg.num_rwkv_heads, cfg.rwkv_head_size
     xw, xk, xv, xr, xg, new_prev = _token_shift_inputs(p, x, prev)
-    r = (xr @ p["wr"]).reshape(b, s, h, hd)
-    k = (xk @ p["wk"]).reshape(b, s, h, hd)
-    v = (xv @ p["wv"]).reshape(b, s, h, hd)
+    r = shd.view(xr @ p["wr"], b, s, h, hd)
+    k = shd.view(xk @ p["wk"], b, s, h, hd)
+    v = shd.view(xv @ p["wv"], b, s, h, hd)
     g = F.silu(xg @ p["wg"])
-    w = _decay(p, xw).reshape(b, s, h, hd)
+    w = shd.view(_decay(p, xw), b, s, h, hd)
     y, new_state = wkv_scan(r, k, v, w, p["u"], wkv_state, attn_impl=attn_impl)
-    y = _head_groupnorm(p, y).reshape(b, s, d).to(x.dtype)
+    y = shd.view(_head_groupnorm(p, y), b, s, d).to(x.dtype)
     return (y * g) @ p["wo"], new_prev, new_state
 
 
@@ -175,18 +181,23 @@ def channel_mix(p, x, prev):
     xr = x + sx * p["mu_r"]
     k = torch.square(torch.relu(xk @ p["wk"]))
     v = k @ p["wv"]
+    if shd.ON_DTENSORS:
+        r = torch.sigmoid(xr @ p["wr"])
+        return r * shd.placed_like(v, r), x[:, -1, :]
     return torch.sigmoid(xr @ p["wr"]) * v, x[:, -1, :]
 
 
 def block(p, cfg: ModelConfig, x, state: RWKVState, *, attn_impl="kernel"):
     """Pre-norm residual block.  ``state``: one layer's (B, ...) state.
     Returns (x, the layer's new RWKVState); ``state`` is not modified."""
+    if shd.ON_DTENSORS:
+        p = shd.gather_fsdp(p)
     y, tm_prev, wkv = time_mix(p["time_mix"], cfg,
                                module.rmsnorm(p["ln1"], x, cfg.norm_eps),
                                state.tm_prev, state.wkv, attn_impl=attn_impl)
-    x = x + y
+    x = shd.residual(x, y)
     y, cm_prev = channel_mix(p["channel_mix"],
                              module.rmsnorm(p["ln2"], x, cfg.norm_eps),
                              state.cm_prev)
-    x = x + y
+    x = shd.residual(x, y)
     return x, RWKVState(wkv=wkv, tm_prev=tm_prev, cm_prev=cm_prev)

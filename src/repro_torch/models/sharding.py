@@ -27,6 +27,7 @@ mesh order.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from collections.abc import Mapping
@@ -303,6 +304,266 @@ def constrain_activation(x):
 
 
 # ---------------------------------------------------------------------------
+# the partitioned step: the model, loss and optimizer lines that DTensor's
+# sharding propagation cannot take (or takes differently across torch
+# versions) test ``ON_DTENSORS`` first and, while it is set, call the
+# helpers below, which place their DTensor operands explicitly and work on
+# each device's local shard.  Plain tensors never reach them.
+# ---------------------------------------------------------------------------
+
+ON_DTENSORS = False
+
+
+@contextlib.contextmanager
+def partitioned(activation_spec):
+    """The step inside runs on DTensors: ``ON_DTENSORS`` set and the
+    activation spec installed; both cleared on exit."""
+    global ON_DTENSORS
+    set_activation_sharding(activation_spec)
+    ON_DTENSORS = True
+    try:
+        yield
+    finally:
+        ON_DTENSORS = False
+        set_activation_sharding(None)
+
+
+def _rebuild(x, local, placements, shape):
+    """A DTensor over ``x``'s mesh from ``local`` (this device's shard of a
+    tensor of ``shape``, contiguous) and ``placements``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(shape)
+    return DTensor.from_local(local, x.device_mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _replicated(x, mesh_dims):
+    """``x`` with the placements on ``mesh_dims`` made ``Replicate()``."""
+    from torch.distributed.tensor import Replicate
+
+    if not mesh_dims:
+        return x
+    placements = [Replicate() if i in mesh_dims else p for i, p in enumerate(x.placements)]
+    return x.redistribute(x.device_mesh, placements)
+
+
+def view(x, *shape):
+    """``x.reshape(shape)``; on the partitioned step, ``reshape`` on the
+    local shard."""
+    return reshape(x, shape) if ON_DTENSORS else x.reshape(shape)
+
+
+def batched(x, make, dim: int = 0):
+    """``make(b)`` for ``x``'s batch of b rows: a tensor, or a tree of them,
+    whose dim ``dim`` is that batch.  On the partitioned step each device
+    makes its own rows, placed as ``x``'s batch (replicated elsewhere), so
+    that no device holds every row."""
+    if not ON_DTENSORS:
+        return make(x.shape[0])
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Shard(dim) if p.is_shard() and p.dim == 0 else Replicate() for p in x.placements]
+
+    def place(t):
+        shape = list(t.shape)
+        shape[dim] = x.shape[0]
+        return _rebuild(x, t.contiguous(), pl, shape)
+
+    return _tree_map(place, make(x.to_local().shape[0]))
+
+
+def attend_local(fn, q, k, v, q_pos, kv_pos, kv_valid, **kwargs):
+    """``fn`` (the plain ``attend`` or ``_attend_direct``: q (B, Sq, KV, G,
+    hd), k/v (B, Skv, KV, hd), positions and validity (B, S)) run on each
+    device's shards: the batch split as q's, the KV heads where q, k and v
+    all split them, the keys where k and v split their sequence and q is
+    not split there (each device then attends over its keys, and the
+    outputs are combined by one sum over those mesh dims: the bytes of a
+    split softmax's combine, its log-sum-exp weights aside).  Every other
+    dim replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    batch, heads, keys = [], [], []
+    for m in range(mesh.ndim):
+        pq, pk, pv = (getattr(t, "placements", [Replicate()] * mesh.ndim)[m] for t in (q, k, v))
+        if pq == Shard(0):
+            batch.append(m)
+        elif pq == pk == pv == Shard(2):
+            heads.append(m)
+        elif pk == pv == Shard(1):
+            keys.append(m)
+
+    def pl(t, head_dim, key_dim):
+        out = []
+        for m in range(mesh.ndim):
+            if m in batch:
+                out.append(Shard(0))
+            elif m in heads and head_dim is not None:
+                out.append(Shard(head_dim))
+            elif m in keys and key_dim is not None:
+                out.append(Shard(key_dim))
+            else:
+                out.append(Replicate())
+        return _placed(t, mesh, out).to_local()
+
+    out = fn(pl(q, 2, None), pl(k, 2, 1), pl(v, 2, 1), pl(q_pos, None, None),
+             pl(kv_pos, None, 1), pl(kv_valid, None, 1), **kwargs)
+    placements = [Shard(0) if m in batch else Shard(2) if m in heads else Replicate()
+                  for m in range(mesh.ndim)]
+    part = _rebuild(q, out.contiguous(), [Partial() if m in keys else p
+                                          for m, p in enumerate(placements)], q.shape)
+    return part.redistribute(mesh, placements) if keys else part
+
+
+def local_rows(fn, *inputs):
+    """``fn`` on each device's batch rows: every input of the first's
+    leading size sharded on dim 0 as the first is, every other dim and
+    input replicated; the outputs, batch-first, sharded so."""
+    from torch.distributed.tensor import Replicate
+
+    first = inputs[0]
+    mesh = first.device_mesh
+    rows = [p if p.is_shard() and p.dim == 0 else Replicate() for p in first.placements]
+    local = [_placed(x, mesh, rows if x.shape[0] == first.shape[0]
+                     else [Replicate()] * mesh.ndim).to_local() for x in inputs]
+    outs = fn(*local)
+    return type(outs)(_rebuild(first, y.contiguous(), rows,
+                               (first.shape[0],) + tuple(y.shape[1:])) for y in outs)
+
+
+def microbatch(x, j: int, m: int):
+    """Microbatch ``j`` of ``m`` of a DTensor batch ``x``: each device's
+    ``j``-th m-th of its own rows, where its rows split m ways, as the
+    batch's placements stay (the same rows over all microbatches as
+    ``x[j * n // m:(j + 1) * n // m]`` takes, in another order); else that
+    slice."""
+    n = x.shape[0]
+    local = x.to_local()
+    rows = local.shape[0]
+    if rows % m or n % m:
+        return x[j * n // m:(j + 1) * n // m]
+    return _rebuild(x, local[j * rows // m:(j + 1) * rows // m].contiguous(), x.placements,
+                    (n // m,) + tuple(x.shape[1:]))
+
+
+def residual(x, y):
+    """``x + y``; on the partitioned step ``y`` brought to ``x``'s
+    placements first (a partial sum reduced, scattered as ``x``'s
+    sequence where ``x`` is sequence-parallel)."""
+    return x + placed_like(y, x) if ON_DTENSORS else x + y
+
+
+def batch_only(x):
+    """``x`` sharded on its batch (dim 0) where it is, replicated on every
+    other mesh dim: the sequence gathered, partial sums reduced.  What the
+    reference's sequence-parallel stream does before each projection."""
+    return _replicated(x, [i for i, p in enumerate(x.placements)
+                           if not (p.is_shard() and p.dim == 0)])
+
+
+def split_last(x, axis: str):
+    """A DTensor replicated on mesh axis ``axis``, split there on its last
+    dim (a local slice) where that divides; otherwise as it is."""
+    from torch.distributed.tensor import Shard
+
+    m = x.device_mesh.mesh_dim_names.index(axis) if axis in x.device_mesh.mesh_dim_names else None
+    if m is None or not x.placements[m].is_replicate() or x.shape[-1] % x.device_mesh.shape[m]:
+        return x
+    placements = list(x.placements)
+    placements[m] = Shard(x.ndim - 1)
+    return x.redistribute(x.device_mesh, placements)
+
+
+def replicate(tree):
+    """Every DTensor of ``tree`` replicated on every mesh dim."""
+    return _tree_map(lambda t: _replicated(t, list(range(t.device_mesh.ndim))), tree)
+
+
+def gather_fsdp(tree):
+    """Every DTensor of ``tree`` gathered over the batch mesh axes (``pod``,
+    ``data``: the rules' FSDP axes), its ``model`` sharding kept: a layer's
+    weights as its matmuls use them."""
+    def one(t):
+        names = t.device_mesh.mesh_dim_names
+        return _replicated(t, [i for i, p in enumerate(t.placements)
+                               if p.is_shard() and names[i] in ("pod", "data")])
+
+    return _tree_map(one, tree)
+
+
+def _dim_groups(src, dst):
+    """Pairs (input dims, output dims) of a reshape of ``src`` into ``dst``
+    whose products are equal, in order; trailing size-1 dims join the last
+    pair."""
+    groups, i, j = [], 0, 0
+    while i < len(src) and j < len(dst):
+        gi, gj = [i], [j]
+        a, b = src[i], dst[j]
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b:
+                a *= src[i]
+                gi.append(i)
+                i += 1
+            else:
+                b *= dst[j]
+                gj.append(j)
+                j += 1
+        groups.append((gi, gj))
+    groups[-1][0].extend(range(i, len(src)))
+    groups[-1][1].extend(range(j, len(dst)))
+    return groups
+
+
+def reshape(x, shape):
+    """``x.reshape(shape)`` for a DTensor, on its local shard: a sharded dim
+    stays sharded, on the leading output dim of its group, where it leads
+    its group (size-1 dims aside) and that output dim divides over its mesh
+    axes; any other sharding of a dim the reshape splits or merges is
+    replicated first.  Torch's own view rules refuse such reshapes, or
+    redistribute differently by version."""
+    from torch.distributed.tensor import Shard
+
+    src = tuple(x.shape)
+    shape = tuple(shape)
+    sizes = x.device_mesh.shape
+    out_dim = {}
+    for gi, gj in _dim_groups(src, shape):
+        lead_in = next((d for d in gi if src[d] != 1), gi[0])
+        lead_out = next((d for d in gj if shape[d] != 1), gj[0])
+        split = math.prod(sizes[m] for m, p in enumerate(x.placements)
+                          if p.is_shard() and p.dim == lead_in)
+        for d in gi:
+            keep = d == lead_in and shape[lead_out] % split == 0
+            out_dim[d] = lead_out if keep else None
+    x = _replicated(x, [m for m, p in enumerate(x.placements)
+                        if p.is_shard() and out_dim[p.dim] is None])
+    placements = [Shard(out_dim[p.dim]) if p.is_shard() else p for p in x.placements]
+    local = x.to_local().reshape(local_shape_of(shape, placements, x.device_mesh))
+    return _rebuild(x, local, placements, shape)
+
+
+def local_shape_of(shape, placements, mesh) -> tuple:
+    """This device's shard shape of a tensor of ``shape`` under DTensor
+    ``placements`` (even shards)."""
+    out = list(shape)
+    for size, p in zip(mesh.shape, placements):
+        if p.is_shard():
+            out[p.dim] //= size
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
 # cache / state sharding: batch-shard everything with a leading (L, B, ...)
 # layout; fall back to replication when batch is unshardable (long_500k,
 # B=1) — the model axis still shards params.
@@ -349,3 +610,181 @@ def cache_specs(cache: Any, mesh, *, shard_batch: bool = True):
         return tuple(spec)
 
     return _tree_map(one, cache)
+
+
+def shard_offset(x, dim: int, mesh_dims) -> int:
+    """This device's first index along ``dim`` of ``x``'s global tensor,
+    where ``mesh_dims`` shard it (the first mesh dim major)."""
+    mesh = x.device_mesh
+    n, off = x.shape[dim], 0
+    for m in mesh_dims:
+        n //= mesh.shape[m]
+        off += mesh.get_local_rank(m) * n
+    return off
+
+
+def write_slots(dst, bidx, idx, src) -> None:
+    """``dst[bidx, idx] = src`` for a DTensor cache layer ``dst`` (B, S_max,
+    ...), written in place on its local shard, its placements kept:
+    ``src`` is brought to them (its batch sharded as ``dst``'s; replicated
+    where ``dst`` shards its slots, each device then writing the entries
+    that land in its slots at their local index; sharded as ``dst`` on its
+    trailing dims), ``idx`` alike.  ``bidx`` are the rows 0..B-1 (shape (B,)
+    or (B, 1)), as every caller passes.  Planned on meta shards only: a
+    device's local write does not drop the entries that land in another
+    device's slots (the reference's scatter drops them), so real values
+    are refused."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if dst.to_local().device.type != "meta":
+        raise NotImplementedError("write_slots: the partitioned cache write is "
+                                  "planned on meta shards only")
+    lead = idx.dim()                  # src's dims: idx's, then dst's trailing
+    src_pl, idx_pl, slot_dims = [], [], []
+    for m, p in enumerate(dst.placements):
+        if p.is_shard() and p.dim == 0:
+            src_pl.append(Shard(0))
+            idx_pl.append(Shard(0))
+        elif p.is_shard() and p.dim >= 2:
+            src_pl.append(Shard(p.dim - 2 + lead))
+            idx_pl.append(Replicate())
+        else:
+            slot_dims += [m] if p.is_shard() else []
+            src_pl.append(Replicate())
+            idx_pl.append(Replicate())
+    mesh = dst.device_mesh
+    src_l = _placed(src, mesh, src_pl).to_local()
+    idx_l = _placed(idx, mesh, idx_pl).to_local()
+    dst_l = dst.to_local()
+    if slot_dims:
+        idx_l = (idx_l - shard_offset(dst, 1, slot_dims)).clamp(0, dst_l.shape[1] - 1)
+    rows = torch.arange(dst_l.shape[0], device=dst_l.device).reshape(
+        (-1,) + (1,) * (bidx.dim() - 1))
+    dst_l[rows, idx_l] = src_l.to(dst_l.dtype)
+
+
+def assign(dst, src) -> None:
+    """``dst.copy_(src)`` for a DTensor ``dst``, on its local shard: ``src``
+    brought to ``dst``'s placements first, which ``dst`` keeps."""
+    dst.to_local().copy_(_placed(src, dst.device_mesh, dst.placements).to_local())
+
+
+def placed_like(x, like):
+    """``x`` with ``like``'s placements."""
+    return _placed(x, like.device_mesh, like.placements)
+
+
+def placed_as(local, like):
+    """A DTensor of ``local``, this device's shard of a tensor placed and
+    shaped as ``like``."""
+    return _rebuild(like, local, like.placements, like.shape)
+
+
+def local_value(x):
+    """A replicated DTensor's local value; anything else as it is."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def global_norm(leaves):
+    """sqrt of the fp32 sum of squares over DTensor ``leaves``: each
+    device's sum over its shards, every leaf's divided by the devices that
+    hold copies of its shards, summed over the whole mesh in one reduction."""
+    mesh = leaves[0].device_mesh
+    total = 0.0
+    for t in leaves:
+        copies = math.prod(n for n, p in zip(mesh.shape, t.placements) if not p.is_shard())
+        total = total + t.to_local().float().square().sum() / copies
+    return from_partial(total, leaves[0], list(range(mesh.ndim)), "sum", ()).sqrt()
+
+
+def _placed(x, mesh, placements):
+    """``x`` (a DTensor, or a plain tensor taken as replicated) with
+    ``placements``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def _vocab_dims(table, dim: int):
+    return [m for m, p in enumerate(table.placements) if p.is_shard() and p.dim == dim]
+
+
+def embed_lookup(table, tokens):
+    """``table[tokens]`` for a vocab-parallel DTensor ``table`` (V, D): the
+    table gathered over the FSDP axes, each device looking up the tokens in
+    its vocab rows (zeros for the others) on its local shard: the result is
+    a partial sum over the vocab's mesh dims, sharded by batch as
+    ``tokens``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    table = gather_fsdp(table)
+    mesh = table.device_mesh
+    vdims = _vocab_dims(table, 0)
+    table = _replicated(table, [m for m, p in enumerate(table.placements)
+                                if p.is_shard() and p.dim != 0])
+    tok_pl = [p if m not in vdims and p.is_shard() and p.dim == 0 else Replicate()
+              for m, p in enumerate(tokens.placements)]
+    tok_l = _placed(tokens, mesh, tok_pl).to_local()
+    tab_l = table.to_local()
+    rows = tab_l.shape[0]
+    li = tok_l.long() - shard_offset(table, 0, vdims)
+    hit = ((li >= 0) & (li < rows))[..., None]
+    out_l = tab_l[li.clamp(0, rows - 1)] * hit.to(tab_l.dtype)
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(
+        out_l, mesh, [Partial() if m in vdims else p for m, p in enumerate(tok_pl)],
+        run_check=False, shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
+def vocab_logprobs(logits, tokens):
+    """``algos.token_logprobs`` on DTensor logits (B, S, V) sharded on the
+    vocab: the max, the sum of exponentials and the picked logit computed
+    on each device's vocab columns and reduced over the vocab's mesh dims
+    (a max, then two sums, each of (B, S) values)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    logits = _replicated(logits, [m for m, p in enumerate(logits.placements)
+                                  if not p.is_shard() or p.dim not in (0, 2)])
+    mesh = logits.device_mesh
+    vdims = _vocab_dims(logits, 2)
+    rest = [p if m not in vdims else Replicate() for m, p in enumerate(logits.placements)]
+    shape = tuple(logits.shape[:2])
+
+    def reduced(local, op):
+        pl = [Partial(op) if m in vdims else p for m, p in enumerate(rest)]
+        t = DTensor.from_local(local, mesh, pl, run_check=False, shape=torch.Size(shape),
+                               stride=_contiguous_stride(shape))
+        return t.redistribute(mesh, rest).to_local()
+
+    lg = logits.to_local()
+    tok_l = _placed(tokens, mesh, rest).to_local()
+    mx = reduced(lg.amax(-1), "max")
+    logz = reduced((lg - mx[..., None]).exp().sum(-1), "sum").log()
+    cols = lg.shape[-1]
+    li = tok_l.long() - shard_offset(logits, 2, vdims)
+    hit = (li >= 0) & (li < cols)
+    picked = reduced(lg.gather(-1, li.clamp(0, cols - 1)[..., None])[..., 0]
+                     * hit.to(lg.dtype), "sum")
+    out = picked - (logz + mx)
+    return DTensor.from_local(out, mesh, rest, run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def from_partial(local, like, mesh_dims, op: str, global_shape=None):
+    """A DTensor of ``local``, each device's partial value of an ``op``
+    reduction over ``mesh_dims``, reduced there; placed as ``like``
+    elsewhere (``global_shape``: ``like``'s unless given; ``()``, a scalar,
+    is replicated)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    shape = tuple(like.shape) if global_shape is None else tuple(global_shape)
+    rest = [Replicate() if m in mesh_dims or not shape else p
+            for m, p in enumerate(like.placements)]
+    pl = [Partial(op) if m in mesh_dims else p for m, p in enumerate(rest)]
+    t = DTensor.from_local(local, like.device_mesh, pl, run_check=False,
+                           shape=torch.Size(shape), stride=_contiguous_stride(shape))
+    return t.redistribute(like.device_mesh, rest)

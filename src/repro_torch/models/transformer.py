@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import generator, resolve_device, torch_dtype
 from repro_torch.models import attention, ffn, moe, module, rglru, rwkv6
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.sharding import constrain_activation
 from repro_torch.quant import core as quant
 
@@ -198,15 +199,17 @@ def mlp_residual(p, cfg: ModelConfig, x, y, moe_mode: str = "ep"):
     and masked lanes take expert capacity, as in the reference) on its
     norm, added back.  Returns (x, aux: the MoE's router losses, or
     None)."""
-    x = x + y
+    x = shd.residual(x, y)
     h = module.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
         y, aux = moe.moe_apply(p["moe"], cfg, h, mode=moe_mode)
-        return x + y, aux
-    return x + ffn.mlp(p["mlp"], cfg, h), None
+        return shd.residual(x, y), aux
+    return shd.residual(x, ffn.mlp(p["mlp"], cfg, h)), None
 
 
 def _attn_block_apply(p, cfg: ModelConfig, x, positions, attn_impl, moe_mode="ep"):
+    if shd.ON_DTENSORS:
+        p = shd.gather_fsdp(p)
     x = constrain_activation(x)
     y = attention.self_attention(p["attn"], cfg,
                                  module.rmsnorm(p["ln1"], x, cfg.norm_eps),
@@ -216,6 +219,8 @@ def _attn_block_apply(p, cfg: ModelConfig, x, positions, attn_impl, moe_mode="ep
 
 def _attn_block_prefill(p, cfg: ModelConfig, x, positions, cache, *, valid=None,
                         moe_mode="ep"):
+    if shd.ON_DTENSORS:
+        p = shd.gather_fsdp(p)
     y, _ = attention.prefill_attention(
         p["attn"], cfg, module.rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
         cache, valid=valid)
@@ -224,6 +229,8 @@ def _attn_block_prefill(p, cfg: ModelConfig, x, positions, cache, *, valid=None,
 
 def _attn_block_decode(p, cfg: ModelConfig, x, pos, cache, *, attn_impl,
                        moe_mode="ep"):
+    if shd.ON_DTENSORS:
+        p = shd.gather_fsdp(p)
     y, _ = attention.decode_attention(
         p["attn"], cfg, module.rmsnorm(p["ln1"], x, cfg.norm_eps), pos, cache,
         attn_impl=attn_impl)
@@ -231,13 +238,15 @@ def _attn_block_decode(p, cfg: ModelConfig, x, pos, cache, *, attn_impl,
 
 
 def _rglru_block_apply(p, cfg: ModelConfig, x, state, *, decode: bool, attn_impl):
+    if shd.ON_DTENSORS:
+        p = shd.gather_fsdp(p)
     if not decode:
         x = constrain_activation(x)
     fn = rglru.recurrent_step if decode else rglru.recurrent_block
     y, state = fn(p["rec"], cfg, module.rmsnorm(p["ln1"], x, cfg.norm_eps), state,
                   attn_impl=attn_impl)
-    x = x + y
-    x = x + ffn.mlp(p["mlp"], cfg, module.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    x = shd.residual(x, y)
+    x = shd.residual(x, ffn.mlp(p["mlp"], cfg, module.rmsnorm(p["ln2"], x, cfg.norm_eps)))
     return x, state
 
 
@@ -259,7 +268,8 @@ def _hybrid_layer(lp, cfg: ModelConfig, x, cache: HybridCache, i: int, *,
 
 
 def unembedding_matrix(params, cfg: ModelConfig):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return shd.gather_fsdp(head) if shd.ON_DTENSORS else head
 
 
 def _unembed(params, cfg: ModelConfig, x):
@@ -271,7 +281,10 @@ def _embed(params, cfg: ModelConfig, tokens, prefix_embeds=None):
     """Token embeddings; a VLM's scaled by sqrt(d_model) rounded to their
     dtype first (bf16: 45.25 at d_model 2048), with ``prefix_embeds`` (B,
     P, D) cast to that dtype and put before the tokens."""
-    x = params["embed"][tokens]
+    if shd.ON_DTENSORS:
+        x = shd.embed_lookup(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens]
     if cfg.family == "vlm":
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
         if prefix_embeds is not None:
@@ -337,20 +350,21 @@ def lm_apply(params, cfg: ModelConfig, tokens, *, positions=None,
     auxs = []
     if cfg.family in ATTENTION_FAMILIES:
         if positions is None:
-            positions = _default_positions(b, s, x.device)
+            positions = shd.batched(x, lambda n: _default_positions(n, s, x.device))
         block = remat_block(_attn_block_apply, remat)
         for lp in params["blocks"]:
             x, aux = block(lp, cfg, x, positions, attn_impl, moe_mode)
             auxs.append(aux)
     elif cfg.family == "ssm":
-        state0 = rwkv6.init_rwkv_state(cfg, b, x.device)
+        state0 = shd.batched(x, lambda n: rwkv6.init_rwkv_state(cfg, n, x.device), dim=1)
         block = remat_block(_rwkv_block_apply, remat)
         for i, lp in enumerate(params["blocks"]):
             x, _ = block(lp, cfg, x, state0.layer(i), attn_impl=scan_impl)
     else:
         if positions is None:
-            positions = _default_positions(b, s, x.device)
-        state0 = rglru.init_rglru_state(cfg, b, x.device).layer(0)
+            positions = shd.batched(x, lambda n: _default_positions(n, s, x.device))
+        state0 = shd.batched(x, lambda n: rglru.init_rglru_state(cfg, n, x.device),
+                             dim=1).layer(0)
         attn_block = remat_block(_attn_block_apply, remat)
         rglru_block = remat_block(_rglru_block_apply, remat)
         for lp, (kind, _) in zip(params["blocks"], layer_kinds(cfg)):
@@ -376,6 +390,10 @@ def _last_position_logits(params, cfg: ModelConfig, x, valid):
         last = torch.full((b,), s - 1, dtype=torch.int64, device=x.device)
     else:
         last = torch.clamp(valid.sum(dim=1) - 1, min=0)
+    if shd.ON_DTENSORS:
+        # the hybrid's stream is sequence-parallel: DTensor gathers a
+        # sharded dim by masked partials, which not every version reduces
+        x = shd.batch_only(x)
     x_last = torch.gather(x, 1, last[:, None, None].expand(b, 1, x.shape[2]))
     x_last = module.rmsnorm(params["final_norm"], x_last, cfg.norm_eps)[:, 0]
     return (x_last @ unembedding_matrix(params, cfg)).float()
@@ -398,12 +416,14 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache, *, prefix_embeds=None,
     _check_family(cfg)
     _check_impl(attn_impl)
     x = _embed(params, cfg, tokens, prefix_embeds)
+    if shd.ON_DTENSORS:
+        x = shd.batch_only(x)
     b, s, _ = x.shape
     if valid is not None and valid.shape[1] != s:     # a VLM's image prefix
         valid = torch.cat([torch.ones((b, s - valid.shape[1]), dtype=torch.bool,
                                       device=valid.device), valid.bool()], dim=1)
     if cfg.family in ATTENTION_FAMILIES:
-        positions = _default_positions(b, s, x.device)
+        positions = shd.batched(x, lambda n: _default_positions(n, s, x.device))
         for i, lp in layers(params):
             x = _attn_block_prefill(lp, cfg, x, positions, cache.layer(i),
                                     valid=valid, moe_mode=moe_mode)
@@ -412,7 +432,7 @@ def lm_prefill(params, cfg: ModelConfig, tokens, cache, *, prefix_embeds=None,
             x, st = rwkv6.block(lp, cfg, x, cache.layer(i), attn_impl=attn_impl)
             cache.write_layer(i, st)
     else:
-        positions = _default_positions(b, s, x.device)
+        positions = shd.batched(x, lambda n: _default_positions(n, s, x.device))
         for i, lp in layers(params):
             x = _hybrid_layer(lp, cfg, x, cache, i, positions=positions,
                               attn_impl=attn_impl)
@@ -426,6 +446,8 @@ def lm_decode_step(params, cfg: ModelConfig, token, pos, cache, *,
     _check_family(cfg)
     _check_impl(attn_impl)
     x = _embed(params, cfg, token)[:, None, :]
+    if shd.ON_DTENSORS:
+        x = shd.batch_only(x)
     if cfg.family in ATTENTION_FAMILIES:
         for i, lp in layers(params):
             x = _attn_block_decode(lp, cfg, x, pos, cache.layer(i),

@@ -17,6 +17,8 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from repro_torch.models import sharding as shd
+
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -75,7 +77,13 @@ def adamw_update(grads, opt_state, cfg: OptConfig, param_dtypes=None):
     step = opt_state["step"] + 1
     lr = cfg.learning_rate * min(1.0, step / max(cfg.warmup_steps, 1))
 
-    gnorm = global_norm(grads)
+    if shd.ON_DTENSORS:
+        # each gradient reduced to its master's placements, the norm's sum
+        # of squares one reduction over the mesh
+        grads = tree_map(shd.placed_like, grads, opt_state["master"])
+        gnorm = shd.global_norm(tree_leaves(grads))
+    else:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip else 1.0)
     b1, b2 = cfg.b1, cfg.b2
@@ -89,6 +97,15 @@ def adamw_update(grads, opt_state, cfg: OptConfig, param_dtypes=None):
     # holds ~0.8 B elements); the arithmetic is elementwise, so slicing
     # changes no bit
     def upd_leaf(master, m, v, g, dt):
+        if shd.ON_DTENSORS:
+            # elementwise: each device updates its own shards
+            like = master
+            master, m, v, g = (t.to_local() for t in (master, m, v, g))
+            new = upd_local(master, m, v, g, dt, shd.local_value(scale))
+            return shd.placed_as(new, like)
+        return upd_local(master, m, v, g, dt, scale)
+
+    def upd_local(master, m, v, g, dt, scale):
         flat = (master.view(-1), m.view(-1), v.view(-1), g.reshape(-1))
         for lo in range(0, flat[0].numel(), _SLICE):
             ms, mo, vo, gs = (t[lo:lo + _SLICE] for t in flat)

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.algos import LossConfig, rl_loss, token_logprobs
 from repro_torch.core.types import Sample
+from repro_torch.models import sharding as shd
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.transformer import unembedding_matrix
 from repro_torch.train.optimizer import (OptConfig, adamw_update, init_opt_state,
@@ -44,7 +45,7 @@ _CE_CHUNK = 512
 
 def _unembed_matrix(api: ModelAPI, params):
     if api.cfg.family == "audio":
-        return params["lm_head"]
+        return shd.gather_fsdp(params["lm_head"]) if shd.ON_DTENSORS else params["lm_head"]
     return unembedding_matrix(params, api.cfg)
 
 
@@ -157,8 +158,13 @@ def make_train_step(api: ModelAPI, loss_cfg: LossConfig, opt_cfg: OptConfig,
             acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             losses, metricses = [], []
             for j in range(m):
-                mb = {k: v[j * n // m:(j + 1) * n // m] for k, v in batch.items()}
+                if shd.ON_DTENSORS:
+                    mb = {k: shd.microbatch(v, j, m) for k, v in batch.items()}
+                else:
+                    mb = {k: v[j * n // m:(j + 1) * n // m] for k, v in batch.items()}
                 loss_j, metrics_j, g = loss_and_grad(params, mb)
+                if shd.ON_DTENSORS:
+                    g = tree_map(shd.placed_like, g, acc)
                 tree_map(lambda a, gi: a.add_(gi.float() / m), acc, g)
                 del g
                 losses.append(loss_j)

@@ -298,9 +298,11 @@ FAMILY_COMBOS = [("qwen3-4b", "train_4k"), ("qwen3-moe-235b-a22b", "train_4k"),
 def test_run_combo_on_a_fake_4x4_group(arch, shape_name, meshes):
     """One combo per family through ``run_combo`` on 16 ranks of the fake
     group (4 x 4) at tiny size: status ok, per-device arguments the shard
-    bytes of a batch split four ways, FLOPs the global count / 16, and the
-    numbers a 16-device mesh cannot give null with their reasons."""
-    _, cfg, sh = _tiny_combo(arch, shape_name, global_batch=4)
+    bytes of a batch split four ways, FLOPs and bytes accessed the global
+    counts / 16, and the partitioned step's temp, peak and collectives (the
+    MoE train step's 4 microbatches take 16 rows: one a device each)."""
+    batch = 16 if arch == "qwen3-moe-235b-a22b" and shape_name == "train_4k" else 4
+    _, cfg, sh = _tiny_combo(arch, shape_name, global_batch=batch)
     mesh = DeviceMesh("cpu", torch.arange(16).reshape(4, 4), mesh_dim_names=("data", "model"))
     rec = dryrun.run_combo(arch, shape_name, "4x4", mesh=mesh, cfg=cfg, shape=sh,
                            save=False, verbose=False)
@@ -311,44 +313,45 @@ def test_run_combo_on_a_fake_4x4_group(arch, shape_name, meshes):
                             save=False, verbose=False)
     assert unit["flops_global"] == rec["flops_global"]
     assert 0 < rec["memory"]["argument_bytes"] < unit["memory"]["argument_bytes"]
-    # the partitioned run's numbers, or DTensor's refusal as their reason
-    if rec["collectives"] is None:
-        assert rec["memory"]["peak_bytes"] is None
-        assert rec["nulls"]["collectives"] == rec["nulls"]["peak_bytes"]
-        assert rec["nulls"]["collectives"].startswith(("DTensor could not run",
-                                                       "DTensor's partitioned step"))
-    else:
-        assert rec["memory"]["peak_bytes"] == (rec["memory"]["argument_bytes"]
-                                               + rec["memory"]["temp_bytes"])
+    assert rec["bytes_accessed"] == rec["bytes_accessed_global"] / 16 > 0
+    assert unit["bytes_accessed_global"] == rec["bytes_accessed_global"]
+    # the partitioned run's numbers, every one
+    assert set(rec["nulls"]) == {"compile_s"}, rec["nulls"]
+    assert rec["memory"]["temp_bytes"] > 0
+    assert rec["memory"]["peak_bytes"] == (rec["memory"]["argument_bytes"]
+                                           + rec["memory"]["temp_bytes"])
+    assert rec["collectives"]["count"] > 0
+    assert sum(rec["collectives_by_axis"].values()) == sum(
+        rec["collectives"][k] for k in dryrun._COLLECTIVES)
 
 
 @pytest.mark.parametrize("arch,shape_name,mesh_shape", [
     ("rwkv6-3b", "prefill_32k", (4, 1)), ("qwen3-4b", "decode_32k", (4, 4))])
 def test_partitioned_trace_on_a_fake_group(arch, shape_name, mesh_shape, meshes):
     """The step on DTensors over the fake group, the reference's activation
-    spec installed: on a data-only mesh it runs, and each device's temp
-    bytes are below one device's on the unit mesh, with the collectives
-    the batch split issues; where
-    DTensor refuses an op, the numbers are null with its error and the
-    port's line.  The activation spec is cleared after either."""
-    _, cfg, sh = _tiny_combo(arch, shape_name, global_batch=4)
+    spec installed: each device's temp bytes are below one device's on the
+    unit mesh, with the all-gathers the batch split issues (the FSDP
+    weights) and, on a model axis, collectives on it (the tiny config's 2
+    KV heads do not split 4 ways: the heads are gathered there).  The
+    activation spec and the partitioned flag are cleared after."""
+    # a model axis gathers each layer's weights too: a batch of 256 rows
+    # keeps the activations over them
+    _, cfg, sh = _tiny_combo(arch, shape_name, global_batch=4 if mesh_shape[1] == 1 else 256)
     mesh = DeviceMesh("cpu", torch.arange(16)[:math.prod(mesh_shape)].reshape(mesh_shape),
                       mesh_dim_names=("data", "model"))
     rec = dryrun.run_combo(arch, shape_name, "part", mesh=mesh, cfg=cfg, shape=sh,
                            save=False, verbose=False)
     assert rec["status"] == "ok", rec.get("traceback")
-    assert shd._ACTIVATION_SPEC[0] is None
-    if mesh_shape[1] > 1:
-        assert rec["collectives"] is None and rec["memory"]["temp_bytes"] is None
-        # the tiny config's 2 KV heads do not split over a 4-way model axis
-        assert rec["nulls"]["collectives"].startswith("DTensor could not run")
-        assert "at repro_torch/models/attention.py:" in rec["nulls"]["collectives"]
-        return
+    assert shd._ACTIVATION_SPEC[0] is None and not shd.ON_DTENSORS
     unit = dryrun.run_combo(arch, shape_name, "host", mesh=meshes["1x1"], cfg=cfg, shape=sh,
                             save=False, verbose=False)
     coll = rec["collectives"]
     assert 0 < rec["memory"]["temp_bytes"] < unit["memory"]["temp_bytes"]
     assert coll["count"] > 0 and coll["all-gather"] > 0
+    assert rec["collectives_by_axis"]["data"] > 0
+    if mesh_shape[1] > 1:
+        assert rec["collectives_by_axis"]["model"] > 0
+        assert "2 KV heads do not split 4 ways" in rec["method"]["layout"]
 
 
 def test_partitioned_trace_over_its_budget_is_null_with_its_reason(meshes, monkeypatch):
@@ -359,14 +362,21 @@ def test_partitioned_trace_over_its_budget_is_null_with_its_reason(meshes, monke
     assert part["why"].startswith("DTensor's partitioned step did not finish within 0.001 s")
 
 
-def test_rwkv_train_step_past_the_serial_budget_is_null_with_its_reason(meshes):
+def test_rwkv_train_step_is_extended_from_short_lengths(meshes):
+    """RWKV-6's train step differentiates the plain WKV scan, one Python
+    step per token and layer: its full trace (4,096 x 32 steps) is not
+    made, and its FLOPs and bytes come from traces at ``_SERIAL_LENGTHS``,
+    extended; on one device its temp bytes stay null with the reason."""
     rec = dryrun.run_combo("rwkv6-3b", "train_4k", "host", mesh=meshes["1x1"],
                            save=False, verbose=False,
                            trace=dryrun.trace_step(REGISTRY["rwkv6-3b"], SHAPES["train_4k"],
                                                    memory=False, extend=True))
-    assert rec["status"] == "ok" and rec["flops"] is None
-    assert "WKV" in rec["nulls"]["flops"]
+    assert rec["status"] == "ok" and rec["flops"] > 0 and rec["bytes_accessed"] > 0
+    assert "515 and 516 tokens" in rec["method"]["flops"]
+    assert "flops" not in rec["nulls"] and "bytes_accessed" not in rec["nulls"]
     assert rec["memory"]["argument_bytes"] > 0 and rec["memory"]["output_bytes"] > 0
+    full = dryrun.trace_step(REGISTRY["rwkv6-3b"], SHAPES["train_4k"], memory=True)
+    assert full["flops_global"] is None and "WKV" in full["why"]
 
 
 def test_skipped_combo_keeps_the_reference_reason():
