@@ -20,9 +20,9 @@ no result):
    KV=8, S=512, D=128) in bf16 and fp32, an odd one (S=300, G=4, D=64,
    window 128, softcap 30), G x D = 2,048 (H=32 over KV=2), PaliGemma's
    group (G=8, D=256) and head_dim 120 (window 128, softcap 30) in bf16
-   and fp32; the bf16 kernels must show tensor-core MMAs in their SASS
-   (HMMA, ``mma.sync``, on the causal route; HGMMA, ``wgmma``, on the
-   non-causal one), and the build's registers and spills are printed.  Both kernels
+   and fp32; every bf16 flash kernel (one route, ``wgmma`` + TMA, causal or
+   not) must show HGMMA and no HMMA in its SASS, every bf16 backward gives
+   the same bits twice, and the build's registers and spills are printed.  Both kernels
    also at the shapes the pipeline phases give them (``_pipeline_shapes``:
    Qwen3-1.7B's replicas of 8 slots over 4 pages and its 16 x 64 train
    step; the command line's rl_100m with an int8 pool).
@@ -117,7 +117,7 @@ no result):
    ``pipeline_rlvr`` (``build_rlvr_pipeline(...).run``, full-width,
    full-depth Qwen3-1.7B in bf16, two replicas of 8 slots behind the
    ``ProxyRouter``, 16 samples a step; alpha = 1 with overlapped weight
-   sync, then alpha = 0, 4 steps each; exact paged-decode and flash
+   sync, then alpha = 0, 3 steps each; exact paged-decode and flash
    launches, staleness <= alpha, the engines hold the trainer's final
    tree, clean page audits; then a traced run of each mode: device idle
    share and the threads' CPU seconds), ``pipeline_agentic``
@@ -710,9 +710,10 @@ def phase_flash_kernels() -> list:
     (G x D = 2,048), PaliGemma's group (G=8, D=256) and H2O-Danube-3's
     head_dim 120 (window 128, softcap 30) in bf16 and fp32, and fp32 at
     the four archs' groups the first fp32 route refused (``FP32_GROUPS``).
-    The bf16 kernels must compute with tensor-core MMAs (HMMA or, on the
-    non-causal wgmma route, HGMMA in their SASS), the fp32 ones with TF32
-    HMMA; registers and spills from the build's report.  The pipeline
+    The bf16 kernels (the wgmma route, every mask and head_dim instance)
+    must compute with wgmma (HGMMA in their SASS, and no HMMA), the fp32
+    ones with TF32 HMMA; registers and spills from the build's report.
+    Every bf16 and every timed fp32 backward runs twice for the same bits.  The pipeline
     phases' train steps (``_pipeline_shapes``) in their dtype.  Then the
     times of the bf16 trainer-shape case, and of the fp32 cases
     (``FP32_TIMED``: kernel, plain, SDPA's fp32 call, the 3xTF32 bound)."""
@@ -738,23 +739,22 @@ def phase_flash_kernels() -> list:
             (phase, *shape["flash"][:5], getattr(torch, shape["flash"][5]), None, None)
             for phase, shape in _pipeline_shapes().items()]:
         case = _flash_case(gen, label, b, h, kv, s, d, dtype, window, softcap)
+        if dtype == bf16 or label in FP32_TIMED:
+            _flash_repeat_check(label, case, True, window, softcap)
         if label == "train_bf16":
             main = case
         elif label in FP32_TIMED:
-            _flash_repeat_check(label, case, True, window, softcap)
             fp32_cases[label] = (case, window, softcap)
     registers = _ptxas_registers("flash_attention")
     hmma = _sass_hmma("flash_attention")
     emit("kernels", kernel="flash_attention", case="build", registers=registers, hmma=hmma)
-    # the bf16 kernels: mma.sync (causal) and wgmma (non-causal, which must
-    # show HGMMA); either instruction holds a kernel to the tensor cores
-    tensor_core = {fn: n for fn, n in hmma.items() if "_bf16_kernel" in fn or "_wgmma_kernel" in fn}
-    wgmma = {fn: n for fn, n in tensor_core.items() if "_wgmma_kernel" in fn}
-    if (len(tensor_core) < 6 or len(wgmma) < 3
-            or not all(n["hmma"] or n["hgmma"] for n in tensor_core.values())
-            or not all(n["hgmma"] for n in wgmma.values())):
-        raise AssertionError(f"flash_attention: bf16 kernels without tensor-core MMAs: "
-                             f"{tensor_core}")
+    # the bf16 kernels, all on the wgmma route (forward, dQ and dK/dV at the
+    # three head_dim instances, causal and not): HGMMA in each, HMMA
+    # (mma.sync) in none
+    wgmma = {fn: n for fn, n in hmma.items() if "_wgmma_kernel" in fn}
+    if (len(wgmma) != 18 or any("_bf16_kernel" in fn for fn in hmma)
+            or not all(n["hgmma"] and not n["hmma"] for n in wgmma.values())):
+        raise AssertionError(f"flash_attention: bf16 kernels not on wgmma alone: {wgmma}")
     # the fp32 kernels (forward, dQ, dK/dV at three instances): 3xTF32
     f32 = {fn: n for fn, n in hmma.items()
            if re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_f32(_pair)?_kernel", fn)}
@@ -773,9 +773,10 @@ def phase_flash_kernels() -> list:
                      "replaces": "src/repro/kernels/flash_attention.py:108",
                      "variant": ("backward: delta, dK/dV and dQ kernels (the TPU had none); "
                                  if backward else "forward, O and lse; ")
-                                + "bf16 on tensor cores (causal: mma.sync m16n8k16; "
-                                  "causal=False: wgmma + TMA), fp32 as 3xTF32 on "
-                                  "tensor cores (mma.sync m16n8k8, three MMAs a product)",
+                                + "bf16 on the wgmma route (wgmma + TMA, a producer "
+                                  "warp, every mask and head_dim 64 / 128 / 256), "
+                                  "fp32 as 3xTF32 on tensor cores (mma.sync m16n8k8, "
+                                  "three MMAs a product)",
                      "launches": None, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                      "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_detail": detail, "library_ms": lib, "library_call": call,
@@ -2990,8 +2991,11 @@ PIPE = dict(num_slots=16, rollout_batch_size=16, num_return_sequences_in_group=4
             max_new_tokens=32, max_seq_len=64, page_size=16, prefill_chunk=16,
             pg_variant="decoupled_ppo", num_rollout_replicas=2,
             weight_sync="overlapped", seed=SEED)
-PIPE_STEPS = 4
-TRACE_STEPS = 3         # the traced runs: steps 1 and 2 under the profiler
+# cut from 4 and 3 steps to keep the whole run inside its time limit on a
+# slow host (its host-bound phases ran 20-30% longer on one card's machine
+# than on another's)
+PIPE_STEPS = 3
+TRACE_STEPS = 2         # the traced runs: step 1 under the profiler
 # the agentic pipeline: 2 env groups of 4 GridTargetEnvs (3 turns at most),
 # 2 steps of 8 trajectories
 AGENTIC = dict(num_env_groups=2, group_size=4, max_env_steps=3, steps=2)
@@ -3300,8 +3304,8 @@ def _trace_pipeline(phase: str, pipe, steps: int, gpu: str) -> dict:
 def phase_pipeline_rlvr(gpu: str) -> dict:
     """``build_rlvr_pipeline(...).run`` on full-width, full-depth Qwen3-1.7B,
     bf16: two replicas, overlapped weight sync at alpha = 1, then the
-    synchronous baseline (alpha = 0, the paper's switch), 4 steps each.
-    Then one traced run of 3 steps in each mode (``_trace_pipeline``)."""
+    synchronous baseline (alpha = 0, the paper's switch), 3 steps each.
+    Then one traced run of 2 steps in each mode (``_trace_pipeline``)."""
     torch = _torch()
     from repro_torch.configs import get_config
     from repro_torch.launch.pipeline import PipelineSettings, build_rlvr_pipeline
@@ -4224,8 +4228,8 @@ def phase_vlm_audio_kernels(rows: list, gpu: str) -> None:
     (``_slice12_shapes``).  The first eight cases, PaliGemma's train step
     (causal, G=8, D=256, S=512) and Seamless' decoder (causal, S=256) are
     timed into the rows' ``vlm_audio_shapes``.  Every ``causal=False``
-    backward (bf16: the wgmma route; fp32: 3xTF32) runs twice and must give
-    the same bits."""
+    backward and every bf16 one (bf16: the wgmma route; fp32: 3xTF32) runs
+    twice and must give the same bits."""
     torch = _torch()
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
@@ -4245,8 +4249,8 @@ def phase_vlm_audio_kernels(rows: list, gpu: str) -> None:
     for label, b, h, kv, s, d, dtype, causal in flash_cases:
         case = _flash_case(gen, label, b, h, kv, s, d, getattr(torch, dtype), None, None,
                            causal=causal)
-        if not causal:
-            _flash_repeat_check(label, case)
+        if not causal or dtype == "bfloat16":
+            _flash_repeat_check(label, case, causal)
         if label not in timed_flash:
             del case
             continue

@@ -43,67 +43,33 @@
 // visible pair instead of 10 D, the price of determinism without atomics.
 //
 // Routes, by the wrapper's choice (kernels/flash_attention.py: `route`,
-// from the dtype, `causal` and the head_dim instance alone; `dispatch`
-// refuses inputs that are not the route's own):
+// from the dtype alone; `dispatch` refuses a code it has no kernels for):
 //
-// * bf16, causal=False, head_dim up to 128: `wgmma` and TMA
-//   (flash_attention_sm90.cuh, whose note has the design): one block per
-//   192 query rows at D = 64 (128 at D = 128) in the forward, 128 query
-//   rows in dQ, 128 keys in dK/dV; consumer warpgroups of 64 rows and a
-//   producer warpgroup keeping a ring of 64-row tiles in flight with TMA
-//   and mbarriers; S on `wgmma` with both operands in shared memory, P
-//   rounded to bf16 in registers as the A operand of the next `wgmma`.
-//   The shapes this route runs are bound by the operations, where this
-//   file's `mma.sync` kernels (~2/3 of wgmma's rate, 64-row blocks that
-//   re-read K and V 16 times per head at S = 1,024) lost 3x to SDPA.
-// * bf16, causal (and non-causal head_dim 256, which no path runs):
-//   `mma.sync.m16n8k16` (bf16 in, fp32 accumulate) through inline PTX,
-//   operands brought from shared memory by `ldmatrix` (`.trans` where the
-//   product needs the tile's transpose).  The causal shapes the trainer
-//   runs are bound by bytes, where mma.sync's rate already puts the
-//   operations under that bound; what matters is keeping the tensor cores
-//   fed.
-//   Forward: one block of 4 warps per (query head, batch, query tile of 64
-//   rows), 16 rows per warp.  Q is staged once in shared memory and its
-//   fragments re-read by ldmatrix for each key tile; K and V tiles of 32
-//   keys stream through a 2-stage cp.async ring (`src-size` 0 zero-fills
-//   the head_dim tail and rows past S); rows are padded by 16 bytes so
-//   that ldmatrix meets no bank conflicts.  (On the card, at the trainer's
-//   shape, this shape ran faster than 128-row blocks of 4 warps x 32 rows,
-//   which spill, than 8 warps, than 64-key tiles, and no slower than Q's
-//   fragments held in registers, which spill at D = 256.)  S = Q K^T
-//   accumulates in fp32 fragments; scale, softcap, mask and the online
-//   softmax run on the fragments (quad shuffles for the row max; the row
-//   sum is reduced once, at the end); P is rounded to bf16 in registers and
-//   fed straight back as the A operand of O += P V (the m16n8 accumulator
-//   layout is the m16n8k16 A layout), as the TPU kernel casts P to v.dtype
-//   (:82).  Only tiles that cut the diagonal, the window edge or S pay for
-//   element masks, and a warp skips a tile that none of its rows can see.
-//   A block holds one query head, so G x D is unbounded; blockIdx.x is the
-//   head, so the G heads of a KV group are neighbouring blocks and share
-//   K/V through L2, and the heaviest query tiles (the latest, under
-//   causality) launch first.
-//   Backward: a dK/dV kernel per (KV head, batch, key tile of 64; D = 256
-//   splits the output columns over two blocks), 4 warps of 16 keys, K and
-//   V staged once, Q, dO, lse and delta streaming through the ring over
-//   the G heads and the query tiles that see the tile: per step
-//   dP^T = V dO^T, S^T = K Q^T, P^T = exp(S^T - lse), dS^T = P^T (dP^T -
-//   delta) (x (1 - t^2) under a softcap), dV += P^T dO, dK += dS^T Q.  A dQ
-//   kernel per (head, batch, query tile of 64): S, dP, dS as above and
-//   dQ += dS K over key tiles of 32.  P and dS are rounded to bf16 as MMA
-//   operands; the accumulators stay fp32.
+// * bf16, every mask and head_dim instance (64, 128, 256): `wgmma` and TMA
+//   (flash_attention_sm90.cuh, whose note has the design).  Consumer
+//   warpgroups of 64 rows, 1-3 a block, and a producer warp keeping a
+//   ring of 64-row tiles in flight with TMA and mbarriers; S on `wgmma`
+//   with both operands in shared memory, P rounded to bf16 in registers as
+//   the A operand of the next `wgmma`.  Under causality a block's keys end
+//   at its last row's diagonal and only the diagonal's tile pays for
+//   masks.  What held the causal shapes on the earlier `mma.sync` kernels
+//   (0.07 ms forward against a 15 us byte bound at the trainer's shape)
+//   was not the roofline but latency: copies and products serialised in
+//   each warp, 32-key tiles, ~2/3 of wgmma's rate; the producer / consumer
+//   split and 64-key tiles address that, and the operation-bound Seamless
+//   encoder needs wgmma's rate as well.
 // * fp32: error-compensated TF32 ("3xTF32") on `mma.sync.m16n8k8`: each
 //   fp32 operand split into hi + lo TF32 parts, each product three MMAs
 //   (the fp32 section below has the design).  The fp32 CUDA cores peak at
 //   67 TFLOP/s, TF32 tensor cores at 495: with three MMAs a product the
 //   bound of fp32-exact products is 165, which Seamless' encoder shape
-//   meets in the operations.  The blocks are the bf16 route's (one query
-//   head per block, any group size), tiles stream through a cp.async ring,
-//   dK/dV cuts each key tile's (query head, query tile) steps into even
-//   parts over the grid (fp32 partials summed in a fixed order), and from
-//   D = 128 the backward runs warp pairs.
+//   meets in the operations.  One query head per block (any group size),
+//   tiles stream through a cp.async ring, dK/dV cuts each key tile's
+//   (query head, query tile) steps into even parts over the grid (fp32
+//   partials summed in a fixed order), and from D = 128 the backward runs
+//   warp pairs.
 //
-// A small kernel computes delta = rowsum(dO * O) first, on every route (on
+// A small kernel computes delta = rowsum(dO * O) first, on both routes (on
 // the wgmma route it also writes lse * log2 e, padded, beside it).
 
 #include <cuda.h>   // CUtensorMap; the encoder is reached through the runtime (no -lcuda)
@@ -203,20 +169,13 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restr
 }
 
 // ===========================================================================
-// bf16 route: tensor cores (mma.sync m16n8k16, ldmatrix, cp.async)
+// shared by the routes: cp.async, ldmatrix, bf16 packing
 // ===========================================================================
 
-// Block shapes (see the note at the top): every bf16 kernel runs 4 warps,
-// each warp 16 query rows (forward, dQ) or 16 keys (dK/dV); the tiles that
-// stream through the ring are 32 keys (forward, dQ) or 64 queries (dK/dV).
+// The fp32 route's blocks (see the note at the top) run 4 warps, each warp
+// 16 query rows (forward, dQ) or 16 keys (dK/dV).
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kFwdBK = 32;
-constexpr int kDqKeyTile = 32;
-constexpr int kDkvQueryTile = 64;
-// dK/dV blocks per key tile: at D = 256 two, each with half the output
-// columns, so that both accumulators fit in registers
-__host__ __device__ constexpr int dkv_split(int d) { return d <= 128 ? 1 : 2; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -249,71 +208,10 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
                : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two floats as a bf16x2 register, lo in the low half (the lower column).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment addressing (m16n8k16; lane = 4 * g + c, g = lane / 4, c = lane % 4):
-//   A 16x16: a0 (g, 2c..), a1 (g + 8, 2c..), a2 (g, 2c + 8..), a3 (g + 8, 2c + 8..)
-//   B 16x8:  b0 (k 2c.., n g), b1 (k 2c + 8.., n g)
-//   C 16x8:  c0, c1 (g, 2c..); c2, c3 (g + 8, 2c..)
-// So a C fragment pair (n tiles 2j, 2j + 1), rounded to bf16, is the A
-// fragment of the k16 step j.
-
-// A fragment of rows [r0, r0 + 16), columns [k0, k0 + 16) of a row-major
-// shared tile with pitch P.
-template <int P>
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile, int r0, int k0, int lane) {
-  ldsm_x4(a, tile + (r0 + (lane & 15)) * P + k0 + (lane >> 4) * 8);
-}
-
-// B fragments of two n tiles (rows n0..n0+15 of the tile are the n index,
-// columns k0..k0+15 the k index): b[0], b[1] for n0, b[2], b[3] for n0 + 8.
-// For S = Q K^T with K stored (key, d).
-template <int P>
-__device__ __forceinline__ void load_b(uint32_t* b, const bf16* tile, int n0, int k0, int lane) {
-  ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * P + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of two n tiles from a tile stored (k, n): rows k0..k0+15 are
-// the k index, columns n0..n0+15 the n index (b[0], b[1] for n0; b[2],
-// b[3] for n0 + 8).  For O += P V with V stored (key, d).
-template <int P>
-__device__ __forceinline__ void load_b_trans(uint32_t* b, const bf16* tile, int k0, int n0,
-                                             int lane) {
-  ldsm_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + n0 + (lane >> 4) * 8);
-}
-
-// Rows [row0, row0 + ROWS) of one (batch, head)'s (S, dh) matrix into a
-// shared tile of pitch D + 8, asynchronously; zeros past S and past dh.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long long stride,
-                                                int row0, int S, int dh) {
-  constexpr int CPR = D / 8;   // 16-byte chunks per row
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * CPR; i += kThreads) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 8;
-    const bool ok = row0 + r < S && c < dh;
-    cp_async16(dst + r * (D + 8) + c, ok ? src + (long long)(row0 + r) * stride + c : src, ok);
-  }
 }
 
 // rows [row0, row0 + ROWS) of a (S,) fp32 vector, asynchronously; 0 past S.
@@ -325,193 +223,59 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src, in
   }
 }
 
-// The non-causal route (wgmma + TMA), with its own note.
+// The bf16 route (wgmma + TMA), with its own note.
 #include "flash_attention_sm90.cuh"
 
-// ---------------------------------------------------------------------------
-// bf16 forward
-// ---------------------------------------------------------------------------
+// ===========================================================================
+// fp32 route: error-compensated TF32 on the tensor cores (mma.sync m16n8k8)
+// ===========================================================================
+//
+// Every fp32 operand x is split into two TF32 values, hi = rna(x) and
+// lo = x - hi, and a product a b is formed as al bh + ah bl + ah bh by
+// three `mma.sync.m16n8k8` TF32 MMAs accumulating in fp32 ("3xTF32"): the
+// dropped al bl and lo's TF32 precision leave ~2^-21 of each product, well
+// inside the fp32 gates (2e-5).  The split is integer work on the CUDA
+// cores (`split_tf32`); it and the MMAs bound the kernels, not memory.
+// Scale, softcap, masks, the online softmax, lse and delta stay fp32 on
+// the CUDA cores.  Blocks of 4 warps of 16
+// rows, one query head per block in the forward and
+// dQ (any group size), one KV head and a share of its group's query heads
+// in dK/dV; tiles stream through a 2-stage cp.async ring into shared memory
+// padded by 4 floats a row (no bank conflicts for ldmatrix or for the
+// column reads of `ldb_kn_f32`).
+//
+// Fragments (m16n8k8 TF32; lane = 4 g + c, g = lane / 4, c = lane % 4):
+//   A 16x8:  a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4)
+//   B 8x8:   b0 (k c, n g), b1 (k c + 4, n g)
+//   C 16x8:  c0, c1 (g, 2c..); c2, c3 (g + 8, 2c..)
+// An 8x8 b16 ldmatrix tile is an 8x4 fp32 one whose float (i / 4, i % 4) is
+// lane i's register, so A and B fragments of a row-major fp32 tile load by
+// ldmatrix.x4.  A C fragment is not an A fragment, but a product's k order
+// is free: taking the 8 keys of an n tile in the order 0, 2, 4, 6, 1, 3,
+// 5, 7, the scores' fragment {c0, c2, c1, c3} is the A fragment of P V,
+// with B read at rows 2c and 2c + 1 (`c_to_a`, `ldb_kn_f32`).
 
-// A block of kWarps warps holds 16 query rows per warp; key tiles of kFwdBK
-// keys stream through the ring.  At D <= 128 the registers are capped
-// for 4 blocks per SM (16 warps); at D = 256 that cap would spill the
-// accumulators.
+// Tiles by head_dim instance (D = 256 fits in 227 KB of shared memory).
+// The backward runs one warp per 16 rows at D = 64; from D = 128 warp
+// pairs (flash_bwd_*_f32_pair_kernel), which halve what a warp holds in
+// registers: at D = 256 a single warp's dK and dV accumulators would not
+// fit, nor its dQ, S and dP without spilling.
 template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 1)
-    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-                          Strides so, int H, int KV, int S, int dh, int causal, int window,
-                          float scale, float softcap) {
-  constexpr int BK = kFwdBK;
-  constexpr int BQ = 16 * kWarps;
-  constexpr int P = D + 8;
-  constexpr int NT = BK / 8;    // n tiles of S per key tile
-  constexpr int DT = D / 8;     // n tiles of O
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // latest (heaviest) tiles first
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wr = warp * 16;             // this warp's first row in the tile
+struct F32Tiles {
+  static constexpr int P = D + 4;   // row pitch (floats)
+  static constexpr int STAGES = 2;
+  static constexpr bool PAIRS = D >= 128;
+  static constexpr int FWD_BK = D <= 64 ? 64 : 32;                    // forward: keys a tile
+  static constexpr int DQ_BK = PAIRS ? (D <= 128 ? 32 : 16) : 64;     // dQ: keys a tile
+  static constexpr int KV_QT = D <= 128 ? 32 : 16;                    // dK/dV: queries a tile
+  // the S (dP) products take n tiles in pairs (ldb_f32)
+  static_assert(FWD_BK % 16 == 0 && DQ_BK % 16 == 0 && KV_QT % 16 == 0,
+                "fp32 flash tiles: 16 keys or queries at least");
+};
+// query rows (forward, dQ) or keys (dK/dV) per block
+constexpr int kF32Rows = 16 * kWarps;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // (BQ, P)
-  bf16* ks = qs + BQ * P;                         // 2 x (BK, P)
-  bf16* vs = ks + 2 * BK * P;                     // 2 x (BK, P)
-
-  const bf16* qg = q + b * sq.b + h * sq.h;
-  const bf16* kg = k + b * sk.b + kvh * sk.h;
-  const bf16* vg = v + b * sv.b + kvh * sv.h;
-
-  int k_lo, k_hi;
-  key_range(q0, BQ, S, causal, window, BK, &k_lo, &k_hi);
-  const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
-
-  load_tile_async<BQ, D>(qs, qg, sq.s, q0, S, dh);
-  load_tile_async<BK, D>(ks, kg, sk.s, k_lo, S, dh);
-  load_tile_async<BK, D>(vs, vg, sv.s, k_lo, S, dh);
-  cp_async_commit();
-
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int r_lo = q0 + wr;             // this warp's rows [r_lo, r_hi]
-  const int r_hi = r_lo + 15;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = k_lo + t * BK;
-    const bf16* kt = ks + (t & 1) * BK * P;
-    const bf16* vt = vs + (t & 1) * BK * P;
-    if (t + 1 < n_tiles) {
-      load_tile_async<BK, D>(ks + ((t + 1) & 1) * BK * P, kg, sk.s, k0 + BK, S, dh);
-      load_tile_async<BK, D>(vs + ((t + 1) & 1) * BK * P, vg, sv.s, k0 + BK, S, dh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // a tile none of this warp's rows can see adds exactly nothing
-    const bool skip = (causal && k0 > r_hi) || (window > 0 && r_lo - (k0 + BK - 1) >= window);
-    if (!skip) {
-      float s[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        load_a<P>(a, qs, wr, 16 * kk, lane);
-#pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {
-          uint32_t bb[4];
-          load_b<P>(bb, kt, 16 * j, 16 * kk, lane);
-          mma16816(s[2 * j], a, bb[0], bb[1]);
-          mma16816(s[2 * j + 1], a, bb[2], bb[3]);
-        }
-      }
-
-      const bool need_mask = (causal && k0 + BK - 1 > r_lo) ||
-                             (window > 0 && r_hi - k0 >= window) || k0 + BK > S;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = r_lo + lane / 4 + 8 * hf;
-        float mx = kNegInf;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float x = s[j][2 * hf + e] * scale;
-            if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-            if (need_mask) {
-              const int kpos = k0 + 8 * j + 2 * (lane & 3) + e;
-              if (kpos >= S) {
-                x = -INFINITY;
-              } else if (!visible(row, kpos, causal, window)) {
-                x = kNegInf;
-              }
-            }
-            s[j][2 * hf + e] = x;
-            mx = fmaxf(mx, x);
-          }
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[hf], mx);
-        const float alpha = exp2f((m[hf] - m_new) * kLog2e);
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            // the difference first: a row masked so far has s = m = -1e30
-            // and must weigh 1 (then 0 once a key is seen), as in ref.py
-            const float p = exp2f((s[j][2 * hf + e] - m_new) * kLog2e);
-            s[j][2 * hf + e] = p;
-            rs += p;
-          }
-        }
-        l[hf] = l[hf] * alpha + rs;   // this lane's part; the quad sums at the end
-        m[hf] = m_new;
-#pragma unroll
-        for (int j = 0; j < DT; ++j) {
-          acc[j][2 * hf] *= alpha;
-          acc[j][2 * hf + 1] *= alpha;
-        }
-      }
-
-      // O += P V, P rounded to bf16 in registers
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int j = 0; j < DT / 2; ++j) {
-          uint32_t bb[4];
-          load_b_trans<P>(bb, vt, 16 * kk, 16 * j, lane);
-          mma16816(acc[2 * j], a, bb[0], bb[1]);
-          mma16816(acc[2 * j + 1], a, bb[2], bb[3]);
-        }
-      }
-    }
-    __syncthreads();   // every warp is done with this stage before it is refilled
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    float lsum = l[hf];
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-    const int row = r_lo + lane / 4 + 8 * hf;
-    if (row >= S) continue;
-    const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    bf16* op = o + b * so.b + h * so.h + row * so.s;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = 8 * j + 2 * (lane & 3);
-      if (col < dh)
-        *reinterpret_cast<uint32_t*>(op + col) =
-            pack_bf16(acc[j][2 * hf] * inv, acc[j][2 * hf + 1] * inv);
-    }
-    if ((lane & 3) == 0) lse[((long long)b * H + h) * S + row] = m[hf] + logf(lsum);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 backward
-// ---------------------------------------------------------------------------
-
-// The shared part of both backward kernels, for one warp's 16 rows of a
+// The shared part of the fp32 backward kernels, for one warp's 16 rows of a
 // (rows x 64) score tile held as fragments: s (scores, unscaled) becomes P
 // and dp (dO V^T products) becomes dS.  Row r / column c of the tile map
 // to (qpos, kpos) by `qk(r, c)`; lse and delta of each element's query come
@@ -554,343 +318,6 @@ __device__ __forceinline__ void scores_to_grads(float (*s)[4], float (*dp)[4], i
     }
   }
 }
-
-// dQ for a (head, batch, query tile of 16 rows per warp), over key tiles of
-// kDqKeyTile.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
-                             Strides sdo, Strides sdq, int H, int KV, int S, int dh, int causal,
-                             int window, float scale, float softcap) {
-  constexpr int BK = kDqKeyTile;
-  constexpr int BQ = 16 * kWarps;
-  constexpr int P = D + 8;
-  constexpr int NT = BK / 8;
-  constexpr int DT = D / 8;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wr = warp * 16;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // (BQ, P)
-  bf16* dos = qs + BQ * P;                        // (BQ, P)
-  bf16* ks = dos + BQ * P;                        // 2 x (BK, P)
-  bf16* vs = ks + 2 * BK * P;                     // 2 x (BK, P)
-
-  const bf16* kg = k + b * sk.b + kvh * sk.h;
-  const bf16* vg = v + b * sv.b + kvh * sv.h;
-  int k_lo, k_hi;
-  key_range(q0, BQ, S, causal, window, BK, &k_lo, &k_hi);
-  const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
-
-  load_tile_async<BQ, D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S, dh);
-  load_tile_async<BQ, D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, dh);
-  load_tile_async<BK, D>(ks, kg, sk.s, k_lo, S, dh);
-  load_tile_async<BK, D>(vs, vg, sv.s, k_lo, S, dh);
-  cp_async_commit();
-
-  const float* lse_h = lse + ((long long)b * H + h) * S;
-  const float* delta_h = delta + ((long long)b * H + h) * S;
-  const int r0 = q0 + wr + lane / 4;
-  const float lse0 = r0 < S ? lse_h[r0] : 0.f, lse1 = r0 + 8 < S ? lse_h[r0 + 8] : 0.f;
-  const float dl0 = r0 < S ? delta_h[r0] : 0.f, dl1 = r0 + 8 < S ? delta_h[r0 + 8] : 0.f;
-
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const int r_lo = q0 + wr, r_hi = r_lo + 15;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = k_lo + t * BK;
-    const bf16* kt = ks + (t & 1) * BK * P;
-    const bf16* vt = vs + (t & 1) * BK * P;
-    if (t + 1 < n_tiles) {
-      load_tile_async<BK, D>(ks + ((t + 1) & 1) * BK * P, kg, sk.s, k0 + BK, S, dh);
-      load_tile_async<BK, D>(vs + ((t + 1) & 1) * BK * P, vg, sv.s, k0 + BK, S, dh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const bool skip = (causal && k0 > r_hi) || (window > 0 && r_lo - (k0 + BK - 1) >= window);
-    if (!skip) {
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t aq[4], ao[4];
-        load_a<P>(aq, qs, wr, 16 * kk, lane);
-        load_a<P>(ao, dos, wr, 16 * kk, lane);
-#pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {
-          uint32_t bk[4], bv[4];
-          load_b<P>(bk, kt, 16 * j, 16 * kk, lane);
-          load_b<P>(bv, vt, 16 * j, 16 * kk, lane);
-          mma16816(s[2 * j], aq, bk[0], bk[1]);
-          mma16816(s[2 * j + 1], aq, bk[2], bk[3]);
-          mma16816(dp[2 * j], ao, bv[0], bv[1]);
-          mma16816(dp[2 * j + 1], ao, bv[2], bv[3]);
-        }
-      }
-      const bool need_mask = (causal && k0 + BK - 1 > r_lo) ||
-                             (window > 0 && r_hi - k0 >= window) || k0 + BK > S ||
-                             q0 + BQ > S;
-      scores_to_grads<false, NT>(s, dp, r_lo, k0, lane, nullptr, nullptr, lse0, lse1, dl0,
-                                 dl1, need_mask, S, causal, window, scale, softcap);
-      // dQ += dS K, dS rounded to bf16 in registers
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        a[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        a[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        a[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-        for (int j = 0; j < DT / 2; ++j) {
-          uint32_t bb[4];
-          load_b_trans<P>(bb, kt, 16 * kk, 16 * j, lane);
-          mma16816(acc[2 * j], a, bb[0], bb[1]);
-          mma16816(acc[2 * j + 1], a, bb[2], bb[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = r0 + 8 * hf;
-    if (row >= S) continue;
-    bf16* p = dq + b * sdq.b + h * sdq.h + row * sdq.s;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = 8 * j + 2 * (lane & 3);
-      if (col < dh)
-        *reinterpret_cast<uint32_t*>(p + col) =
-            pack_bf16(acc[j][2 * hf] * scale, acc[j][2 * hf + 1] * scale);
-    }
-  }
-}
-
-// dK, dV for a (KV head, batch, tile of 16 keys per warp), columns [dc0,
-// dc0 + DO) of the head_dim (DO = D / dkv_split(D)), summed over the G
-// query heads of the group, query tiles of kDkvQueryTile.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq,
-                              Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                              int H, int KV, int S, int dh, int causal, int window, float scale,
-                              float softcap) {
-  constexpr int SPLIT = dkv_split(D);
-  constexpr int DO = D / SPLIT;
-  constexpr int QT = kDkvQueryTile;
-  constexpr int BKV = 16 * kWarps;   // keys per block
-  constexpr int P = D + 8;
-  constexpr int NT = QT / 8;    // n tiles of S^T (queries)
-  constexpr int OT = DO / 8;     // n tiles of dK, dV
-  const int kvh = blockIdx.x / SPLIT;
-  const int dc0 = (blockIdx.x % SPLIT) * DO;
-  const int b = blockIdx.y;
-  const int k0 = blockIdx.z * BKV;      // the earliest key tiles (the most queries) first
-  const int G = H / KV;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wk = warp * 16;             // this warp's first key in the tile
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // (BKV, P)
-  bf16* vs = ks + BKV * P;                        // (BKV, P)
-  bf16* qs = vs + BKV * P;                        // 2 x (QT, P)
-  bf16* dos = qs + 2 * QT * P;                    // 2 x (QT, P)
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * QT * P);   // 2 x QT
-  float* dl_s = lse_s + 2 * QT;                                // 2 x QT
-
-  // the query tiles that see a key of this tile
-  int q_lo = causal ? k0 : 0;
-  int q_hi = S;
-  if (window > 0) q_hi = min(S, k0 + BKV - 1 + window);
-  q_lo = (q_lo / QT) * QT;
-  const int n_qt = (q_hi - q_lo + QT - 1) / QT;
-  const int n_steps = G * n_qt;
-
-  // step i: head kvh * G + i / n_qt, query tile q_lo + (i % n_qt) * QT
-  auto prefetch = [&](int i) {
-    const int hh = kvh * G + i / n_qt;
-    const int qq = q_lo + (i % n_qt) * QT;
-    const int st = i & 1;
-    load_tile_async<QT, D>(qs + st * QT * P, q + b * sq.b + hh * sq.h, sq.s, qq, S, dh);
-    load_tile_async<QT, D>(dos + st * QT * P, dout + b * sdo.b + hh * sdo.h, sdo.s, qq,
-                                 S, dh);
-    load_rows_async<QT>(lse_s + st * QT, lse + ((long long)b * H + hh) * S, qq, S);
-    load_rows_async<QT>(dl_s + st * QT, delta + ((long long)b * H + hh) * S, qq, S);
-  };
-
-  load_tile_async<BKV, D>(ks, k + b * sk.b + kvh * sk.h, sk.s, k0, S, dh);
-  load_tile_async<BKV, D>(vs, v + b * sv.b + kvh * sv.h, sv.s, k0, S, dh);
-  if (n_steps > 0) prefetch(0);
-  cp_async_commit();
-
-  float dk_acc[OT][4], dv_acc[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  const int kw_lo = k0 + wk, kw_hi = kw_lo + 15;
-
-  for (int i = 0; i < n_steps; ++i) {
-    const int q0 = q_lo + (i % n_qt) * QT;
-    const bf16* qt = qs + (i & 1) * QT * P;
-    const bf16* dt = dos + (i & 1) * QT * P;
-    if (i + 1 < n_steps) {
-      prefetch(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const bool skip = (causal && kw_lo > q0 + QT - 1) || (window > 0 && q0 - kw_hi >= window);
-    if (!skip) {
-      float st[NT][4], dpt[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      // S^T = K Q^T and dP^T = V dO^T over the whole head_dim
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a<P>(ak, ks, wk, 16 * kk, lane);
-        load_a<P>(av, vs, wk, 16 * kk, lane);
-#pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {
-          uint32_t bq[4], bo[4];
-          load_b<P>(bq, qt, 16 * j, 16 * kk, lane);
-          load_b<P>(bo, dt, 16 * j, 16 * kk, lane);
-          mma16816(st[2 * j], ak, bq[0], bq[1]);
-          mma16816(st[2 * j + 1], ak, bq[2], bq[3]);
-          mma16816(dpt[2 * j], av, bo[0], bo[1]);
-          mma16816(dpt[2 * j + 1], av, bo[2], bo[3]);
-        }
-      }
-      const bool need_mask = (causal && k0 + BKV - 1 > q0) ||
-                             (window > 0 && q0 + QT - 1 - k0 >= window) || q0 + QT > S ||
-                             k0 + BKV > S;
-      scores_to_grads<true, NT>(st, dpt, kw_lo, q0, lane, lse_s + (i & 1) * QT,
-                            dl_s + (i & 1) * QT, 0.f, 0.f, 0.f, 0.f, need_mask, S, causal,
-                            window, scale, softcap);
-      // dV += P^T dO and dK += dS^T Q over this block's columns
-#pragma unroll
-      for (int kk = 0; kk < QT / 16; ++kk) {
-        uint32_t ap[4], ad[4];
-        ap[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-        ap[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-        ap[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        ap[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        ad[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-        ad[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-        ad[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-        ad[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-        for (int j = 0; j < OT / 2; ++j) {
-          uint32_t bo[4], bq[4];
-          load_b_trans<P>(bo, dt, 16 * kk, dc0 + 16 * j, lane);
-          load_b_trans<P>(bq, qt, 16 * kk, dc0 + 16 * j, lane);
-          mma16816(dv_acc[2 * j], ap, bo[0], bo[1]);
-          mma16816(dv_acc[2 * j + 1], ap, bo[2], bo[3]);
-          mma16816(dk_acc[2 * j], ad, bq[0], bq[1]);
-          mma16816(dk_acc[2 * j + 1], ad, bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int kpos = kw_lo + lane / 4 + 8 * hf;
-    if (kpos >= S) continue;
-    bf16* dkp = dk + b * sdk.b + kvh * sdk.h + kpos * sdk.s;
-    bf16* dvp = dv + b * sdv.b + kvh * sdv.h + kpos * sdv.s;
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int col = dc0 + 8 * j + 2 * (lane & 3);
-      if (col < dh) {
-        *reinterpret_cast<uint32_t*>(dkp + col) =
-            pack_bf16(dk_acc[j][2 * hf] * scale, dk_acc[j][2 * hf + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dvp + col) =
-            pack_bf16(dv_acc[j][2 * hf], dv_acc[j][2 * hf + 1]);
-      }
-    }
-  }
-}
-
-// ===========================================================================
-// fp32 route: error-compensated TF32 on the tensor cores (mma.sync m16n8k8)
-// ===========================================================================
-//
-// Every fp32 operand x is split into two TF32 values, hi = rna(x) and
-// lo = x - hi, and a product a b is formed as al bh + ah bl + ah bh by
-// three `mma.sync.m16n8k8` TF32 MMAs accumulating in fp32 ("3xTF32"): the
-// dropped al bl and lo's TF32 precision leave ~2^-21 of each product, well
-// inside the fp32 gates (2e-5).  The split is integer work on the CUDA
-// cores (`split_tf32`); it and the MMAs bound the kernels, not memory.
-// Scale, softcap, masks, the online softmax, lse and delta stay fp32 on
-// the CUDA cores.  The blocks are the bf16
-// route's: 4 warps of 16 rows, one query head per block in the forward and
-// dQ (any group size), one KV head and a share of its group's query heads
-// in dK/dV; tiles stream through a 2-stage cp.async ring into shared memory
-// padded by 4 floats a row (no bank conflicts for ldmatrix or for the
-// column reads of `ldb_kn_f32`).
-//
-// Fragments (m16n8k8 TF32; lane = 4 g + c, g = lane / 4, c = lane % 4):
-//   A 16x8:  a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4)
-//   B 8x8:   b0 (k c, n g), b1 (k c + 4, n g)
-//   C 16x8:  c0, c1 (g, 2c..); c2, c3 (g + 8, 2c..)
-// An 8x8 b16 ldmatrix tile is an 8x4 fp32 one whose float (i / 4, i % 4) is
-// lane i's register, so A and B fragments of a row-major fp32 tile load by
-// ldmatrix.x4.  A C fragment is not an A fragment, but a product's k order
-// is free: taking the 8 keys of an n tile in the order 0, 2, 4, 6, 1, 3,
-// 5, 7, the scores' fragment {c0, c2, c1, c3} is the A fragment of P V,
-// with B read at rows 2c and 2c + 1 (`c_to_a`, `ldb_kn_f32`).
-
-// Tiles by head_dim instance (D = 256 fits in 227 KB of shared memory).
-// The backward runs one warp per 16 rows at D = 64; from D = 128 warp
-// pairs (flash_bwd_*_f32_pair_kernel), which halve what a warp holds in
-// registers: at D = 256 a single warp's dK and dV accumulators would not
-// fit, nor its dQ, S and dP without spilling.
-template <int D>
-struct F32Tiles {
-  static constexpr int P = D + 4;   // row pitch (floats)
-  static constexpr int STAGES = 2;
-  static constexpr bool PAIRS = D >= 128;
-  static constexpr int FWD_BK = D <= 64 ? 64 : 32;                    // forward: keys a tile
-  static constexpr int DQ_BK = PAIRS ? (D <= 128 ? 32 : 16) : 64;     // dQ: keys a tile
-  static constexpr int KV_QT = D <= 128 ? 32 : 16;                    // dK/dV: queries a tile
-  // the S (dP) products take n tiles in pairs (ldb_f32)
-  static_assert(FWD_BK % 16 == 0 && DQ_BK % 16 == 0 && KV_QT % 16 == 0,
-                "fp32 flash tiles: 16 keys or queries at least");
-};
-// query rows (forward, dQ) or keys (dK/dV) per block
-constexpr int kF32Rows = 16 * kWarps;
 
 // An operand fragment as hi + lo TF32 parts.
 template <int N>
@@ -1975,51 +1402,6 @@ int launch_delta(const Args& a) {
 }
 
 template <int D>
-int launch_fwd_bf16(const Args& a) {
-  constexpr int BQ = 16 * kWarps;
-  const size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * kFwdBK) * (D + 8);
-  auto kernel = flash_fwd_bf16_kernel<D>;
-  int err = set_smem(kernel, smem);
-  if (err) return err;
-  kernel<<<dim3(a.H, a.B, cdiv(a.S, BQ)), kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), static_cast<float*>(a.lse),
-      a.sq, a.sk, a.sv, a.so, a.H, a.KV, a.S, a.dh, a.causal, a.window, a.scale, a.softcap);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_bwd_bf16(const Args& a) {
-  int err = launch_delta<bf16>(a);
-  if (err) return err;
-
-  constexpr int QT = kDkvQueryTile;
-  const size_t smem_kv =
-      sizeof(bf16) * (size_t)(2 * 16 * kWarps + 4 * QT) * (D + 8) + sizeof(float) * 4 * QT;
-  auto kv_kernel = flash_bwd_dkv_bf16_kernel<D>;
-  if ((err = set_smem(kv_kernel, smem_kv))) return err;
-  kv_kernel<<<dim3(a.KV * dkv_split(D), a.B, cdiv(a.S, 16 * kWarps)), kThreads, smem_kv,
-              a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk,
-      a.sdv, a.H, a.KV, a.S, a.dh, a.causal, a.window, a.scale, a.softcap);
-  if ((err = (int)cudaGetLastError())) return err;
-
-  const size_t smem_q = sizeof(bf16) * (size_t)(2 * 16 * kWarps + 4 * kDqKeyTile) * (D + 8);
-  auto q_kernel = flash_bwd_dq_bf16_kernel<D>;
-  if ((err = set_smem(q_kernel, smem_q))) return err;
-  q_kernel<<<dim3(a.H, a.B, cdiv(a.S, 16 * kWarps)), kThreads, smem_q, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.H, a.KV, a.S, a.dh, a.causal,
-      a.window, a.scale, a.softcap);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int launch_fwd_wgmma(const Args& a) {
   using C = sm90::Fwd<D>;
   CUtensorMap tq, tk, tv;
@@ -2028,16 +1410,18 @@ int launch_fwd_wgmma(const Args& a) {
   if ((err = sm90::make_map(&tk, a.k, a.sk, a.B, a.KV, a.S, a.dh))) return err;
   if ((err = sm90::make_map(&tv, a.v, a.sv, a.B, a.KV, a.S, a.dh))) return err;
   const int smem = sm90::smem_bytes(D, C::NWG + 2 * C::STAGES, 2 * C::STAGES + 1, 0);
-  auto kernel = sm90::flash_fwd_wgmma_kernel<D, C::NWG, C::STAGES>;
+  auto kernel = a.causal ? sm90::flash_fwd_wgmma_kernel<D, C::NWG, C::STAGES, true>
+                         : sm90::flash_fwd_wgmma_kernel<D, C::NWG, C::STAGES, false>;
   if ((err = set_smem(kernel, smem))) return err;
-  kernel<<<dim3(cdiv(a.S, sm90::kTileRows * C::NWG), a.H, a.B), 128 * (C::NWG + 1), smem,
+  const int nq = cdiv(a.S, sm90::kTileRows * C::NWG);   // sm90::query_block's order
+  kernel<<<a.causal ? dim3(a.H, a.B, nq) : dim3(nq, a.H, a.B), sm90::block_threads(C::NWG), smem,
            a.stream>>>(tq, tk, tv, static_cast<bf16*>(a.out), static_cast<float*>(a.lse), a.so,
                        a.H, a.KV, a.S, a.dh, a.window, a.scale, a.softcap);
   return (int)cudaGetLastError();
 }
 
-// prep (lse2, delta), dK/dV (+ the sum of its partials when it splits the
-// heads), dQ.  a.delta is the workspace (sm90::workspace_floats).
+// prep (lse2, delta), dK/dV (+ the sum of its partials when it cuts a key
+// block into parts), dQ.  a.delta is the workspace (sm90::workspace_floats).
 template <int D>
 int launch_bwd_wgmma(const Args& a) {
   CUtensorMap tq, tk, tv, tdo;
@@ -2058,30 +1442,48 @@ int launch_bwd_wgmma(const Args& a) {
   if ((err = (int)cudaGetLastError())) return err;
 
   using KVc = sm90::Dkv<D>;
-  const int bn = sm90::kTileRows * KVc::NWG;
-  const int parts = sm90::dkv_parts(a.B, a.H, a.KV, a.S, bn);
-  const int smem_kv = sm90::smem_bytes(D, 2 * KVc::NWG + 2 * KVc::STAGES, 2 * KVc::STAGES + 1,
-                                       2 * KVc::STAGES * sm90::kTileRows * 4);
-  auto kv_kernel = sm90::flash_bwd_dkv_wgmma_kernel<D, KVc::NWG, KVc::STAGES>;
-  if ((err = set_smem(kv_kernel, smem_kv))) return err;
-  kv_kernel<<<dim3(cdiv(a.S, bn), a.KV * parts, a.B), 128 * (KVc::NWG + 1), smem_kv,
-              a.stream>>>(tq, tk, tv, tdo, lse2, delta, static_cast<bf16*>(a.dk),
-                          static_cast<bf16*>(a.dv), a.sdk, a.sdv, partial, parts, a.B, a.H, a.KV,
-                          a.S, S_pad, a.dh, a.window, a.scale, a.softcap);
+  const sm90::KvPlan plan = sm90::kv_plan<D>(a.B, a.H, a.KV, a.S, a.causal, a.window);
+  // sm90::kv_work's order
+  const dim3 kv_grid = a.causal ? dim3(a.KV, a.B, plan.blocks) : dim3(plan.blocks, a.KV, a.B);
+  constexpr int rows_bytes = 2 * KVc::STAGES * sm90::kTileRows * 4;   // lse2 and delta
+  if constexpr (KVc::PAIR) {
+    const int smem = sm90::smem_bytes(D, 2 + 2 * KVc::STAGES, 2 * KVc::STAGES + 3,
+                                      sm90::kTileRows * sm90::kTileRows * 4 + rows_bytes);
+    auto kernel =
+        a.causal ? sm90::flash_bwd_dkv_pair_wgmma_kernel<D, KVc::STAGES, true, KVc::OWN_LOADS>
+                 : sm90::flash_bwd_dkv_pair_wgmma_kernel<D, KVc::STAGES, false, KVc::OWN_LOADS>;
+    if ((err = set_smem(kernel, smem))) return err;
+    kernel<<<kv_grid, KVc::OWN_LOADS ? 256 : sm90::block_threads(2), smem, a.stream>>>(
+        tq, tk, tv, tdo, lse2, delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sdk,
+        a.sdv, partial, plan.chunk, plan.max_parts, a.B, a.H, a.KV, a.S, S_pad, a.dh, a.window,
+        a.scale, a.softcap);
+  } else {
+    const int smem = sm90::smem_bytes(D, 2 * KVc::NWG + 2 * KVc::STAGES, 2 * KVc::STAGES + 1,
+                                      rows_bytes);
+    auto kernel = a.causal ? sm90::flash_bwd_dkv_wgmma_kernel<D, KVc::NWG, KVc::STAGES, true>
+                           : sm90::flash_bwd_dkv_wgmma_kernel<D, KVc::NWG, KVc::STAGES, false>;
+    if ((err = set_smem(kernel, smem))) return err;
+    kernel<<<kv_grid, sm90::block_threads(KVc::NWG), smem, a.stream>>>(
+        tq, tk, tv, tdo, lse2, delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sdk,
+        a.sdv, partial, plan.chunk, plan.max_parts, a.B, a.H, a.KV, a.S, S_pad, a.dh, a.window,
+        a.scale, a.softcap);
+  }
   if ((err = (int)cudaGetLastError())) return err;
-  if (parts > 1) {
+  if (plan.max_parts > 1) {
     const long long pairs = (long long)a.B * a.KV * a.S * a.dh / 2;
     sm90::flash_bwd_dkv_sum_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, a.stream>>>(
-        partial, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sdk, a.sdv, parts, a.B,
-        a.KV, a.S, a.dh, a.scale);
+        partial, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sdk, a.sdv, plan.chunk,
+        plan.max_parts, KVc::KEYS, a.B, a.H, a.KV, a.S, a.dh, a.causal, a.window, a.scale);
     if ((err = (int)cudaGetLastError())) return err;
   }
 
   using Qc = sm90::Dq<D>;
   const int smem_q = sm90::smem_bytes(D, 2 * Qc::NWG + 2 * Qc::STAGES, 2 * Qc::STAGES + 1, 0);
-  auto q_kernel = sm90::flash_bwd_dq_wgmma_kernel<D, Qc::NWG, Qc::STAGES>;
+  auto q_kernel = a.causal ? sm90::flash_bwd_dq_wgmma_kernel<D, Qc::NWG, Qc::STAGES, true>
+                           : sm90::flash_bwd_dq_wgmma_kernel<D, Qc::NWG, Qc::STAGES, false>;
   if ((err = set_smem(q_kernel, smem_q))) return err;
-  q_kernel<<<dim3(cdiv(a.S, sm90::kTileRows * Qc::NWG), a.H, a.B), 128 * (Qc::NWG + 1), smem_q,
+  const int nq = cdiv(a.S, sm90::kTileRows * Qc::NWG);
+  q_kernel<<<a.causal ? dim3(a.H, a.B, nq) : dim3(nq, a.H, a.B), sm90::block_threads(Qc::NWG), smem_q,
              a.stream>>>(tq, tk, tv, tdo, lse2, delta, static_cast<bf16*>(a.dq), a.sdq, a.H, a.KV,
                          a.S, S_pad, a.dh, a.window, a.scale, a.softcap);
   return (int)cudaGetLastError();
@@ -2225,9 +1627,9 @@ template <bool BWD, bool BF16>
 int dispatch_head_dim(const Args& a) {
   if (a.dh < 8 || a.dh > 256 || a.dh % 8) return (int)cudaErrorInvalidValue;
   if (BF16) {
-    if (a.dh <= 64) return BWD ? launch_bwd_bf16<64>(a) : launch_fwd_bf16<64>(a);
-    if (a.dh <= 128) return BWD ? launch_bwd_bf16<128>(a) : launch_fwd_bf16<128>(a);
-    return BWD ? launch_bwd_bf16<256>(a) : launch_fwd_bf16<256>(a);
+    if (a.dh <= 64) return BWD ? launch_bwd_wgmma<64>(a) : launch_fwd_wgmma<64>(a);
+    if (a.dh <= 128) return BWD ? launch_bwd_wgmma<128>(a) : launch_fwd_wgmma<128>(a);
+    return BWD ? launch_bwd_wgmma<256>(a) : launch_fwd_wgmma<256>(a);
   }
   if (a.dh <= 64) return BWD ? launch_bwd_f32<64>(a) : launch_fwd_f32<64>(a);
   if (a.dh <= 128) return BWD ? launch_bwd_f32<128>(a) : launch_fwd_f32<128>(a);
@@ -2235,21 +1637,13 @@ int dispatch_head_dim(const Args& a) {
 }
 
 // The route the wrapper chose (kernels/flash_attention.py: `route`):
-// 0 fp32 (3xTF32 on mma.sync), 1 bf16 mma.sync (causal, or head_dim past 128),
-// 2 bf16 wgmma (non-causal, head_dim up to 128).  A route given inputs
-// that are not its own is refused.
+// 0 fp32 (3xTF32 on mma.sync), 2 bf16 (wgmma + TMA, every mask and
+// instance).  Code 1, the bf16 mma.sync kernels that route 2 replaced, is
+// refused, as is any other.
 template <bool BWD>
 int dispatch(int route, const Args& a) {
   if (route == 0) return dispatch_head_dim<BWD, false>(a);
-  if (route == 1) {
-    if (!a.causal && a.dh <= 128) return (int)cudaErrorInvalidValue;
-    return dispatch_head_dim<BWD, true>(a);
-  }
-  if (route == 2) {
-    if (a.causal || a.dh < 8 || a.dh > 128 || a.dh % 8) return (int)cudaErrorInvalidValue;
-    if (a.dh <= 64) return BWD ? launch_bwd_wgmma<64>(a) : launch_fwd_wgmma<64>(a);
-    return BWD ? launch_bwd_wgmma<128>(a) : launch_fwd_wgmma<128>(a);
-  }
+  if (route == 2) return dispatch_head_dim<BWD, true>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2257,9 +1651,9 @@ Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i
 
 }  // namespace
 
-// route: 0 = float32 (3xTF32 on mma.sync), 1 = bfloat16 on mma.sync, 2 = bfloat16 on
-// wgmma (see `dispatch`); every tensor but lse/delta has the route's dtype.
-// head_dim: a multiple of 8 up to 256 (128 on route 2).  strides:
+// route: 0 = float32 (3xTF32 on mma.sync), 2 = bfloat16 on wgmma (see
+// `dispatch`; 1 is refused); every tensor but lse/delta has the route's
+// dtype.  head_dim: a multiple of 8 up to 256.  strides:
 // (batch, head, sequence) element strides, three per tensor, in the order
 // q, k, v, o.  window <= 0 means none, softcap <= 0 none.  Returns
 // cudaGetLastError() after the launch (0 = launched).
@@ -2291,18 +1685,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // The floats of the backward's fp32 workspace (`delta` below) for these
-// shapes: delta (B, H, S) on route 1; on route 0 delta, padded to 16
-// bytes, on route 2 lse2 and delta padded; on routes 0 and 2 then the dK/dV
-// partials when their blocks split the heads.
+// shapes: on route 0 delta, padded to 16 bytes, on route 2 lse2 and delta
+// padded; then the dK/dV partials when their blocks cut a key tile's work
+// into parts.  0 for a route that is refused.
 extern "C" long long flash_attention_bwd_workspace(int route, int B, int H, int KV, int S,
                                                    int head_dim, int causal, int window) {
-  if (route == 2) return sm90::workspace_floats(B, H, KV, S, head_dim);
+  if (head_dim < 8 || head_dim > 256 || head_dim % 8) return 0;
+  if (route == 2) return sm90::workspace_floats(B, H, KV, S, head_dim, causal, window);
   if (route == 0) return f32_workspace_floats(B, H, KV, S, head_dim, causal, window);
-  return (long long)B * H * S;
+  return 0;
 }
 
-// Three launches (route 1: delta, dK/dV, dQ) or three to four (route 0:
-// delta, dK/dV, the partials' sum, dQ; route 2: prep, dK/dV, the sum, dQ).
+// Three to four launches (route 0: delta, dK/dV, the partials' sum, dQ;
+// route 2: prep, dK/dV, the sum, dQ).
 // strides: three per tensor in the order q, k, v, o, do, dq, dk, dv.  delta: the fp32 workspace
 // (flash_attention_bwd_workspace floats).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,

@@ -1,29 +1,58 @@
-// Flash attention's non-causal bf16 route for Hopper: `wgmma` products on
-// tiles that TMA brings into shared memory, a producer keeping a ring of
-// them in flight.  Included by flash_attention.cu, which holds the C entry
-// points and the other routes; see the note at its top for the route choice.
-// It replaces the same Pallas kernel (src/repro/kernels/flash_attention.py,
-// pallas_call at :108, with causal=False) and adds its gradient.
+// Flash attention's bf16 route for Hopper: `wgmma` products on tiles that
+// TMA brings into shared memory, a producer keeping a ring of them in
+// flight.  Every bf16 call runs here, causal or not, at head_dim instances
+// 64, 128 and 256.  Included by flash_attention.cu, which holds the C entry
+// points and the fp32 route; see the note at its top for the route choice.
+// It replaces the Pallas kernel `_flash_kernel`
+// (src/repro/kernels/flash_attention.py, pallas_call at :108, its tile
+// pruning at :38-51) and adds its gradient.
 //
-// Bound.  At Seamless' encoder (B=16, H=KV=16, S=1,024, D=64) the forward
-// does 6.9e10 flops against 0.13 GB: the operations bound it (0.069 ms at
-// 989 TFLOP/s), and at D=64 the softmax's exponentials (one per score, 16
-// a clock on an SM) take as long as the products.  So the design keeps the
-// tensor cores and the exponentials busy at once: several warpgroups per
-// SM, and in the forward each warpgroup's next S on the tensor cores while
+// Bound.  The trainer's causal shape (Qwen3-1.7B: B=8, H=16, KV=8, S=512,
+// D=128) does ~8.6 GFLOP forward against ~50 MB: ~170 flops a byte, under
+// bf16's ridge (~295), so the bytes bound it (15 us at 3.35 TB/s; 9 us of
+// products at 989 TFLOP/s).  Seamless' encoder (B=16, H=KV=16, S=1,024,
+// D=64, not causal) does 6.9e10 flops against 0.13 GB: the operations bound
+// it (69 us), and at D=64 the softmax's exponentials (one per score, 16 a
+// clock on an SM) take as long as the products.  Neither bound is what the
+// earlier `mma.sync` kernels met: at 0.07 ms against 15 us the causal
+// route was held by latency, a block's copies and products serialised in
+// each warp and the tensor cores fed 32 keys at a time.  So the design
+// keeps loads, products and exponentials apart and busy at once: a producer
+// warp issuing TMA copies ahead, several consumer warpgroups per block, and
+// up to D = 128 each forward warpgroup's next S on the tensor cores while
 // it runs a softmax.
 //
-// Shapes.  Every tile is 64 rows by D (64 or 128) bf16, stored as D / 64
-// "panels" of 64 x 64: one TMA box each, rows of 128 bytes in the 128-byte
-// swizzle, 1,024-byte aligned, which is the layout `wgmma`'s 128-byte
-// swizzle mode reads.  A block is NWG consumer warpgroups of 64 rows each
-// plus a producer warpgroup (the block's last: one of its threads issues
-// every load, and it hands its registers to the consumers).  The operand a
-// block keeps (Q in the forward, Q and dO in dQ, K and V in dK/dV) is
-// loaded once; the operand it streams comes through a ring of STAGES tiles
-// of 64 rows, each stage with a `full` barrier (TMA's byte count) and an
-// `empty` barrier (one arrival per consumer warp).  A block's warpgroups
-// whose rows all lie past S leave at once (the ring counts only the others).
+// Shapes.  Every tile is 64 rows by D (64, 128 or 256) bf16, stored as
+// D / 64 "panels" of 64 x 64: one TMA box each, rows of 128 bytes in the
+// 128-byte swizzle, 1,024-byte aligned, which is the layout `wgmma`'s
+// 128-byte swizzle mode reads.  A block is NWG consumer warpgroups of 64
+// rows each plus a producer warp (the block's last: one of its threads
+// issues every load; `block_threads` says why not a warpgroup).  The
+// operand a block keeps (Q in the forward, Q and dO in dQ, K and V in
+// dK/dV) is loaded once; the operand it streams comes through a ring of
+// STAGES tiles of 64 rows, each stage with a `full` barrier (TMA's byte
+// count) and an `empty` barrier (one arrival per consumer warp).  A block's
+// warpgroups whose rows all lie past S leave at once (the ring counts only
+// the others).  Registers decide the shapes at D = 256 (`Fwd`, `Dq`, `Dkv`
+// below): O, dQ, dK and dV are 128 fp32 registers a thread each, so the
+// forward and dQ run one consumer warpgroup (255 registers a thread), and
+// dK/dV (from D = 128) splits dV and dK over a pair of warpgroups that
+// hand P^T over through shared memory, at D = 256 with no producer warp.
+//
+// Causality.  A query block's keys end at its last live row's diagonal
+// (the TPU kernel's pruning), and only the tile that the diagonal, the
+// window's edge or S cuts pays for element masks.  A block's warpgroups see
+// a ragged band: under causality the first one's rows stop a tile before
+// the next one's.  Every consumer warp still arrives on every stage's
+// `empty` barrier, in order: a warpgroup passes the tiles it does not need
+// (waits for each to land, so that its arrival falls in that tile's phase,
+// and releases it unread).  In dK/dV the query tiles of a key block start
+// at its diagonal, and its second warpgroup passes each head's first one.
+// The latest query tiles (the most keys) launch first; dK/dV cuts each key
+// block's (query head, query tile) steps into even parts over the SMs (the
+// first key block sees every query tile), its parts writing fp32 partials
+// that a last kernel sums in a fixed order: no atomics, so every backward
+// gives the same bits run to run.
 //
 // Products, per warpgroup (64 rows), per streamed tile (64 rows):
 //   forward  S = Q K^T  (SS: both K-major)      O += P V     (RS: P in registers, V MN-major)
@@ -39,10 +68,7 @@
 // strides from registers.  The backward's per-row terms come from a
 // workspace the wrapper allocates: lse * log2(e) and delta = rowsum(dO * O),
 // (B, H, S_pad) each with S_pad = S rounded up to 64, +inf and 0 past S, so
-// a query past S weighs nothing without a mask.  When the dK/dV grid would
-// leave SMs idle, its blocks split the group's G query heads into parts,
-// each writing fp32 partials to the workspace, and a last kernel sums them
-// in a fixed order: the backward stays free of atomics and deterministic.
+// a query past S weighs nothing without a mask; then the dK/dV partials.
 
 namespace sm90 {
 
@@ -236,6 +262,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          int kk) {
   wgmma_rs_n128(d, a, desc_mn(addr, kk), 1);
 }
+// At D = 256, two n128 products: columns 0-127 (panels 0, 1) and 128-255
+// (panels 2, 3), the accumulator's halves in the same fragment layout.
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint32_t addr,
+                                         int kk) {
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, desc_mn(addr, kk), 1);
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, desc_mn(addr + 2 * kPanel, kk), 1);
+}
 
 // S (64 x 64 fp32) = A B^T over depth D: A and B tiles K-major at `a`, `b`.
 template <int D>
@@ -305,27 +338,15 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
   if (lane == 0) mbar_arrive(empty);
 }
 
-// Register budgets: the block's last warpgroup is the producer and gives
-// its registers up to the consumers (`setmaxnreg`): a dK/dV consumer holds
-// four 64 x D accumulators, a forward one its output beside a tile's S in
-// flight.  A block launches with `launch_regs` a thread; what the producer
-// gives up is all the consumers may take.
-constexpr int kProducerRegs = 40;
-__host__ __device__ constexpr int launch_regs(int nwg) { return 65536 / (128 * (nwg + 1)) / 8 * 8; }
-__host__ __device__ constexpr int consumer_regs(int nwg) {
-  return launch_regs(nwg) + (launch_regs(nwg) - kProducerRegs) / nwg / 8 * 8 > 240
-             ? 240
-             : launch_regs(nwg) + (launch_regs(nwg) - kProducerRegs) / nwg / 8 * 8;
-}
-
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
+// A block's threads: NWG consumer warpgroups and one producer warp.  No
+// warpgroup hands registers over by `setmaxnreg`: ptxas allocates every
+// thread the count that the launch bound allows (with a producer warpgroup
+// and `setmaxnreg.inc` 232 the D = 256 forward's SASS used no register
+// past R171, spilled 1 KB a thread and serialized its wgmmas), and the
+// same gate (16K registers a partition over its warps) holds for a
+// producer warp: what frees registers is fewer warps (`Fwd`, `Dkv`).
+constexpr int kProducer = 32;
+__host__ __device__ constexpr int block_threads(int nwg) { return 128 * nwg + kProducer; }
 
 __device__ __forceinline__ void wg_wait_one() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
@@ -392,6 +413,67 @@ __device__ __forceinline__ int live_groups(int nwg, int first_row, int S) {
   return min(nwg, (S - first_row + kTileRows - 1) / kTileRows);
 }
 
+// The 64-key tiles from k_lo (a multiple of 64) up to key k_hi.
+__host__ __device__ __forceinline__ int tiles_to(int k_hi, int k_lo) {
+  return (k_hi - k_lo + kTileRows - 1) / kTileRows;
+}
+
+// A query block's (head, batch, first row).  Under causality the grid is
+// (H, B, query tiles) and the latest query tiles, which see the most keys,
+// come first, so the grid's tail is short; without it (query tiles, H, B),
+// so that the query tiles of one head run together and share its K and V
+// in L2 (Seamless' encoder: 67 MB of K and V, more than L2's 50).
+__device__ __forceinline__ void query_block(int causal, int rows, int* h, int* b, int* q0) {
+  *h = causal ? blockIdx.x : blockIdx.y;
+  *b = causal ? blockIdx.y : blockIdx.z;
+  *q0 = (causal ? gridDim.z - 1 - blockIdx.z : blockIdx.x) * rows;
+}
+
+// The first key a query block from q0 sees, rounded down to a tile: the
+// window's start (0 without a window).
+__device__ __forceinline__ int first_key(int q0, int window) {
+  return window > 0 ? (max(0, q0 - window + 1) / kTileRows) * kTileRows : 0;
+}
+
+// The end of the keys that rows [r0, r0 + rows) see: under causality their
+// last row's diagonal, else S.
+__device__ __forceinline__ int last_key(int r0, int rows, int S, int causal) {
+  return causal ? min(S, r0 + rows) : S;
+}
+
+// Whether a 64 x 64 tile of query rows from r0 and keys from k0 needs
+// element masks: S, the causal diagonal or the window's edge cuts it.
+__device__ __forceinline__ bool cut_rows(int r0, int k0, int S, int causal, int window) {
+  return k0 + kTileRows > S || (causal && k0 + kTileRows - 1 > r0) ||
+         (window > 0 && r0 + kTileRows - 1 - k0 >= window);
+}
+
+// The same for a tile of keys from kw0 (rows) and queries from qq
+// (columns): queries past S need no mask (their lse2 is +inf).
+__device__ __forceinline__ bool cut_keys(int kw0, int qq, int causal, int window) {
+  return (causal && qq < kw0 + kTileRows - 1) ||
+         (window > 0 && qq + kTileRows - 1 - kw0 >= window);
+}
+
+// Whether no query of the tile at qq sees a key of the tile at kw0: all
+// before the keys' diagonal, or all past the window.
+__device__ __forceinline__ bool unseen_keys(int kw0, int qq, int causal, int window) {
+  return (causal && qq + kTileRows - 1 < kw0) ||
+         (window > 0 && qq - (kw0 + kTileRows - 1) >= window);
+}
+
+// A consumer's release of ring tiles it does not read (they belong to the
+// block's other warpgroups): each waited for, so that the arrival lands in
+// the stage's current phase, then released.
+template <int STAGES>
+__device__ __forceinline__ void pass_tiles(uint64_t* full, uint64_t* empty, int from, int to,
+                                           int lane) {
+  for (int t = from; t < to; ++t) {
+    mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    release(&empty[t % STAGES], lane);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
@@ -402,8 +484,8 @@ __device__ __forceinline__ int live_groups(int nwg, int first_row, int S) {
 // the row max is taken on the raw scores and one FMA scales and shifts.
 __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int row0, int k0, int c,
-                                             bool need_mask, int S, int window, float scale,
-                                             float sl2, float softcap) {
+                                             bool need_mask, int S, int causal, int window,
+                                             float scale, float sl2, float softcap) {
   const bool plain = !need_mask && softcap <= 0.f;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -423,7 +505,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
             const int kpos = k0 + 8 * j + 2 * c + e;
             if (kpos >= S) {
               x = -INFINITY;
-            } else if (window > 0 && row - kpos >= window) {
+            } else if (!visible(row, kpos, causal, window)) {
               x = kNegInf;
             }
           }
@@ -453,18 +535,21 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
   }
 }
 
-// One block per (query tile of 64 * NWG rows, head, batch).  Each consumer
-// warpgroup holds 64 query rows and runs two tiles at once: while the
-// tensor cores compute S of key tile t + 1 and O += P V of tile t, the
-// warpgroup runs the softmax of tile t + 1 (its wgmma groups are waited one
-// at a time).
-template <int D, int NWG, int STAGES>
-__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+// One block per (head, batch, query tile of 64 * NWG rows), in
+// `query_block`'s order.  Each consumer warpgroup holds 64 query rows and,
+// up to D = 128, runs two tiles at once: while the tensor cores compute S
+// of key tile t + 1 and O += P V of tile t, the warpgroup runs the softmax
+// of tile t + 1 (its wgmma groups are waited one at a time).  The producer streams the key tiles of the block's last live
+// warpgroup; under causality an earlier warpgroup stops at its own
+// diagonal and passes the tiles after it.
+template <int D, int NWG, int STAGES, bool CAUSAL>
+__global__ void __launch_bounds__(block_threads(NWG), 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                            float* __restrict__ lse, Strides so, int H, int KV, int S, int dh,
                            int window, float scale, float softcap) {
+  constexpr int causal = CAUSAL;   // a template argument: no causal code where it is false
   constexpr int TILE = (D / 64) * kPanel;
   constexpr int BQ = kTileRows * NWG;
   extern __shared__ unsigned char smem_raw[];
@@ -476,20 +561,18 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   uint64_t* empty = bars + STAGES;
   uint64_t* qbar = bars + 2 * STAGES;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  int h, b, q0;
+  query_block(causal, BQ, &h, &b, &q0);
   const int kvh = h / (H / KV);
-  const int k_lo = window > 0 ? (max(0, q0 - window + 1) / kTileRows) * kTileRows : 0;
-  const int n_tiles = (S - k_lo + kTileRows - 1) / kTileRows;
   const int live = live_groups(NWG, q0, S);
+  const int k_lo = first_key(q0, window);
+  const int n_tiles = tiles_to(last_key(q0, kTileRows * live, S, causal), k_lo);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   init_barriers(bars, STAGES, 4 * live, 1);
 
-  if (warp >= 4 * NWG) {   // the producer warpgroup: one thread issues every load
-    regs_dec<kProducerRegs>();
+  if (warp >= 4 * NWG) {   // the producer warp: one thread issues every load
     if (threadIdx.x == 128 * NWG) {
       mbar_expect_tx(qbar, live * TILE);
       for (int w = 0; w < live; ++w)
@@ -506,11 +589,11 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   }
   const int wg = warpgroup();
   if (wg >= live) return;
-  regs_inc<consumer_regs(NWG)>();
 
   const int c = lane % 4;
   const int r_lo = q0 + kTileRows * wg;                  // this warpgroup's rows
   const int row0 = r_lo + 16 * (warp % 4) + lane / 4;    // this thread's rows: row0, row0 + 8
+  const int n_mine = tiles_to(last_key(r_lo, kTileRows, S, causal), k_lo);
   const uint32_t q_addr = smem_u32(qs + wg * TILE);
   const float sl2 = scale * kLog2e;
 
@@ -520,51 +603,77 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
   float s[32];        // S of a tile, then its P (fp32)
   uint32_t pa[4][4];  // P of the tile in O += P V, bf16
-  // the window's edge or S cuts the tile at k0 for some row of the warpgroup
-#define FWD_SOFTMAX(k0)                                                                      \
-  softmax_tile(s, m, l, alpha, row0, k0, c,                                                  \
-               (k0) + kTileRows > S || (window > 0 && r_lo + kTileRows - 1 - (k0) >= window), \
-               S, window, scale, sl2, softcap)
+#define FWD_SOFTMAX(k0)                                                                 \
+  softmax_tile(s, m, l, alpha, row0, k0, c, cut_rows(r_lo, k0, S, causal, window), S, \
+               causal, window, scale, sl2, softcap)
 
   mbar_wait(qbar, 0);
-  mbar_wait(&full[0], 0);
-  __syncwarp();
-  group_ss<D>(s, q_addr, smem_u32(ks));
-  wg_wait_all();
-  pin(s);
-  FWD_SOFTMAX(k_lo);
-  frags(pa, s);
-
-  // every tile but the last: its P V beside the next tile's S (two groups,
-  // waited one at a time: the softmax of the next tile runs in between)
-  for (int t = 0; t + 1 < n_tiles; ++t) {
-    const int st = t % STAGES, nx = (t + 1) % STAGES;
-    mbar_wait(&full[nx], ((t + 1) / STAGES) & 1);
+  if constexpr (D > 128) {
+    // At D = 256 one tile at a time: O's 128 registers beside S of the next
+    // tile and P of this one in flight spilled a kilobyte a thread; the
+    // block's two warpgroups still overlap each other.
+    for (int t = 0; t < n_mine; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(&full[st], (t / STAGES) & 1);
+      __syncwarp();
+      group_ss<D>(s, q_addr, smem_u32(ks + st * TILE));
+      wg_wait_all();
+      pin(s);
+      FWD_SOFTMAX(k_lo + kTileRows * t);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      frags(pa, s);
+      group_rs(acc, pa, smem_u32(vs + st * TILE));
+      wg_wait_all();
+      pin(acc);
+      pin(pa);
+      release(&empty[st], lane);
+    }
+  } else {
+    mbar_wait(&full[0], 0);
     __syncwarp();
-    group_ss<D>(s, q_addr, smem_u32(ks + nx * TILE));
-    group_rs(acc, pa, smem_u32(vs + st * TILE));
-    wg_wait_one();
+    group_ss<D>(s, q_addr, smem_u32(ks));
+    wg_wait_all();
     pin(s);
-    FWD_SOFTMAX(k_lo + kTileRows * (t + 1));
+    FWD_SOFTMAX(k_lo);
+    frags(pa, s);
+
+    // every tile but the last: its P V beside the next tile's S (two groups,
+    // waited one at a time: the softmax of the next tile runs in between)
+    for (int t = 0; t + 1 < n_mine; ++t) {
+      const int st = t % STAGES, nx = (t + 1) % STAGES;
+      mbar_wait(&full[nx], ((t + 1) / STAGES) & 1);
+      __syncwarp();
+      group_ss<D>(s, q_addr, smem_u32(ks + nx * TILE));
+      group_rs(acc, pa, smem_u32(vs + st * TILE));
+      wg_wait_one();
+      pin(s);
+      FWD_SOFTMAX(k_lo + kTileRows * (t + 1));
+      wg_wait_all();
+      pin(acc);
+      pin(pa);
+      release(&empty[st], lane);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      frags(pa, s);
+    }
+    group_rs(acc, pa, smem_u32(vs + ((n_mine - 1) % STAGES) * TILE));
     wg_wait_all();
     pin(acc);
     pin(pa);
-    release(&empty[st], lane);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[4 * j] *= alpha[0];
-      acc[4 * j + 1] *= alpha[0];
-      acc[4 * j + 2] *= alpha[1];
-      acc[4 * j + 3] *= alpha[1];
-    }
-    frags(pa, s);
+    release(&empty[(n_mine - 1) % STAGES], lane);
   }
 #undef FWD_SOFTMAX
-  group_rs(acc, pa, smem_u32(vs + ((n_tiles - 1) % STAGES) * TILE));
-  wg_wait_all();
-  pin(acc);
-  pin(pa);
-  release(&empty[(n_tiles - 1) % STAGES], lane);
 
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -584,6 +693,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
     }
     if (c == 0) lse[((long long)b * H + h) * S + row] = m[hf] * kLn2 + logf(lsum);
   }
+  if constexpr (CAUSAL) pass_tiles<STAGES>(full, empty, n_mine, n_tiles, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -640,11 +750,9 @@ __device__ __forceinline__ void grad_elem(float& s, float& dp, float lse2, float
 // (row0, row0 + 8 with their lse2 lq and delta dl), columns keys.
 __device__ __forceinline__ void dq_grads(float (&s)[32], float (&dp)[32], const float (&lq)[2],
                                          const float (&dl)[2], int row0, int r_lo, int k0, int c,
-                                         int S, int window, float sl2, float scale,
+                                         int S, int causal, int window, float sl2, float scale,
                                          float softcap) {
-  const bool need_mask =
-      k0 + kTileRows > S || (window > 0 && r_lo + kTileRows - 1 - k0 >= window);
-  if (!need_mask && softcap <= 0.f) {
+  if (!cut_rows(r_lo, k0, S, causal, window) && softcap <= 0.f) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const float p = ex2(fmaf(s[i], sl2, -lq[(i >> 1) & 1]));
@@ -659,19 +767,22 @@ __device__ __forceinline__ void dq_grads(float (&s)[32], float (&dp)[32], const 
     for (int e = 0; e < 4; ++e) {
       const int row = row0 + 8 * (e >> 1);
       const int kpos = k0 + 8 * j + 2 * c + (e & 1);
-      const bool seen = kpos < S && !(window > 0 && row - kpos >= window);
+      const bool seen = kpos < S && visible(row, kpos, causal, window);
       grad_elem(s[4 * j + e], dp[4 * j + e], lq[e >> 1], dl[e >> 1], seen, sl2, scale, softcap);
     }
   }
 }
 
-// dQ for a (query tile of 64 * NWG rows, head, batch): Q and dO loaded once,
-// K and V streamed.  Each tile's two groups (S and dP, then dQ += dS K) run
-// one after the other: overlapping the next tile's S and dP with this
+// dQ for a (head, batch, query tile of 64 * NWG rows), in `query_block`'s
+// order: Q and dO loaded once, K and V streamed (up to the last live
+// warpgroup's diagonal under causality; an earlier warpgroup passes the
+// tiles after its own).  Each tile's two groups (S and dP, then dQ += dS K)
+// run one after the other: overlapping the next tile's S and dP with this
 // tile's dQ product, as the forward does, ran no faster at D = 64 and
-// slower at D = 128 (PERF.md, flash findings); the warpgroups overlap each other.
-template <int D, int NWG, int STAGES>
-__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+// slower at D = 128 (PERF.md, flash findings); the warpgroups overlap each
+// other.
+template <int D, int NWG, int STAGES, bool CAUSAL>
+__global__ void __launch_bounds__(block_threads(NWG), 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
@@ -679,6 +790,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
                               const float* __restrict__ lse2, const float* __restrict__ delta,
                               bf16* __restrict__ dq, Strides sdq, int H, int KV, int S, int S_pad,
                               int dh, int window, float scale, float softcap) {
+  constexpr int causal = CAUSAL;   // a template argument: no causal code where it is false
   constexpr int TILE = (D / 64) * kPanel;
   constexpr int BQ = kTileRows * NWG;
   extern __shared__ unsigned char smem_raw[];
@@ -691,20 +803,18 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   uint64_t* empty = bars + STAGES;
   uint64_t* qbar = bars + 2 * STAGES;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  int h, b, q0;
+  query_block(causal, BQ, &h, &b, &q0);
   const int kvh = h / (H / KV);
-  const int k_lo = window > 0 ? (max(0, q0 - window + 1) / kTileRows) * kTileRows : 0;
-  const int n_tiles = (S - k_lo + kTileRows - 1) / kTileRows;
   const int live = live_groups(NWG, q0, S);
+  const int k_lo = first_key(q0, window);
+  const int n_tiles = tiles_to(last_key(q0, kTileRows * live, S, causal), k_lo);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   init_barriers(bars, STAGES, 4 * live, 1);
 
   if (warp >= 4 * NWG) {
-    regs_dec<kProducerRegs>();
     if (threadIdx.x == 128 * NWG) {
       mbar_expect_tx(qbar, 2 * live * TILE);
       for (int w = 0; w < live; ++w) {
@@ -723,11 +833,11 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   }
   const int wg = warpgroup();
   if (wg >= live) return;
-  regs_inc<consumer_regs(NWG)>();
 
   const int c = lane % 4;
   const int r_lo = q0 + kTileRows * wg;
   const int row0 = r_lo + 16 * (warp % 4) + lane / 4;
+  const int n_mine = tiles_to(last_key(r_lo, kTileRows, S, causal), k_lo);
   const uint32_t q_addr = smem_u32(qs + wg * TILE);
   const uint32_t do_addr = smem_u32(dos + wg * TILE);
   const float sl2 = scale * kLog2e;
@@ -753,10 +863,10 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   wg_wait_all();
   pin(s);
   pin(dp);
-  dq_grads(s, dp, lq, dl, row0, r_lo, k_lo, c, S, window, sl2, scale, softcap);
+  dq_grads(s, dp, lq, dl, row0, r_lo, k_lo, c, S, causal, window, sl2, scale, softcap);
   frags(da, dp);
 
-  for (int t = 0; t + 1 < n_tiles; ++t) {
+  for (int t = 0; t + 1 < n_mine; ++t) {
     const int st = t % STAGES, nx = (t + 1) % STAGES;
     group_rs(acc, da, smem_u32(ks + st * TILE));
     wg_wait_all();
@@ -769,15 +879,15 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
     wg_wait_all();
     pin(s);
     pin(dp);
-    dq_grads(s, dp, lq, dl, row0, r_lo, k_lo + kTileRows * (t + 1), c, S, window, sl2, scale,
-             softcap);
+    dq_grads(s, dp, lq, dl, row0, r_lo, k_lo + kTileRows * (t + 1), c, S, causal, window, sl2,
+             scale, softcap);
     frags(da, dp);
   }
-  group_rs(acc, da, smem_u32(ks + ((n_tiles - 1) % STAGES) * TILE));
+  group_rs(acc, da, smem_u32(ks + ((n_mine - 1) % STAGES) * TILE));
   wg_wait_all();
   pin(acc);
   pin(da);
-  release(&empty[(n_tiles - 1) % STAGES], lane);
+  release(&empty[(n_mine - 1) % STAGES], lane);
 
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -792,15 +902,132 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
             pack_bf16(acc[4 * j + 2 * hf] * scale, acc[4 * j + 2 * hf + 1] * scale);
     }
   }
+  if constexpr (CAUSAL) pass_tiles<STAGES>(full, empty, n_mine, n_tiles, lane);
+}
+
+// The work of a dK/dV block: the key block of `bn` keys from k0, the query
+// tiles it sees (n_qt tiles of 64 from tile qt_lo), and its part: steps
+// [s0, s0 + n_steps) of the block's G x n_qt (query head, query tile)
+// steps, head-major; `parts` is the number of parts of its key block.
+struct KvWork {
+  int k0, qt_lo, n_qt, part, parts, s0, n_steps;
+};
+
+// The steps of the key block at k0 (bn keys): for each of the G query
+// heads, the query tiles from the block's diagonal (under causality; else
+// the first) to the last one the window lets see a key of the block.
+__host__ __device__ inline int kv_steps(int k0, int bn, int S, int G, int causal, int window,
+                                        int* qt_lo, int* n_qt) {
+  const int lo = causal ? k0 / kTileRows : 0;
+  const int hi = window > 0 ? min(S, k0 + bn - 1 + window) : S;
+  *qt_lo = lo;
+  *n_qt = (hi + kTileRows - 1) / kTileRows - lo;
+  return G * *n_qt;
+}
+
+// A key block's steps are cut into ceil(steps / chunk) parts of even size,
+// one block each; a key block of more than one part writes fp32 partials
+// that flash_bwd_dkv_sum_kernel sums in part order.
+__host__ __device__ inline int kv_parts(int steps, int chunk) { return (steps + chunk - 1) / chunk; }
+
+// Block x of the dK/dV grid's work: the key blocks in order (under
+// causality the first sees the most query tiles), each key block's parts
+// in turn.  Under causality x is the grid's z, after (KV, B), so that the
+// heaviest key blocks of every head start first; else its x, so that the
+// blocks of one head run together and share its Q and dO in L2.
+__device__ inline KvWork kv_work(int x, int bn, int S, int G, int causal, int window, int chunk) {
+  KvWork w{};
+  for (w.k0 = 0;; w.k0 += bn) {
+    const int steps = kv_steps(w.k0, bn, S, G, causal, window, &w.qt_lo, &w.n_qt);
+    w.parts = kv_parts(steps, chunk);
+    if (x < w.parts) {
+      w.part = x;
+      w.s0 = (int)((long long)x * steps / w.parts);
+      w.n_steps = (int)((long long)(x + 1) * steps / w.parts) - w.s0;
+      return w;
+    }
+    x -= w.parts;
+  }
+}
+
+// Step i of a dK/dV block into ring stage i % STAGES: the Q and dO tiles
+// of query head h0 + step / n_qt, query tile qt_lo + step % n_qt (step =
+// s0 + i), and their lse2 and delta rows.
+template <int D, int STAGES>
+__device__ __forceinline__ void kv_load(const KvWork& w, int i, const CUtensorMap* tq,
+                                        const CUtensorMap* tdo, const float* lse2,
+                                        const float* delta, unsigned char* qs, unsigned char* dos,
+                                        float* ls, float* dls, uint64_t* full, int b, int H,
+                                        int h0, int S_pad) {
+  constexpr int TILE = (D / 64) * kPanel;
+  constexpr int ROWS_BYTES = kTileRows * 4;   // one tile's lse2 (or delta)
+  const int st = i % STAGES;
+  const int step = w.s0 + i;
+  const int hh = h0 + step / w.n_qt;
+  const int qq = (w.qt_lo + step % w.n_qt) * kTileRows;
+  mbar_expect_tx(&full[st], 2 * TILE + 2 * ROWS_BYTES);
+  tma_tile<D>(qs + st * TILE, tq, &full[st], qq, hh, b);
+  tma_tile<D>(dos + st * TILE, tdo, &full[st], qq, hh, b);
+  const long long row = ((long long)b * H + hh) * S_pad + qq;
+  bulk_load(ls + st * kTileRows, lse2 + row, ROWS_BYTES, &full[st]);
+  bulk_load(dls + st * kTileRows, delta + row, ROWS_BYTES, &full[st]);
+}
+
+// The dK/dV producer's loop: every step, each once its stage is free.
+template <int D, int STAGES>
+__device__ __forceinline__ void kv_produce(const KvWork& w, const CUtensorMap* tq,
+                                           const CUtensorMap* tdo, const float* lse2,
+                                           const float* delta, unsigned char* qs,
+                                           unsigned char* dos, float* ls, float* dls,
+                                           uint64_t* full, uint64_t* empty, int b, int H, int h0,
+                                           int S_pad) {
+  for (int i = 0; i < w.n_steps; ++i) {
+    if (i >= STAGES) mbar_wait(&empty[i % STAGES], (i / STAGES - 1) & 1);
+    kv_load<D, STAGES>(w, i, tq, tdo, lse2, delta, qs, dos, ls, dls, full, b, H, h0, S_pad);
+  }
+}
+
+// A dK or dV accumulator (keys key0, key0 + 8; D columns) out: bf16 times
+// `mul` where the key block is one part, else into `part`, this part's
+// fp32 plane (B, KV, S, dh) at (b, kvh).
+template <int N>
+__device__ __forceinline__ void kv_store(const float (&acc)[N], bf16* out, Strides so,
+                                         float* part, bool whole, int b, int kvh, int key0,
+                                         int c, int S, int dh, float mul) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kpos = key0 + 8 * hf;
+    if (kpos >= S) continue;
+    if (whole) {
+      bf16* p = out + b * so.b + kvh * so.h + kpos * so.s;
+#pragma unroll
+      for (int j = 0; j < N / 4; ++j) {
+        const int col = 8 * j + 2 * c;
+        if (col < dh)
+          *reinterpret_cast<uint32_t*>(p + col) =
+              pack_bf16(acc[4 * j + 2 * hf] * mul, acc[4 * j + 2 * hf + 1] * mul);
+      }
+    } else {
+      float* p = part + (long long)kpos * dh;
+#pragma unroll
+      for (int j = 0; j < N / 4; ++j) {
+        const int col = 8 * j + 2 * c;
+        if (col < dh)
+          *reinterpret_cast<float2*>(p + col) =
+              make_float2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+      }
+    }
+  }
 }
 
 // dK/dV's P^T and dS^T of the query tile at qq, in place in s and dp: rows
-// keys (key0, key0 + 8), columns queries, whose lse2 and delta are in
-// shared memory (lq, dlt).
+// keys (key0, key0 + 8; the warpgroup's from kw_lo), columns queries,
+// whose lse2 and delta are in shared memory (lq, dlt).
 __device__ __forceinline__ void dkv_grads(float (&s)[32], float (&dp)[32], const float* lq,
                                           const float* dlt, int qq, int key0, int kw_lo, int c,
-                                          int window, float sl2, float scale, float softcap) {
-  const bool need_mask = window > 0 && qq + kTileRows - 1 - kw_lo >= window;
+                                          int causal, int window, float sl2, float scale,
+                                          float softcap) {
+  const bool need_mask = cut_keys(kw_lo, qq, causal, window);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = 8 * j + 2 * c;
@@ -819,7 +1046,7 @@ __device__ __forceinline__ void dkv_grads(float (&s)[32], float (&dp)[32], const
     for (int e = 0; e < 4; ++e) {
       const int kpos = key0 + 8 * (e >> 1);
       const int qpos = qq + col + (e & 1);
-      const bool seen = !need_mask || qpos - kpos < window;
+      const bool seen = !need_mask || visible(qpos, kpos, causal, window);
       grad_elem(s[4 * j + e], dp[4 * j + e], (e & 1) ? l2.y : l2.x, (e & 1) ? d2.y : d2.x, seen,
                 sl2, scale, softcap);
     }
@@ -843,28 +1070,30 @@ __device__ __forceinline__ void group_dkv(float (&dv)[N], uint32_t (&pa)[4][4], 
   wg_commit();
 }
 
-// dK, dV for a (key tile of 64 * NWG keys, KV head x part, batch): K and V
-// loaded once, the tiles of Q and dO (with their lse2 and delta) of the
-// part's query heads streamed.  Each step's two groups (S^T and dP^T, then
-// dV, dK +=) run one after the other: holding the next step's S^T and dP^T
-// beside four accumulators in flight left ptxas short of registers, and
-// it serialized every wgmma (slower on the card: PERF.md, flash findings).
-// parts == 1: dK (times scale) and dV written in bf16; else fp32 partials
-// into `partial` for flash_bwd_dkv_sum_kernel.
-template <int D, int NWG, int STAGES>
-__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+// dK, dV for a (KV head, batch, part of a key block of 64 * NWG keys): K
+// and V loaded once, the part's steps (query head, query tile, with their
+// lse2 and delta) streamed; `kv_work` maps the block to its part.  Under
+// causality a warpgroup passes, unread, a step whose queries see none of
+// its keys (the first query tile of each head lies before the second
+// warpgroup's diagonal, or past the window); without it every step runs
+// (a window's empty tiles, on no path, computed and masked).  Each step's two groups (S^T and dP^T, then dV, dK +=) run one
+// after the other: holding the next step's S^T and dP^T beside four
+// accumulators in flight left ptxas short of registers, and it serialized
+// every wgmma (slower on the card: PERF.md, flash findings).
+template <int D, int NWG, int STAGES, bool CAUSAL>
+__global__ void __launch_bounds__(block_threads(NWG), 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
                                const __grid_constant__ CUtensorMap tdo,
                                const float* __restrict__ lse2, const float* __restrict__ delta,
                                bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk,
-                               Strides sdv, float* __restrict__ partial, int parts, int B, int H,
-                               int KV, int S, int S_pad, int dh, int window, float scale,
-                               float softcap) {
+                               Strides sdv, float* __restrict__ partial, int chunk,
+                               int max_parts, int B, int H, int KV, int S, int S_pad, int dh,
+                               int window, float scale, float softcap) {
+  constexpr int causal = CAUSAL;   // a template argument: no causal code where it is false
   constexpr int TILE = (D / 64) * kPanel;
   constexpr int BN = kTileRows * NWG;
-  constexpr int ROWS_BYTES = kTileRows * 4;                // one tile's lse2 (or delta)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ks = align1024(smem_raw);          // NWG tiles
   unsigned char* vs = ks + NWG * TILE;              // NWG tiles
@@ -877,58 +1106,33 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   uint64_t* empty = bars + STAGES;
   uint64_t* kbar = bars + 2 * STAGES;
 
-  const int k0 = blockIdx.x * BN;
-  const int kvh = blockIdx.y / parts;
-  const int part = blockIdx.y % parts;
-  const int b = blockIdx.z;
+  const int kvh = causal ? blockIdx.x : blockIdx.y;
+  const int b = causal ? blockIdx.y : blockIdx.z;
   const int G = H / KV;
-  const int heads = G / parts;                      // query heads of this part
-  const int h0 = kvh * G + part * heads;
-  // the query tiles that see a key of this block
-  const int q_hi = window > 0 ? min(S, k0 + BN - 1 + window) : S;
-  const int n_qt = (q_hi + kTileRows - 1) / kTileRows;
-  const int n_steps = heads * n_qt;
-  const int live = live_groups(NWG, k0, S);
+  const KvWork w = kv_work(causal ? blockIdx.z : blockIdx.x, BN, S, G, causal, window, chunk);
+  const int live = live_groups(NWG, w.k0, S);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   init_barriers(bars, STAGES, 4 * live, 1);
 
   if (warp >= 4 * NWG) {
-    regs_dec<kProducerRegs>();
     if (threadIdx.x == 128 * NWG) {
       mbar_expect_tx(kbar, 2 * live * TILE);
-      for (int w = 0; w < live; ++w) {
-        tma_tile<D>(ks + w * TILE, &tk, kbar, k0 + kTileRows * w, kvh, b);
-        tma_tile<D>(vs + w * TILE, &tv, kbar, k0 + kTileRows * w, kvh, b);
+      for (int g = 0; g < live; ++g) {
+        tma_tile<D>(ks + g * TILE, &tk, kbar, w.k0 + kTileRows * g, kvh, b);
+        tma_tile<D>(vs + g * TILE, &tv, kbar, w.k0 + kTileRows * g, kvh, b);
       }
-      const float* lrow = lse2 + ((long long)b * H + h0) * S_pad;
-      const float* drow = delta + ((long long)b * H + h0) * S_pad;
-      for (int i = 0, hh = h0, qq = 0; i < n_steps; ++i) {
-        const int st = i % STAGES;
-        if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&full[st], 2 * TILE + 2 * ROWS_BYTES);
-        tma_tile<D>(qs + st * TILE, &tq, &full[st], qq, hh, b);
-        tma_tile<D>(dos + st * TILE, &tdo, &full[st], qq, hh, b);
-        bulk_load(ls + st * kTileRows, lrow + qq, ROWS_BYTES, &full[st]);
-        bulk_load(dls + st * kTileRows, drow + qq, ROWS_BYTES, &full[st]);
-        qq += kTileRows;
-        if (qq >= n_qt * kTileRows) {   // the next query head of the part
-          qq = 0;
-          ++hh;
-          lrow += S_pad;
-          drow += S_pad;
-        }
-      }
+      kv_produce<D, STAGES>(w, &tq, &tdo, lse2, delta, qs, dos, ls, dls, full, empty, b, H,
+                            kvh * G, S_pad);
     }
     return;
   }
   const int wg = warpgroup();
   if (wg >= live) return;
-  regs_inc<consumer_regs(NWG)>();
 
   const int c = lane % 4;
-  const int kw_lo = k0 + kTileRows * wg;                 // this warpgroup's keys
+  const int kw_lo = w.k0 + kTileRows * wg;               // this warpgroup's keys
   const int key0 = kw_lo + 16 * (warp % 4) + lane / 4;   // this thread's keys: key0, key0 + 8
   const uint32_t k_addr = smem_u32(ks + wg * TILE);
   const uint32_t v_addr = smem_u32(vs + wg * TILE);
@@ -939,108 +1143,246 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   float s[32], dp[32];           // S^T and dP^T of a step; then P^T and dS^T
   uint32_t pa[4][4], da[4][4];   // P^T and dS^T of the step in dV, dK +=, bf16
-#define DKV_SCORES(st) \
-  group_ss2<D>(s, k_addr, smem_u32(qs + (st) * TILE), dp, v_addr, smem_u32(dos + (st) * TILE))
-#define DKV_GRADS(i, st)                                                                     \
-  dkv_grads(s, dp, ls + (st) * kTileRows, dls + (st) * kTileRows, ((i) % n_qt) * kTileRows, \
-            key0, kw_lo, c, window, sl2, scale, softcap)
-#define DKV_PRODUCTS(st)                                                 \
-  group_dkv(dv_acc, pa, smem_u32(dos + (st) * TILE), dk_acc, da,        \
-            smem_u32(qs + (st) * TILE))
-#define DKV_RETIRE(st) \
-  wg_wait_all();       \
-  pin(dv_acc);         \
-  pin(dk_acc);         \
-  pin(pa);             \
-  pin(da);             \
-  release(&empty[st], lane)
 
   mbar_wait(kbar, 0);
-  mbar_wait(&full[0], 0);
-  __syncwarp();
-  DKV_SCORES(0);
-  wg_wait_all();
-  pin(s);
-  pin(dp);
-  DKV_GRADS(0, 0);
-  frags(pa, s);
-  frags(da, dp);
-
-  for (int i = 0; i + 1 < n_steps; ++i) {
-    const int st = i % STAGES, nx = (i + 1) % STAGES;
-    DKV_PRODUCTS(st);
-    DKV_RETIRE(st);
-    mbar_wait(&full[nx], ((i + 1) / STAGES) & 1);
-    __syncwarp();
-    DKV_SCORES(nx);
-    wg_wait_all();
-    pin(s);
-    pin(dp);
-    DKV_GRADS(i + 1, nx);
-    frags(pa, s);
-    frags(da, dp);
-  }
-  DKV_PRODUCTS((n_steps - 1) % STAGES);
-  DKV_RETIRE((n_steps - 1) % STAGES);
-#undef DKV_SCORES
-#undef DKV_GRADS
-#undef DKV_PRODUCTS
-#undef DKV_RETIRE
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int kpos = key0 + 8 * hf;
-    if (kpos >= S) continue;
-    if (parts == 1) {
-      bf16* dkp = dk + b * sdk.b + kvh * sdk.h + kpos * sdk.s;
-      bf16* dvp = dv + b * sdv.b + kvh * sdv.h + kpos * sdv.s;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int col = 8 * j + 2 * c;
-        if (col < dh) {
-          *reinterpret_cast<uint32_t*>(dkp + col) =
-              pack_bf16(dk_acc[4 * j + 2 * hf] * scale, dk_acc[4 * j + 2 * hf + 1] * scale);
-          *reinterpret_cast<uint32_t*>(dvp + col) =
-              pack_bf16(dv_acc[4 * j + 2 * hf], dv_acc[4 * j + 2 * hf + 1]);
-        }
-      }
-    } else {
-      const long long plane = (long long)parts * B * KV * S * dh;   // the dK partials' size
-      float* pk = partial + ((((long long)part * B + b) * KV + kvh) * S + kpos) * dh;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int col = 8 * j + 2 * c;
-        if (col < dh) {
-          *reinterpret_cast<float2*>(pk + col) =
-              make_float2(dk_acc[4 * j + 2 * hf], dk_acc[4 * j + 2 * hf + 1]);
-          *reinterpret_cast<float2*>(pk + plane + col) =
-              make_float2(dv_acc[4 * j + 2 * hf], dv_acc[4 * j + 2 * hf + 1]);
-        }
-      }
+  for (int i = 0; i < w.n_steps; ++i) {
+    const int st = i % STAGES;
+    const int qq = (w.qt_lo + (w.s0 + i) % w.n_qt) * kTileRows;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    if (!CAUSAL || !unseen_keys(kw_lo, qq, causal, window)) {
+      const uint32_t q_addr = smem_u32(qs + st * TILE), do_addr = smem_u32(dos + st * TILE);
+      __syncwarp();
+      group_ss2<D>(s, k_addr, q_addr, dp, v_addr, do_addr);
+      wg_wait_all();
+      pin(s);
+      pin(dp);
+      dkv_grads(s, dp, ls + st * kTileRows, dls + st * kTileRows, qq, key0, kw_lo, c, causal,
+                window, sl2, scale, softcap);
+      frags(pa, s);
+      frags(da, dp);
+      group_dkv(dv_acc, pa, do_addr, dk_acc, da, q_addr);
+      wg_wait_all();
+      pin(dv_acc);
+      pin(dk_acc);
+      pin(pa);
+      pin(da);
     }
+    release(&empty[st], lane);
+  }
+
+  const long long plane = (long long)B * KV * S * dh;   // one part's dK (or dV) partials
+  float* pk = partial + ((long long)w.part * B + b) * KV * S * dh + (long long)kvh * S * dh;
+  kv_store(dk_acc, dk, sdk, pk, w.parts == 1, b, kvh, key0, c, S, dh, scale);
+  kv_store(dv_acc, dv, sdv, pk + max_parts * plane, w.parts == 1, b, kvh, key0, c, S, dh, 1.f);
+}
+
+// The pair's hand-over, written by the first warpgroup: x holds S^T of the
+// block's keys (rows key0, key0 + 8; from kw_lo) against the query tile at
+// qq (columns; lse2 in lq) and becomes P^T; P^T times 1 - tanh^2 (the
+// softcap's derivative; P^T itself without one) goes to `xs`, the slot of
+// this thread's 4 j-th values at xs[128 j].  Masked pairs are 0 in both.
+__device__ __forceinline__ void pair_p(float (&x)[32], float4* xs, const float* lq, int qq,
+                                       int key0, int kw_lo, int c, int causal, int window,
+                                       float sl2, float scale, float softcap) {
+  const bool need_mask = cut_keys(kw_lo, qq, causal, window);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * c;
+    const float2 l2 = *reinterpret_cast<const float2*>(lq + col);
+    float g[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lse = (e & 1) ? l2.y : l2.x;
+      float p, gate;
+      if (softcap > 0.f) {
+        const float th = tanhf(x[4 * j + e] * scale / softcap);
+        p = ex2(softcap * th * kLog2e - lse);
+        gate = p * (1.f - th * th);
+      } else {
+        p = ex2(fmaf(x[4 * j + e], sl2, -lse));
+        gate = p;
+      }
+      if (need_mask && !visible(qq + col + (e & 1), key0 + 8 * (e >> 1), causal, window))
+        p = gate = 0.f;
+      x[4 * j + e] = p;
+      g[e] = gate;
+    }
+    xs[128 * j] = make_float4(g[0], g[1], g[2], g[3]);
   }
 }
 
-// dK (times scale) and dV in bf16 from the parts' fp32 partials, summed in
+// The second warpgroup's half: x holds dP^T (same fragment layout) and
+// becomes dS^T = gate (dP^T - delta), the gate read from the hand-over.
+__device__ __forceinline__ void pair_ds(float (&x)[32], const float4* xs, const float* dlt,
+                                        int c) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 d2 = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * c);
+    const float4 g = xs[128 * j];
+    x[4 * j] = g.x * (x[4 * j] - d2.x);
+    x[4 * j + 1] = g.y * (x[4 * j + 1] - d2.y);
+    x[4 * j + 2] = g.z * (x[4 * j + 2] - d2.x);
+    x[4 * j + 3] = g.w * (x[4 * j + 3] - d2.y);
+  }
+}
+
+// dK, dV for a (KV head, batch, part of a key tile of 64 keys), where one
+// warpgroup cannot hold both 64 x D accumulators (D = 256: 256 registers a
+// thread): a pair of consumer warpgroups splits them.  The first computes
+// S^T = K Q^T, P^T and dV += P^T dO; the second dP^T = V dO^T, then dS^T =
+// P^T (1 - tanh^2) (dP^T - delta) with the first's factor handed over
+// through shared memory (16 KB; mbarriers xfull: written, xempty: read,
+// every thread arriving, so that a lost hand-over traps as the ring's
+// waits do), and dK += dS^T Q.  No product is computed twice.  Steps,
+// parts and the partials as in flash_bwd_dkv_wgmma_kernel.  With OWN_LOADS
+// the block has no producer warp: its 8 warps (two on each of the SM's
+// four register partitions) may hold 255 registers a thread, where a
+// ninth warp caps every thread at 168 (three warps on one partition of
+// 16K registers), too few for D = 256's 128-register accumulator beside
+// S^T and its fragments; the first warpgroup's first thread then issues
+// the loads, refilling the stage of step i - 1 once its S^T of step i is
+// in flight.
+template <int D, int STAGES, bool CAUSAL, bool OWN_LOADS>
+__global__ void __launch_bounds__(OWN_LOADS ? 256 : block_threads(2), 1)
+    flash_bwd_dkv_pair_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const __grid_constant__ CUtensorMap tdo,
+                                    const float* __restrict__ lse2,
+                                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                                    bf16* __restrict__ dv, Strides sdk, Strides sdv,
+                                    float* __restrict__ partial, int chunk, int max_parts, int B,
+                                    int H, int KV, int S, int S_pad, int dh, int window, float scale, float softcap) {
+  constexpr int causal = CAUSAL;   // a template argument: no causal code where it is false
+  constexpr int TILE = (D / 64) * kPanel;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = align1024(smem_raw);          // 1 tile
+  unsigned char* vs = ks + TILE;                    // 1 tile
+  unsigned char* qs = vs + TILE;                    // STAGES tiles
+  unsigned char* dos = qs + STAGES * TILE;          // STAGES tiles
+  float4* xs = reinterpret_cast<float4*>(dos + STAGES * TILE);   // the hand-over: 8 x 128
+  float* ls = reinterpret_cast<float*>(xs + 8 * 128);            // STAGES x 64
+  float* dls = ls + STAGES * kTileRows;                           // STAGES x 64
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dls + STAGES * kTileRows);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + STAGES;
+  uint64_t* kbar = bars + 2 * STAGES;
+  uint64_t* xfull = bars + 2 * STAGES + 1;
+  uint64_t* xempty = bars + 2 * STAGES + 2;
+
+  const int kvh = causal ? blockIdx.x : blockIdx.y;
+  const int b = causal ? blockIdx.y : blockIdx.z;
+  const int G = H / KV;
+  const KvWork w = kv_work(causal ? blockIdx.z : blockIdx.x, kTileRows, S, G, causal, window, chunk);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {   // before init_barriers' fence and __syncthreads
+    mbar_init(xfull, 128);
+    mbar_init(xempty, 128);
+  }
+  init_barriers(bars, STAGES, 8, 1);
+
+  const bool loader = threadIdx.x == (OWN_LOADS ? 0 : 256);
+  if (loader) {
+    mbar_expect_tx(kbar, 2 * TILE);
+    tma_tile<D>(ks, &tk, kbar, w.k0, kvh, b);
+    tma_tile<D>(vs, &tv, kbar, w.k0, kvh, b);
+    if (OWN_LOADS) {
+      for (int i = 0; i < STAGES && i < w.n_steps; ++i)
+        kv_load<D, STAGES>(w, i, &tq, &tdo, lse2, delta, qs, dos, ls, dls, full, b, H, kvh * G,
+                           S_pad);
+    } else {
+      kv_produce<D, STAGES>(w, &tq, &tdo, lse2, delta, qs, dos, ls, dls, full, empty, b, H,
+                            kvh * G, S_pad);
+    }
+  }
+  if (warp >= 8) return;   // the producer warp
+  const int wg = warpgroup();   // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+
+  const int c = lane % 4;
+  const int key0 = w.k0 + 16 * (warp % 4) + lane / 4;   // this thread's keys: key0, key0 + 8
+  float4* slot = xs + threadIdx.x % 128;
+  // the product's A operand: K (S^T = K Q^T) or V (dP^T = V dO^T)
+  const uint32_t a_addr = smem_u32(wg == 0 ? ks : vs);
+  const float sl2 = scale * kLog2e;
+
+  float acc[D / 2];   // dV (first warpgroup) or dK (second)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float x[32];        // S^T then P^T, or dP^T then dS^T
+  uint32_t xa[4][4];  // the same in bf16: the A operand of dV += P^T dO or dK += dS^T Q
+
+  mbar_wait(kbar, 0);
+  for (int i = 0; i < w.n_steps; ++i) {
+    const int st = i % STAGES;
+    const int qq = (w.qt_lo + (w.s0 + i) % w.n_qt) * kTileRows;
+    const uint32_t q_addr = smem_u32(qs + st * TILE), do_addr = smem_u32(dos + st * TILE);
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    __syncwarp();
+    group_ss<D>(x, a_addr, wg == 0 ? q_addr : do_addr);
+    if (OWN_LOADS && loader && i >= 1 && i - 1 + STAGES < w.n_steps) {
+      // step i - 1's stage, once every warp has released it, takes step
+      // i - 1 + STAGES
+      mbar_wait(&empty[(i - 1) % STAGES], ((i - 1) / STAGES) & 1);
+      kv_load<D, STAGES>(w, i - 1 + STAGES, &tq, &tdo, lse2, delta, qs, dos, ls, dls, full, b,
+                         H, kvh * G, S_pad);
+    }
+    __syncwarp();
+    wg_wait_all();
+    pin(x);
+    if (wg == 0) {
+      if (i > 0) mbar_wait(xempty, (i - 1) & 1);   // the last hand-over has been read
+      pair_p(x, slot, ls + st * kTileRows, qq, key0, w.k0, c, causal, window, sl2, scale,
+             softcap);
+      mbar_arrive(xfull);
+    } else {
+      mbar_wait(xfull, i & 1);
+      pair_ds(x, slot, dls + st * kTileRows, c);
+      mbar_arrive(xempty);
+    }
+    frags(xa, x);
+    group_rs(acc, xa, wg == 0 ? do_addr : q_addr);
+    wg_wait_all();
+    pin(acc);
+    pin(xa);
+    release(&empty[st], lane);
+  }
+
+  const long long plane = (long long)B * KV * S * dh;
+  float* pk = partial + ((long long)w.part * B + b) * KV * S * dh + (long long)kvh * S * dh;
+  if (wg == 0)
+    kv_store(acc, dv, sdv, pk + max_parts * plane, w.parts == 1, b, kvh, key0, c, S, dh, 1.f);
+  else
+    kv_store(acc, dk, sdk, pk, w.parts == 1, b, kvh, key0, c, S, dh, scale);
+}
+
+// dK (times scale) and dV in bf16 from the fp32 partials of the key blocks
+// cut into more than one part (the others were written whole), summed in
 // part order: one thread per pair of columns.
 __global__ void flash_bwd_dkv_sum_kernel(const float* __restrict__ partial, bf16* __restrict__ dk,
                                          bf16* __restrict__ dv, Strides sdk, Strides sdv,
-                                         int parts, int B, int KV, int S, int dh, float scale) {
+                                         int chunk, int max_parts, int bn, int B, int H, int KV,
+                                         int S, int dh, int causal, int window, float scale) {
   const long long n = (long long)B * KV * S * dh;
   const long long e = 2 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
   if (e >= n) return;
+  const int col = (int)(e % dh);
+  const long long row = e / dh;
+  const int s = (int)(row % S);
+  int qt_lo, n_qt;
+  const int parts =
+      kv_parts(kv_steps(s / bn * bn, bn, S, H / KV, causal, window, &qt_lo, &n_qt), chunk);
+  if (parts == 1) return;
   float2 sk = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
   for (int p = 0; p < parts; ++p) {
     const float2 x = *reinterpret_cast<const float2*>(partial + p * n + e);
-    const float2 y = *reinterpret_cast<const float2*>(partial + (parts + p) * n + e);
+    const float2 y = *reinterpret_cast<const float2*>(partial + (max_parts + p) * n + e);
     sk.x += x.x;
     sk.y += x.y;
     sv.x += y.x;
     sv.y += y.y;
   }
-  const int col = (int)(e % dh);
-  const long long row = e / dh;
-  const int s = (int)(row % S);
   const int kvh = (int)((row / S) % KV);
   const int b = (int)(row / ((long long)S * KV));
   *reinterpret_cast<uint32_t*>(dk + b * sdk.b + kvh * sdk.h + s * sdk.s + col) =
@@ -1108,42 +1450,79 @@ inline int sm_count() {
 
 // Block shapes by instance (consumer warpgroups, ring stages), chosen on
 // the card (PERF.md, flash findings; tools/flash_variants.py tries others).
+// A thread gets at most 16K registers / (32 x the block's warps on one of
+// the SM's four partitions): 168 for 9-12 warps, 255 for up to 8.  At
+// D = 256 a tile is 32 KB and O, dQ, dK, dV 128 registers a thread: the
+// forward with two consumer warpgroups (168) spilled 1 KB a thread and
+// ptxas serialized its wgmmas, so it runs one (255; PaliGemma's forward
+// 0.0665 -> 0.0533 ms); dQ runs one too (Q, dO and a two-stage K/V ring for
+// two would need 256 KB).  dK/dV runs the pair kernel from D = 128 (PAIR:
+// one key tile a block, dV and dK in two warpgroups): at 128 the kernel
+// that holds both in one warpgroup spills 1.2 KB a thread and took 0.2365
+// ms of the trainer's backward against the pair's 0.1656; at 256 the pair
+// drops its producer warp (OWN_LOADS: 0.27 -> 0.17 ms for PaliGemma's
+// backward).
 template <int D>
 struct Fwd {
-  static constexpr int NWG = D <= 64 ? 3 : 2, STAGES = D <= 64 ? 4 : 3;
+  static constexpr int NWG = D <= 64 ? 3 : D <= 128 ? 2 : 1;
+  static constexpr int STAGES = D <= 64 ? 4 : D <= 128 ? 3 : 2;
 };
 template <int D>
 struct Dq {
-  static constexpr int NWG = 2, STAGES = D <= 64 ? 3 : 2;
+  static constexpr int NWG = D <= 128 ? 2 : 1, STAGES = D <= 64 ? 3 : 2;
 };
 template <int D>
 struct Dkv {
+  static constexpr bool PAIR = D >= 128;
+  static constexpr bool OWN_LOADS = D >= 256;   // the pair without a producer warp
   static constexpr int NWG = 2, STAGES = D <= 64 ? 4 : 2;
+  static constexpr int KEYS = PAIR ? kTileRows : kTileRows * NWG;   // keys a block
 };
 
 inline int pad_rows(int S) { return (S + kTileRows - 1) / kTileRows * kTileRows; }
 
-// The parts the dK/dV blocks split a group's G query heads into: the
-// fewest (a divisor of G) that give every SM a block.
-inline int dkv_parts(int B, int H, int KV, int S, int bn) {
+// How the dK/dV grid cuts its work: `chunk`, the most steps a block takes
+// (an even share of all steps over the SMs, one block each, or a whole key
+// block's where that is more: a part's fixed cost, K and V loaded and fp32
+// partials written and summed, asks for parts of several steps); `blocks`,
+// every key block's parts together (the grid's work dimension); `max_parts`, the most parts of one key block
+// (1: no partials).  Under causality the first key block has the most
+// steps and the most parts.
+struct KvPlan {
+  int chunk, blocks, max_parts;
+};
+
+template <int D>
+KvPlan kv_plan(int B, int H, int KV, int S, int causal, int window) {
+  constexpr int BN = Dkv<D>::KEYS;
   const int G = H / KV;
-  const long long blocks = (long long)KV * B * ((S + bn - 1) / bn);
-  const int sms = sm_count();
-  int parts = 1;
-  while (blocks * parts < sms && parts < G) {
-    ++parts;
-    while (G % parts) ++parts;
+  long long total = 0;
+  int most = 1, lo, n;
+  for (int k0 = 0; k0 < S; k0 += BN) {
+    const int steps = kv_steps(k0, BN, S, G, causal, window, &lo, &n);
+    total += steps;
+    most = steps > most ? steps : most;
   }
-  return parts;
+  const long long want = sm_count();
+  long long chunk = (total * KV * B + want - 1) / want;
+  chunk = chunk < 1 ? 1 : (chunk > most ? most : chunk);
+  KvPlan plan{(int)chunk, 0, kv_parts(most, (int)chunk)};
+  for (int k0 = 0; k0 < S; k0 += BN)
+    plan.blocks += kv_parts(kv_steps(k0, BN, S, G, causal, window, &lo, &n), plan.chunk);
+  return plan;
 }
 
-inline int bn_of(int dh) { return kTileRows * (dh <= 64 ? Dkv<64>::NWG : Dkv<128>::NWG); }
+inline KvPlan kv_plan_of(int B, int H, int KV, int S, int dh, int causal, int window) {
+  return dh <= 64    ? kv_plan<64>(B, H, KV, S, causal, window)
+         : dh <= 128 ? kv_plan<128>(B, H, KV, S, causal, window)
+                     : kv_plan<256>(B, H, KV, S, causal, window);
+}
 
 // floats of the backward's workspace: lse2 and delta, (B, H, S_pad) each,
-// then the dK and dV partials when the dK/dV blocks split the heads.
-inline long long workspace_floats(int B, int H, int KV, int S, int dh) {
+// then the dK and dV partials when a key block is cut into parts.
+inline long long workspace_floats(int B, int H, int KV, int S, int dh, int causal, int window) {
   const long long rows = 2LL * B * H * pad_rows(S);
-  const int parts = dkv_parts(B, H, KV, S, bn_of(dh));
+  const int parts = kv_plan_of(B, H, KV, S, dh, causal, window).max_parts;
   return rows + (parts > 1 ? 2LL * parts * B * KV * S * dh : 0);
 }
 

@@ -14,45 +14,48 @@ What bounds it on an H100: at the trainer's shape (B=8, H=16, KV=8, S=512,
 D=128, bf16) the causal forward does ~170 flops per byte of q/k/v/o, below
 bf16's ridge (~295), so its roofline bound is the bytes; Seamless' encoder
 (B=16, H=KV=16, S=1024, D=64, ``causal=False``) does ~500 and is bound by
-the operations.
+the operations.  The earlier causal kernels (``mma.sync``) met neither
+bound: they were held by latency, copies and products serialised in each
+warp.
 
-Routes (``route``), from the dtype, ``causal`` and the head_dim instance
-alone (no route falls back to another; a failed build or launch raises):
+Routes (``route``), from the dtype alone (no route falls back to another;
+a failed build or launch raises):
 
-* ``"wgmma"``, bfloat16 with ``causal=False`` at the instances 64 and 128:
-  Hopper's warpgroup MMAs on tiles that TMA brings into shared memory
-  (``csrc/flash_attention_sm90.cuh``): consumer warpgroups of 64 query
-  rows (forward: three at instance 64, two at 128; dQ: two) or 64 keys
-  (dK/dV: two) per block, and a producer warpgroup keeping a ring of
-  64-row K/V (or Q/dO) tiles in flight.  When the dK/dV grid would leave
-  SMs idle its blocks split a group's query heads and a last kernel sums
-  their fp32 partials in a fixed order.
-* ``"mma_sync"``, bfloat16 otherwise (every causal call, and non-causal
-  head_dim 256, which no path runs): ``mma.sync`` m16n8k16 (bf16 in, fp32
-  accumulate) on operands brought in by ``ldmatrix``, K/V tiles streamed
-  through a ``cp.async`` ring.  The causal shapes the trainer runs are
-  bound by bytes, where mma.sync's rate already puts the operations under
-  that bound.  A block holds one query head, so any group size G is taken
-  (DBRX's 6 x 128, Qwen3-MoE's 16 x 128, PaliGemma's 8 x 256).
+* ``"wgmma"``, every bfloat16 call, causal or not, at the head_dim
+  instances 64, 128 and 256: Hopper's warpgroup MMAs on tiles that TMA
+  brings into shared memory (``csrc/flash_attention_sm90.cuh``).  Consumer
+  warpgroups of 64 query rows (forward: three at instance 64, two at 128,
+  one at 256; dQ: two, one at 256) or 64 keys (dK/dV: two with their own
+  keys at 64; from 128 a pair sharing 64 keys, one holding dV and the
+  other dK) per block, and a producer warp keeping a ring of 64-row tiles
+  in flight (at 256 the dK/dV pair issues its own loads: a ninth warp
+  would cap every thread at 168 registers).  Under causality a query block's keys end at its diagonal, only
+  the diagonal's tile pays for masks, and the latest query tiles launch
+  first; a warpgroup whose band is shorter than its block's passes the
+  ring tiles it does not need.  dK/dV cuts each key block's (query head,
+  query tile) steps into even parts over the SMs (under causality the
+  first key block sees every query tile), and a last kernel sums their
+  fp32 partials in a fixed order.
 * ``"fp32"``: error-compensated TF32 on the tensor cores (``mma.sync``
   m16n8k8): each fp32 operand split into two TF32 parts, hi and lo, each
   product three MMAs (lo hi + hi lo + hi hi, fp32 accumulate), which leaves
   ~2^-21 of a product, inside the fp32 gates (2e-5).  What bounds it: the
   fp32 CUDA cores peak at 67 TFLOP/s and the TF32 tensor cores at 495, so
   fp32-exact products on them are bound at 495 / 3 = 165, which Seamless'
-  encoder shape meets in the operations.  Blocks as on ``"mma_sync"``: one
-  query head per block (any group size), K/V tiles through a ``cp.async``
-  ring; dK/dV cuts each key tile's (query head, query tile) steps into
-  even parts over the grid, and a last kernel sums their fp32 partials in
-  a fixed order; from head_dim 128 the backward runs warp pairs.
+  encoder shape meets in the operations.  One query head per block (any
+  group size), K/V tiles through a ``cp.async`` ring; dK/dV cuts each key
+  tile's (query head, query tile) steps into even parts over the grid, and
+  a last kernel sums their fp32 partials in a fixed order; from head_dim
+  128 the backward runs warp pairs.
 
-Both bfloat16 routes round P (and dS in the backward) to bf16 in registers
+The bfloat16 route rounds P (and dS in the backward) to bf16 in registers
 as the next product's operand, as the TPU kernel casts P to ``v.dtype``.
 Every route skips the key tiles outside the causal/window band, and no
 backward uses atomics: each is deterministic, the same bits run to run.
 head_dim is any multiple of 8 up to 256 (H2O-Danube-3's 120 among them):
 the kernels run their instance at the next of 64, 128, 256 with the true
-head_dim as an argument.
+head_dim as an argument; any group size G is taken (DBRX's 6 x 128,
+Qwen3-MoE's 16 x 128, PaliGemma's 8 x 256).
 
 Layout: the public functions keep the JAX function's ``(B, H, S, D)`` /
 ``(B, KV, S, D)``, and the kernels read every tensor by its (batch, head,
@@ -76,13 +79,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the C entry points' route codes (csrc/flash_attention.cu: `dispatch`)
-_ROUTES = {"fp32": 0, "mma_sync": 1, "wgmma": 2}
+# the C entry points' route codes (csrc/flash_attention.cu: `dispatch`,
+# which refuses 1, the bf16 mma.sync kernels the wgmma route replaced)
+_ROUTES = {"fp32": 0, "wgmma": 2}
 # the kernels' instances: head_dim (a multiple of 8 up to 256) runs the next
 # one up, with loads past head_dim zero-filled and stores masked
 _HEAD_DIM_INSTANCES = (64, 128, 256)
-# the instances the wgmma route is built for
-_WGMMA_INSTANCES = (64, 128)
 
 
 def instance(head_dim: int) -> int:
@@ -91,14 +93,11 @@ def instance(head_dim: int) -> int:
 
 
 def route(dtype: torch.dtype, causal: bool, head_dim: int) -> str:
-    """The kernels a call runs: ``"wgmma"`` (bfloat16, ``causal=False``,
-    instance 64 or 128), ``"mma_sync"`` (every other bfloat16 call) or
-    ``"fp32"``."""
-    if dtype == torch.float32:
-        return "fp32"
-    if not causal and instance(head_dim) in _WGMMA_INSTANCES:
-        return "wgmma"
-    return "mma_sync"
+    """The kernels a call runs: ``"wgmma"`` (every bfloat16 call, whatever
+    the mask and the head_dim instance) or ``"fp32"``.  ``causal`` and
+    ``head_dim`` enter no choice; they stay in the signature so that a
+    caller names the whole call."""
+    return "fp32" if dtype == torch.float32 else "wgmma"
 
 
 def _bind(lib: ctypes.CDLL):
@@ -220,7 +219,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     code = _ROUTES[route(q.dtype, causal, d)]
     with torch.cuda.device(q.device):
         # delta (and lse padded on the wgmma route), and the dK/dV partials
-        # where the fp32 or wgmma dK/dV blocks split their work
+        # where the dK/dV blocks cut a key tile's work into parts
         workspace = torch.empty(workspace_floats(code, b, h, kv, s, d, c, w),
                                 dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -261,8 +260,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
 
 
 # kernel launches: forwards, and backwards (one per backward call, which
-# runs the delta, dK/dV and dQ kernels, and on the fp32 and wgmma routes the
-# sum of the dK/dV partials where their blocks split the heads)
+# runs the delta (wgmma: prep), dK/dV and dQ kernels, and the sum of the
+# dK/dV partials where their blocks cut a key tile's work into parts)
 flash_attention.launches_fwd = 0
 flash_attention.launches_bwd = 0
 

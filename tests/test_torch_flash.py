@@ -41,13 +41,14 @@ def _qkv(seed, b, h, kv, s, d):
 
 # (h, kv, head_dim): G = 1, 2, 4 at head_dim 64 (ids: h-kv), a group of 16
 # and H2O-Danube-3's head_dim 120; G x D past 512 (the fp32 kernel's old
-# limit): 16 x 64 and 8 x 128
+# limit): 16 x 64, 8 x 128 and PaliGemma's 8 x 256 (the instance 256)
 @pytest.mark.parametrize("h,kv,d", [pytest.param(4, 4, 64, id="4-4"),
                                     pytest.param(4, 2, 64, id="4-2"),
                                     pytest.param(8, 2, 64, id="8-2"),
                                     pytest.param(16, 1, 64, id="16-1"),
                                     pytest.param(8, 2, 120, id="8-2-d120"),
-                                    pytest.param(8, 1, 128, id="8-1-d128")])
+                                    pytest.param(8, 1, 128, id="8-1-d128"),
+                                    pytest.param(8, 1, 256, id="8-1-d256")])
 @pytest.mark.parametrize("window,softcap", [(None, None), (48, None),
                                             (None, 5.0), (40, 5.0)])
 def test_flash_ref_matches_pallas_interpret(h, kv, d, window, softcap):
@@ -77,14 +78,16 @@ def test_flash_ref_matches_jax_oracle_at_ragged_lengths(s, causal, window, softc
 
 
 # (h, kv, head_dim): head_dim 16 (ids: h-kv), a group of 16 and head_dim
-# 120; G x D past 512: 8 x 128 and 16 x 64 (the window and softcap cases)
+# 120; G x D past 512: 8 x 128, 16 x 64 and PaliGemma's 8 x 256 (the window
+# and softcap cases)
 @pytest.mark.parametrize("h,kv,d", [pytest.param(4, 4, 16, id="4-4"),
                                     pytest.param(4, 2, 16, id="4-2"),
                                     pytest.param(8, 2, 16, id="8-2"),
                                     pytest.param(16, 1, 16, id="16-1"),
                                     pytest.param(4, 2, 120, id="4-2-d120"),
                                     pytest.param(8, 1, 128, id="8-1-d128"),
-                                    pytest.param(16, 1, 64, id="16-1-d64")])
+                                    pytest.param(16, 1, 64, id="16-1-d64"),
+                                    pytest.param(8, 1, 256, id="8-1-d256")])
 @pytest.mark.parametrize("s,window,softcap", [(24, None, None), (37, 10, None),
                                               (33, None, 4.0), (19, 7, 4.0)])
 def test_flash_backward_matches_jax_vjp(h, kv, d, s, window, softcap):
@@ -173,17 +176,19 @@ def test_noncausal_flash_backward_matches_jax_vjp(h, kv, d, s, window, softcap):
     (torch.bfloat16, False, 32, "wgmma"),      # instance 64
     (torch.bfloat16, False, 120, "wgmma"),     # instance 128
     (torch.bfloat16, False, 128, "wgmma"),
-    (torch.bfloat16, False, 136, "mma_sync"),  # instance 256: no wgmma instance
-    (torch.bfloat16, False, 256, "mma_sync"),
-    (torch.bfloat16, True, 64, "mma_sync"),    # every causal call
-    (torch.bfloat16, True, 128, "mma_sync"),
+    (torch.bfloat16, False, 136, "wgmma"),     # instance 256
+    (torch.bfloat16, False, 256, "wgmma"),
+    (torch.bfloat16, True, 64, "wgmma"),       # causal: the trainer's attention
+    (torch.bfloat16, True, 256, "wgmma"),      # PaliGemma's 8 x 256
     (torch.float32, False, 64, "fp32"),        # fp32 whatever the mask
     (torch.float32, True, 120, "fp32"),
 ])
 def test_route_is_picked_from_dtype_causal_and_instance(dtype, causal, d, want):
     assert fa.route(dtype, causal, d) == want
-    # the code the C entry points dispatch on
-    assert fa._ROUTES[want] == {"fp32": 0, "mma_sync": 1, "wgmma": 2}[want]
+    # the code the C entry points dispatch on (1, the bf16 mma.sync
+    # kernels' code, is refused there and no route maps to it)
+    assert fa._ROUTES[want] == {"fp32": 0, "wgmma": 2}[want]
+    assert 1 not in fa._ROUTES.values()
 
 
 def test_route_ignores_everything_but_dtype_causal_and_instance():
@@ -193,7 +198,8 @@ def test_route_ignores_everything_but_dtype_causal_and_instance():
         assert fa.route(torch.bfloat16, False, d) == "wgmma"
     for d in range(72, 129, 8):
         assert fa.instance(d) == 128 and fa.route(torch.bfloat16, False, d) == "wgmma"
-    assert {fa.route(torch.bfloat16, True, d) for d in range(8, 257, 8)} == {"mma_sync"}
+    assert {fa.route(torch.bfloat16, c, d) for c in (True, False)
+            for d in range(8, 257, 8)} == {"wgmma"}
 
 
 @pytest.mark.parametrize("shape,dtype,kw,exc", [

@@ -480,6 +480,7 @@ def test_cuda_flash_kernels_match_plain_versions(cuda_device, b, h, kv, s, d,
     (2, 8, 2, 256, 128, None, None),     # head_dim 128
     (2, 8, 2, 300, 120, 128, 30.0),      # head_dim 120, window and softcap
     (1, 4, 1, 77, 32, None, 5.0),        # head_dim 32, one KV head, a ragged single tile
+    (1, 8, 1, 300, 256, None, None),     # head_dim 256 (the dK/dV pair kernel), ragged S
 ])
 def test_cuda_noncausal_bf16_flash_matches_plain_and_repeats_bitwise(cuda_device, b, h, kv, s,
                                                                      d, window, softcap):
@@ -495,6 +496,68 @@ def test_cuda_noncausal_bf16_flash_matches_plain_and_repeats_bitwise(cuda_device
     torch.cuda.synchronize()
     for x, y in zip(grads, again):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d,window,softcap", [
+    (2, 16, 8, 512, 128, None, None),    # the trainer's shape (Qwen3-1.7B), fewer rows
+    (1, 4, 4, 37, 64, None, None),       # S < 64: one ragged tile, G = 1
+    (1, 2, 1, 65, 128, None, None),      # S = 65: a second tile of one key
+    (2, 16, 4, 300, 64, 128, 30.0),      # ragged S, G = 4, window, softcap
+    (1, 48, 8, 300, 128, None, None),    # DBRX's group of 6
+    (1, 64, 4, 200, 128, None, 30.0),    # Qwen3-MoE's group of 16, a softcap
+    (2, 8, 1, 300, 256, None, None),     # PaliGemma's 8 x 256, ragged S
+    (1, 8, 1, 512, 256, None, 30.0),     # 8 x 256 with a softcap (the pair's hand-over)
+    (1, 16, 1, 2100, 256, 2048, None),   # RecurrentGemma-9B's 16 x 256 and its window
+    (2, 32, 8, 300, 120, 128, 30.0),     # head_dim 120 (H2O-Danube-3), window, softcap
+    (1, 8, 2, 130, 32, None, None),      # head_dim 32
+])
+def test_cuda_causal_bf16_flash_matches_plain_and_repeats_bitwise(cuda_device, b, h, kv, s, d,
+                                                                  window, softcap):
+    """The wgmma route under causality (the trainer's attention) against the
+    plain versions: ragged S, G = 1 / 4 / 6 / 8 / 16, head_dim 32 to 256,
+    windows and softcaps; its backward, free of atomics (dK/dV's parts sum
+    their partials in a fixed order), gives the same bits when run again."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.route(torch.bfloat16, True, d) == "wgmma"
+    q, k, v, o, lse, do, grads = _flash_against_plain(cuda_device, b, h, kv, s, d, window,
+                                                      softcap, "bfloat16", causal=True)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window,
+                                   softcap=softcap)
+    torch.cuda.synchronize()
+    for x, y in zip(grads, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_flash_kernels_run_wgmma_only(cuda_device):
+    """Every bf16 flash kernel (forward, dQ, dK/dV at the three head_dim
+    instances, causal and not) computes its products with wgmma (HGMMA in
+    its SASS) and none with mma.sync (HMMA)."""
+    import re
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    build.library("flash_attention")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build._target(build.sources()["flash_attention"]))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "_wgmma_kernel" in m.group(1) else None
+            if fn:
+                counts[fn] = [0, 0]
+        elif fn and "HGMMA" in line:
+            counts[fn][0] += 1
+        elif fn and "HMMA" in line:
+            counts[fn][1] += 1
+    assert len(counts) == 18, counts       # 3 kernels x 3 head_dim instances x causal or not
+    assert all(hg and not hm for hg, hm in counts.values()), counts
 
 
 @pytest.mark.cuda
