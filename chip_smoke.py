@@ -203,6 +203,14 @@ no result):
    an attention layer, logits within rtol 2e-5 and atol 2e-5 x max
    |logit|, one flash forward per attention layer; ``model_hybrid``'s
    full-depth forwards count one flash launch per attention layer.
+17. Slice 18, the int8 pool's paged decode on the tensor cores (bf16 q,
+   G <= 16, head_dim 64 and up): ``kernels`` and ``split_kernels`` also
+   hold the serving shape with a softcap for bf16 q, both int8 routes run
+   under the sync debug mode, and every int8 tensor-core instance must
+   show HMMA in its SASS (the int8 row's ``hmma``).  The paged rows' bounds
+   read the operations at the route's peak: bf16 tensor cores (989
+   TFLOP/s) for bf16 q, the CUDA cores' 67 otherwise and in
+   ``bound_detail``.
 
 Every phase's wall seconds are printed on a line of their own as it ends
 (``{"phase": "wall", ...}``), and their total after the last.  Then the
@@ -313,6 +321,11 @@ def phase_build() -> None:
 # kernels
 # ---------------------------------------------------------------------------
 
+# the mangled name of the paged kernel's int8-pool tensor-core instances
+# (paged_decode_kernel<bf16, int8_t, true, D, VB, true>)
+PAGED_INT8_MMA = r"paged_decode_kernelI13__nv_bfloat16aLb1ELi(\d+)ELi(\d+)ELb1E"
+
+
 def _paged_inputs(gen, b, h, kv, d, page_size, p, dtype, int8=False):
     """Pool, ragged block tables (-1 tails) and lengths; row 0 fully masked.
     ``int8``: the pools are int8 codes made by the port's ``quantize_kv``
@@ -339,11 +352,14 @@ def _paged_inputs(gen, b, h, kv, d, page_size, p, dtype, int8=False):
     return q, kp, vp, tables, lengths, scales
 
 
-def _paged_bound(q, kp, tables, lengths, quantized=False):
-    """(bound_ms, bound_by) from what these inputs need: each K/V tile the
-    softmax can weigh is read once (a fully masked row averages V over its
-    clamped entries), with its fp32 scales for an int8 pool, q read and the
-    output written once."""
+def _paged_bound(q, kp, tables, lengths, quantized=False, tensor_cores=False):
+    """(bound_ms, bound_by, detail) from what these inputs need: each K/V
+    tile the softmax can weigh is read once (a fully masked row averages V
+    over its clamped entries), with its fp32 scales for an int8 pool, q read
+    and the output written once; the operations at the route's peak: bf16
+    tensor cores (989 TFLOP/s) where the plan takes them (bf16 q, either
+    pool: int8 codes are exact in bf16), else the CUDA cores' 67, whose
+    bound the detail keeps beside."""
     b, h, d = q.shape
     page_size, kv = kp.shape[1], kp.shape[2]
     tile = page_size * kv * d * kp.element_size() + (4 * page_size * kv if quantized else 0)
@@ -362,8 +378,12 @@ def _paged_bound(q, kp, tables, lengths, quantized=False):
               + 2 * q.numel() * q.element_size()
               + tables.numel() * 4 + lengths.numel() * 4)
     flops = 4 * h * d * positions
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    peak = BF16_FLOPS if tensor_cores else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    detail = {"flops": flops, "bytes": nbytes, "ops_ms": 1e3 * t_ops,
+              "bytes_ms": 1e3 * t_bytes, "peak_flops": peak,
+              "bound_ms_cuda_cores": 1e3 * max(t_bytes, flops / FP32_FLOPS)}
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", detail
 
 
 _SLEEP_CYCLES_PER_MS = []
@@ -460,17 +480,18 @@ def _kernel_row(name, main, page_size, variant):
     qd = q[:, :, None, :]
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True))
-    bound_ms, bound_by = _paged_bound(q, kp, tables, lengths, quantized=bool(scales))
     pool = "int8 pool + fp32 scales" if scales else "bf16 pool"
     splits, chunk, tp, mma = pda.plan(tables.shape[1], page_size, b * kv,
                                       da.sm_count(q.device), h // kv, q.dtype, kp.dtype, d)
+    bound_ms, bound_by, detail = _paged_bound(q, kp, tables, lengths, quantized=bool(scales),
+                                              tensor_cores=mma)
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:146",
             "variant": variant,
             "launches": None, "max_abs_err": err, "ms": kernel_ms,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "bound_by": bound_by, "bound_detail": detail, "library_ms": library_ms,
             "library_call": "F.scaled_dot_product_attention(enable_gqa=True) on a bf16 "
                             "dense view gathered (and dequantized) beforehand, not timed",
             "shape": f"B={b} H={h} KV={kv} D={d} page={page_size} "
@@ -500,6 +521,7 @@ def phase_kernels() -> list:
         ("slice_int8_bf16q", b, h, kv, d, page_size, p, bf16, None, True),
         ("slice_int8_fp32q", b, h, kv, d, page_size, p, fp32, None, True),
         ("softcap_int8_fp32q", b, h, kv, d, page_size, p, fp32, 30.0, True),
+        ("softcap_int8_bf16q", b, h, kv, d, page_size, p, bf16, 30.0, True),
         ("odd_int8_bf16q", 3, 12, 3, 64, 8, 5, bf16, None, True),
         # H2O-Danube-3's head_dim 120 (32 heads, 8 KV heads): the D=128
         # instance with the last lanes' tail idle; int8 rows 8-byte aligned
@@ -535,7 +557,19 @@ def phase_kernels() -> list:
                         "fp32/bf16 pool"),
             _kernel_row("paged_decode_attention_int8", main.pop("slice_int8_bf16q"),
                         page_size, "int8 pool, k_scales/v_scales (:31-36, :51-53, "
-                                   ":123-129)")]
+                                   ":123-129); bf16 q on the tensor cores (codes "
+                                   "exact in bf16, scales folded into S and P), fp32 "
+                                   "q on the CUDA cores")]
+    # the int8 pool's tensor-core instances (bf16 q, head_dim 64 / 128 / 256,
+    # 16- and 8-byte copies) compute with mma.sync: HMMA in each one's SASS
+    hmma = {f"D{m.group(1)}_copy{m.group(2)}": n["hmma"]
+            for fn, n in _sass_hmma("paged_decode_attention").items()
+            for m in [re.search(PAGED_INT8_MMA, fn)] if m}
+    emit("kernels", kernel="paged_decode_attention_int8", case="sass", hmma=hmma)
+    if len(hmma) != 6 or not all(hmma.values()):
+        raise AssertionError(f"paged_decode_attention: int8 tensor-core instances "
+                             f"without HMMA: {hmma}")
+    rows[1]["hmma"] = hmma
     for row in rows:
         emit("kernels", **{k: v for k, v in row.items() if k != "launches"})
     return rows
@@ -1514,7 +1548,8 @@ def phase_split_kernels() -> None:
     for label, dtype, softcap, int8 in [
             ("bf16", bf16, None, False), ("fp32", fp32, None, False),
             ("softcap_fp32", fp32, 30.0, False), ("int8_bf16q", bf16, None, True),
-            ("int8_fp32q", fp32, None, True), ("softcap_int8_fp32q", fp32, 30.0, True)]:
+            ("int8_fp32q", fp32, None, True), ("softcap_int8_fp32q", fp32, 30.0, True),
+            ("softcap_int8_bf16q", bf16, 30.0, True)]:
         splits, chunk, tp, mma = pda.plan(p, page_size, b * kv, sms, h // kv, dtype,
                                           torch.int8 if int8 else dtype, d)
         keys = chunk * page_size
@@ -1542,18 +1577,20 @@ def phase_split_kernels() -> None:
                                           **scales)
         _check_close(f"split_{label}", "paged_decode_attention", [out], [want],
                      TOL[str(dtype).split(".")[-1]])
-        last["paged_int8" if int8 else "paged"] = (q, kp, vp, tables, lengths, scales)
+        last[f"paged_int8_{'tensor' if mma else 'cuda'}" if int8 else "paged"] = (
+            q, kp, vp, tables, lengths, scales)
 
     # neither wrapper may read a device value on the host: a sync raises
     q, k, v, lengths, window = last["dense"]
     qp, kp, vp, tables, plens, _ = last["paged"]
-    qi, ki, vi, ti, ilens, scales = last["paged_int8"]
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
         da.decode_attention(q, k, v, lengths, window=window)
         pda.paged_decode_attention(qp, kp, vp, tables, plens)
-        pda.paged_decode_attention(qi, ki, vi, ti, ilens, **scales)
+        for route in ("tensor", "cuda"):     # the int8 pool by both routes
+            qi, ki, vi, ti, ilens, scales = last[f"paged_int8_{route}"]
+            pda.paged_decode_attention(qi, ki, vi, ti, ilens, **scales)
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     torch.cuda.synchronize()
@@ -2991,10 +3028,10 @@ PIPE = dict(num_slots=16, rollout_batch_size=16, num_return_sequences_in_group=4
             max_new_tokens=32, max_seq_len=64, page_size=16, prefill_chunk=16,
             pg_variant="decoupled_ppo", num_rollout_replicas=2,
             weight_sync="overlapped", seed=SEED)
-# cut from 4 and 3 steps to keep the whole run inside its time limit on a
-# slow host (its host-bound phases ran 20-30% longer on one card's machine
-# than on another's)
-PIPE_STEPS = 3
+# cut from 4, 3 and 2 steps to keep the whole run inside its time limit
+# on a slow host (its host-bound phases ran 20-30% longer on one card's
+# machine than on another's)
+PIPE_STEPS = 2
 TRACE_STEPS = 2         # the traced runs: step 1 under the profiler
 # the agentic pipeline: 2 env groups of 4 GridTargetEnvs (3 turns at most),
 # 2 steps of 8 trajectories
@@ -3304,8 +3341,9 @@ def _trace_pipeline(phase: str, pipe, steps: int, gpu: str) -> dict:
 def phase_pipeline_rlvr(gpu: str) -> dict:
     """``build_rlvr_pipeline(...).run`` on full-width, full-depth Qwen3-1.7B,
     bf16: two replicas, overlapped weight sync at alpha = 1, then the
-    synchronous baseline (alpha = 0, the paper's switch), 3 steps each.
-    Then one traced run of 2 steps in each mode (``_trace_pipeline``)."""
+    synchronous baseline (alpha = 0, the paper's switch), ``PIPE_STEPS``
+    steps each.  Then one traced run of 2 steps in each mode
+    (``_trace_pipeline``)."""
     torch = _torch()
     from repro_torch.configs import get_config
     from repro_torch.launch.pipeline import PipelineSettings, build_rlvr_pipeline
@@ -3441,8 +3479,8 @@ def phase_moe_kernels(rows: list, gpu: str) -> None:
     tol = TOL["bfloat16"]
     page_size, b = SERVE["page_size"], SERVE["num_slots"]
     p = SERVE["max_total_len"] // page_size
-    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "shape", "split")
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_detail",
+            "library_ms", "shape", "split")
     for arch, cfg in _moe_configs().items():
         h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         for row, int8 in ((rows[0], False), (rows[1], True)):

@@ -28,11 +28,13 @@
 // nothing past it is stored, so D=120 runs the D=128 instance.
 //
 // int8 pools (the TPU kernel's `quantized=True`): codes and their fp32
-// (slot, kv-head) scales land in shared memory as they are stored, and each
-// element is dequantized in registers as k * k_scale, v * v_scale in fp32,
-// exactly as the reference does (codes widen by integer ops, not the
-// conversion unit); a -1 table entry reads page 0's codes AND scales, like
-// the TPU kernel's `scale_map`.
+// (slot, kv-head) scales land in shared memory as they are stored, and are
+// widened in registers (by integer and bf16 ops, not the conversion unit);
+// a -1 table entry reads page 0's codes AND scales, like the TPU kernel's
+// `scale_map`.  The CUDA cores dequantize each element as k * k_scale,
+// v * v_scale in fp32, as the reference does; the tensor cores take the
+// codes themselves, exact in bf16, and fold the scales, one per key, into
+// S and P (below).
 //
 // Semantics are those of the TPU kernel: scores are fp32 with the
 // 1/sqrt(D) scale, then an optional tanh softcap, then the mask (position <
@@ -70,21 +72,40 @@
 // read at one column hit distinct banks.  The G query heads of the KV head
 // share each tile, by one of two routes:
 //
-// * CUDA cores (fp32 q, int8 pools, and bf16 with G > 16, D = 32 or tiles
-//   other than 32 keys).  Each warp owns up to four heads with q
+// * CUDA cores (fp32 q, and bf16 q with G > 16, D = 32 or tiles other than
+//   32 keys; either pool).  Each warp owns up to four heads with q
 //   (pre-scaled, fp32) in shared memory, and each lane scores one key of the
 //   tile -- a dot product in registers, four partial sums, no shuffle per
 //   key.  Then one max and one sum over the warp per tile, and the lanes
 //   split the head dim for P V, widening (and dequantizing) each V row in
 //   registers.  P stays fp32, as in the TPU kernel.
-// * Tensor cores (bf16 q and pool, G <= 16, D >= 64, 32-key tiles):
-//   `mma.sync.m16n8k16` with the G heads as the 16 rows (padded with
-//   zeros).  Every one of the four warps computes S = q K^T for the whole
-//   tile (q unscaled in bf16, exact; the scale and softcap are applied to S
-//   in fp32), the softmax runs on the C fragments (quad shuffles per row),
-//   and each warp multiplies P by its quarter of V's columns.  P is split
-//   into two bf16 terms, hi + lo, so that P V keeps ~16 bits of P where one
-//   bf16 rounding would keep 8.
+// * Tensor cores (bf16 q with a bf16 or an int8 pool, G <= 16, D >= 64,
+//   32-key tiles): `mma.sync.m16n8k16` with the G heads as the 16 rows
+//   (padded with zeros).  Every one of the four warps computes S = q K^T for
+//   the whole tile (q unscaled in bf16, exact; the scale and softcap are
+//   applied to S in fp32), the softmax runs on the C fragments (quad
+//   shuffles per row), and each warp multiplies P by its quarter of V's
+//   columns.  P is split into two bf16 terms, hi + lo, so that P V keeps
+//   ~16 bits of P where one bf16 rounding would keep 8.
+//   An int8 code in [-128, 127] is exact in bf16, and a key's scales factor
+//   out of both products: q . (s_k c) = s_k (q . c), and
+//   sum_t p_t s_v[t] c_t = sum_t (p_t s_v[t]) c_t.  So the int8 pool's
+//   tensor-core route takes S = q C_k^T on the codes, scales column t by
+//   s_k[t] / sqrt(D) in fp32, and multiplies P' = P s_v (fp32, then hi + lo)
+//   by C_v.  ldmatrix has no int8 form, so the codes are widened
+//   (`codes_bf16x2`, exact) on their way to the B fragments:
+//   - K: once a tile, by the whole block, into a bf16 tile in shared memory
+//     that the bf16 route's ldmatrix loads then read (every warp needs the
+//     whole tile: widened in each warp's registers instead, K costs four
+//     times the conversions; measured slower at G = 4, 6 and 16, PERF.md).
+//   - V: in registers (each warp widens only its quarter of the columns).
+//     V's columns and O's are permuted together within each warp's
+//     quarter, so that one load of NT = D / 32 bytes from a key row holds
+//     that row's codes of the thread's column in each of the NT n tiles;
+//     two rows' loads, byte-permuted, give the (2c, 2c + 1) pairs.  O is
+//     stored through the same permutation (`v_column`).  (A bf16 V tile
+//     read by ldmatrix.trans measured slower.)
+//   The V loads are free of bank conflicts at every D.
 //
 // Combine, in the same launch: each block of a split row writes its
 // (m, l, acc) in fp32, fences, and bumps the row's counter; the block that
@@ -101,10 +122,97 @@ namespace {
 
 constexpr int kMmaKeys = 32;  // keys per tensor-core tile
 
+// The int8 codes in bytes 0 and 2 of `t` as a bf16x2 register (byte 0 in the
+// low half), exactly: the bf16 with bits 0x4300 | m is 128 + m (m < 128),
+// so (0x4300 | (x & 0x7f)) - (0x4300 | (x & 0x80)) is x for x < 128 and
+// (128 + x - 128) - 256 = x - 256 for x >= 128: the signed code, and a
+// difference bf16 holds exactly.  Two LOP3s and one bf16x2 subtraction.
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t t) {
+  const uint32_t a = (t & 0x007f007fu) | 0x43004300u;
+  const uint32_t b = (t & 0x00800080u) | 0x43004300u;
+  uint32_t r;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// The physical column, in a warp's quarter of V and O starting at col0, of
+// n tile j's column n: NT = D / 32 tiles interleaved, so that a thread's
+// column n of every tile lies in NT consecutive bytes of a V row.
+template <int D>
+__device__ __forceinline__ int v_column(int col0, int j, int n) {
+  return col0 + (D / 32) * n + j;
+}
+
+// NT = D / 32 int8 codes of one V row at the thread's column of each n tile
+// (v_column), in (NT + 3) / 4 32-bit words (tile j in byte j % 4 of word
+// j / 4).
+template <int NT>
+__device__ __forceinline__ void load_v_codes(uint32_t* w, const unsigned char* p) {
+  if constexpr (NT == 2) {
+    w[0] = *reinterpret_cast<const unsigned short*>(p);
+  } else if constexpr (NT == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x;
+    w[1] = x.y;
+  }
+}
+
+// O (this warp's NT n tiles) += P'[:, k0 .. k0 + 15] C_v, P' given as the
+// hi and lo A fragments, from the int8 tile vt's keys k0 .. k0 + 15 and the
+// warp's quarter of the columns from col0 (permuted by v_column).
+template <int D, int ROW>
+__device__ __forceinline__ void pv_int8(float (&o)[D / 32][4], const uint32_t* ph,
+                                        const uint32_t* pl, const unsigned char* vt, int k0,
+                                        int col0, int lane) {
+  constexpr int NT = D / 32;
+  constexpr int NW = (NT + 3) / 4;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const unsigned char* base = vt + (k0 + 2 * c) * ROW + v_column<D>(col0, 0, g);
+  uint32_t r0[NW], r1[NW], r2[NW], r3[NW];  // keys 2c, 2c + 1, 2c + 8, 2c + 9
+  load_v_codes<NT>(r0, base);
+  load_v_codes<NT>(r1, base + ROW);
+  load_v_codes<NT>(r2, base + 8 * ROW);
+  load_v_codes<NT>(r3, base + 9 * ROW);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int x = j & 3;
+    const uint32_t sel = x | (x << 4) | ((4 + x) << 8) | ((4 + x) << 12);
+    const uint32_t b0 = codes_bf16x2(__byte_perm(r0[j >> 2], r1[j >> 2], sel));
+    const uint32_t b1 = codes_bf16x2(__byte_perm(r2[j >> 2], r3[j >> 2], sel));
+    mma16816(o[j], ph, b0, b1);
+    mma16816(o[j], pl, b0, b1);
+  }
+}
+
+// An int8 tile (tk rows of ROW bytes) widened into a bf16 tile (rows of
+// D + 8 elements) by every thread of the block, 16 codes a load.
+template <int D, int ROW>
+__device__ __forceinline__ void widen_tile(bf16* dst, const unsigned char* src, int tk) {
+  for (int x = threadIdx.x; x < tk * (D / 16); x += blockDim.x) {
+    const int row = x / (D / 16);
+    const int ch = x - row * (D / 16);
+    const uint4 w = *reinterpret_cast<const uint4*>(src + row * ROW + 16 * ch);
+    const uint32_t in[4] = {w.x, w.y, w.z, w.w};
+    uint32_t out[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = codes_bf16x2(__byte_perm(in[i], 0, 0x1100));      // codes 0, 1
+      out[2 * i + 1] = codes_bf16x2(__byte_perm(in[i], 0, 0x3322));  // codes 2, 3
+    }
+    uint4* d = reinterpret_cast<uint4*>(dst + row * (D + 8) + 16 * ch);
+    d[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    d[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  }
+}
+
 // Bytes of one ring stage of `tk`-key tiles: K and V rows (padded), for
 // int8 pools the keys' k and v scales, and a live flag per key.  A block's
-// shared memory: two stages, q (q_bytes), each warp's scores, and with
-// splits the combine's weights.
+// shared memory: two stages, q (q_bytes), each warp's scores, with splits
+// the combine's weights, and for the int8 pool on the tensor cores the
+// widened K tile.
 __host__ __device__ __forceinline__ int stage_bytes(int tk, int d, int es, bool quant) {
   const int bytes = 2 * tk * (d * es + kPad) + (quant ? 8 * tk : 0) + tk;
   return (bytes + 15) / 16 * 16;
@@ -152,6 +260,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   float* p_all = reinterpret_cast<float*>(q_raw + q_bytes(group, D));
   float* p_s = p_all + warp * (kMaxHeadsPerWarp * tk);             // this warp's scores
   float* comb = p_all + nwarps * (kMaxHeadsPerWarp * tk);          // (group, splits + 1)
+  // tensor cores, int8 pools: the tile's K widened to bf16 (rows of D + 8),
+  // after comb, 16-byte aligned
+  bf16* k_st = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(comb + (splits > 1 ? group * (splits + 1) : 0)) + 15) &
+      ~uintptr_t(15));
 
   // Whether the row has a live key: an assigned entry below the length.
   const int length = lengths[b];
@@ -261,7 +374,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const int n = tile_keys(i);
 
     if constexpr (MMA) {
-      const bf16* kt = reinterpret_cast<const bf16*>(st);
+      // int8 pools: K widened once into a bf16 tile by the whole block (not
+      // by each warp for its fragments: measured faster, PERF.md)
+      if constexpr (QUANT) {
+        if (!uniform) widen_tile<D, ROW>(k_st, st, tk);
+        __syncthreads();
+      }
+      constexpr int KP = QUANT ? D + 8 : PITCH;
+      const bf16* kt = QUANT ? k_st : reinterpret_cast<const bf16*>(st);
       const bf16* vt = reinterpret_cast<const bf16*>(st + tk * ROW);
       const int gq = lane >> 2;
       const int cq = lane & 3;
@@ -276,12 +396,23 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         for (int kk = 0; kk < D / 16; ++kk) {
           uint32_t a[4], bk[4];
           load_a<D + 8>(a, q_b, kk * 16, lane);
-          load_b<PITCH>(bk, kt, 0, kk * 16, lane);
+          load_b<KP>(bk, kt, 0, kk * 16, lane);
           mma16816(s[0], a, bk[0], bk[1]);
           mma16816(s[1], a, bk[2], bk[3]);
-          load_b<PITCH>(bk, kt, 16, kk * 16, lane);
+          load_b<KP>(bk, kt, 16, kk * 16, lane);
           mma16816(s[2], a, bk[0], bk[1]);
           mma16816(s[3], a, bk[2], bk[3]);
+        }
+      }
+      // int8 pools: each key's scales, k (times 1/sqrt(D)) on S and v on P;
+      // a uniform row's S is 0 (its k scales were never loaded)
+      float2 sk[4], sv[4];
+      if constexpr (QUANT) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 k2 = *reinterpret_cast<const float2*>(ks_t + 8 * j + 2 * cq);
+          sk[j] = uniform ? make_float2(0.f, 0.f) : make_float2(k2.x * scale, k2.y * scale);
+          sv[j] = *reinterpret_cast<const float2*>(ks_t + tk + 8 * j + 2 * cq);
         }
       }
       // the softmax on the fragments: rows gq (e < 2) and gq + 8, keys
@@ -295,6 +426,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           const int key = 8 * j + 2 * cq + (e & 1);
           if (e < 2) live[j][e] = key < n && live_t[key];
           float sc = s[j][e] * scale;
+          if constexpr (QUANT) sc = s[j][e] * (e & 1 ? sk[j].y : sk[j].x);
           if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
           s[j][e] = live[j][e & 1] ? sc : kNegInf;  // uniform rows: score 0
           mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
@@ -325,7 +457,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-      // O += P V over this warp's columns, P as hi + lo bf16 terms
+      // O += P V over this warp's columns, P (int8 pools: P' = P s_v) as
+      // hi + lo bf16 terms
+      if constexpr (QUANT) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= e & 1 ? sv[j].y : sv[j].x;
+      }
       const int col0 = warp * (D / 4);
 #pragma unroll
       for (int k2 = 0; k2 < 2; ++k2) {
@@ -338,14 +477,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         pl[1] = pack_bf16_rest(s[2 * k2][2], s[2 * k2][3], ph[1]);
         pl[2] = pack_bf16_rest(s[2 * k2 + 1][0], s[2 * k2 + 1][1], ph[2]);
         pl[3] = pack_bf16_rest(s[2 * k2 + 1][2], s[2 * k2 + 1][3], ph[3]);
+        if constexpr (QUANT) {
+          pv_int8<D, ROW>(o, ph, pl, st + tk * ROW, 16 * k2, col0, lane);
+        } else {
 #pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bv[4];
-          load_b_trans<PITCH>(bv, vt, 16 * k2, col0 + 16 * np, lane);
-          mma16816(o[2 * np], ph, bv[0], bv[1]);
-          mma16816(o[2 * np + 1], ph, bv[2], bv[3]);
-          mma16816(o[2 * np], pl, bv[0], bv[1]);
-          mma16816(o[2 * np + 1], pl, bv[2], bv[3]);
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t bv[4];
+            load_b_trans<PITCH>(bv, vt, 16 * k2, col0 + 16 * np, lane);
+            mma16816(o[2 * np], ph, bv[0], bv[1]);
+            mma16816(o[2 * np + 1], ph, bv[2], bv[3]);
+            mma16816(o[2 * np], pl, bv[0], bv[1]);
+            mma16816(o[2 * np + 1], pl, bv[2], bv[3]);
+          }
         }
       }
     } else {
@@ -452,7 +595,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const long long part0 = (rowkv * splits + split) * group;
   if constexpr (MMA) {
     const int gq = lane >> 2;
-    const int col0 = warp * (D / 4) + 2 * (lane & 3);
+    const int cq = lane & 3;
+    const int col0 = warp * (D / 4);
+    // the column of o[j][2r + e]: int8 pools through V's permutation
+    auto column = [&](int j, int e) {
+      return QUANT ? v_column<D>(col0, j, 2 * cq + e) : col0 + 8 * j + 2 * cq + e;
+    };
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int g = gq + 8 * r;
@@ -463,20 +611,31 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int col = col0 + 8 * j + e;
+            const int col = column(j, e);
             if (col < head_dim) store(o[j][2 * r + e] / denom, ob + g * head_dim + col);
           }
         continue;
       }
-      if (warp == 0 && (lane & 3) == 0) {
+      if (warp == 0 && cq == 0) {
         const float ml[2] = {mr[r], lr[r]};
         store_cg<2>(ml, ws_ml + (part0 + g) * 2);
       }
       if (lr[r] > 0.f) {
+        if constexpr (QUANT) {
+          // column e of every tile: NT consecutive columns
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const float x[2] = {o[j][2 * r], o[j][2 * r + 1]};
-          store_cg<2>(x, ws + (part0 + g) * D + col0 + 8 * j);
+          for (int e = 0; e < 2; ++e) {
+            float x[NT];
+#pragma unroll
+            for (int j = 0; j < NT; ++j) x[j] = o[j][2 * r + e];
+            store_cg<NT>(x, ws + (part0 + g) * D + column(0, e));
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float x[2] = {o[j][2 * r], o[j][2 * r + 1]};
+            store_cg<2>(x, ws + (part0 + g) * D + column(j, 0));
+          }
         }
       }
     }
@@ -535,7 +694,8 @@ int launch(const Args& a) {
   const size_t smem = (size_t)kStages * stage_bytes(tk, D, (int)sizeof(Tpool), QUANT) +
                       q_bytes(group, D) +
                       sizeof(float) * ((size_t)nwarps * kMaxHeadsPerWarp * tk +
-                                       (a.splits > 1 ? (size_t)group * (a.splits + 1) : 0));
+                                       (a.splits > 1 ? (size_t)group * (a.splits + 1) : 0)) +
+                      (MMA && QUANT ? 16 + sizeof(bf16) * (size_t)tk * (D + 8) : 0);
   auto kernel = paged_decode_kernel<Tq, Tpool, QUANT, D, VB, MMA>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -553,10 +713,11 @@ int launch(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// The tensor cores take bf16 q and pool at head_dim instances of 64 and up.
+// The tensor cores take bf16 q with a bf16 or an int8 pool at head_dim
+// instances of 64 and up.
 template <typename Tq, typename Tpool, bool QUANT, int D, int VB>
 int dispatch_route(const Args& a) {
-  if constexpr (std::is_same<Tq, bf16>::value && std::is_same<Tpool, bf16>::value && D >= 64) {
+  if constexpr (std::is_same<Tq, bf16>::value && !std::is_same<Tpool, float>::value && D >= 64) {
     if (a.mma) return launch<Tq, Tpool, QUANT, D, VB, true>(a);
   }
   if (a.mma) return (int)cudaErrorInvalidValue;
@@ -591,7 +752,8 @@ int dispatch_head_dim(int head_dim, const Args& a) {
 // table entries are cut into `splits` chunks of `chunk` entries,
 // (splits - 1) * chunk < P <= splits * chunk, walked in tiles of `tp`
 // pages; `mma` != 0 takes the
-// tensor cores (bf16 q and pool, G <= 16, head_dim > 32, tp * page = 32).
+// tensor cores (bf16 q, a bf16 or int8 pool, G <= 16, head_dim > 32,
+// tp * page = 32).
 // With splits > 1, `ws` holds B * KV * splits * G * (Dp + 2) floats (Dp:
 // head_dim's instance) and `counters` B * KV int32 zeros, left zero.
 // Returns cudaGetLastError() after the launch (0 = launched).

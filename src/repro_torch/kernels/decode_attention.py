@@ -51,11 +51,12 @@ HEAD_DIM_INSTANCES = (32, 64, 128, 256)
 TILE = 32                # keys per tile: one per lane
 MMA_ROWS = 16            # tensor cores: query heads per tile (zero-padded)
 MAX_SPLITS = 64          # the combine holds two splits per lane
-# the grid the split aims at, in blocks per SM: the tensor cores finish a
-# tile quickly and do best with fewer, longer splits (fewer partials to
-# merge); the CUDA cores need more blocks in flight (measured on an H100,
-# PERF.md)
-BLOCKS_PER_SM = {True: 4, False: 8}
+# the grid the split aims at, in blocks per SM, by route: the tensor cores
+# finish a tile quickly and do best with fewer, longer splits (fewer
+# partials to merge); the CUDA cores need more blocks in flight; an int8
+# pool on the tensor cores (the paged kernel), whose tiles take longer (K
+# widened to bf16 first), in between (measured on an H100, PERF.md)
+BLOCKS_PER_SM = {"tensor cores": 4, "tensor cores, int8": 6, "CUDA cores": 8}
 
 
 def tensor_cores(dtype: torch.dtype, dp: int, group: int) -> bool:
@@ -64,13 +65,13 @@ def tensor_cores(dtype: torch.dtype, dp: int, group: int) -> bool:
     return dtype == torch.bfloat16 and dp >= 64 and group <= MMA_ROWS
 
 
-def split_plan(tiles: int, rows: int, sms: int, min_tiles: int, mma: bool) -> tuple:
+def split_plan(tiles: int, rows: int, sms: int, min_tiles: int, route: str) -> tuple:
     """(splits, tiles per split) for ``rows`` (row, KV head) pairs whose key
-    axis is ``tiles`` tiles: about ``BLOCKS_PER_SM[mma]`` blocks per SM over
-    the whole grid, at least ``min_tiles`` tiles per split, at most
+    axis is ``tiles`` tiles: about ``BLOCKS_PER_SM[route]`` blocks per SM
+    over the whole grid, at least ``min_tiles`` tiles per split, at most
     ``MAX_SPLITS`` splits; no split is empty: (splits - 1) * per < tiles <=
     splits * per."""
-    want = -(-BLOCKS_PER_SM[mma] * sms // max(rows, 1))
+    want = -(-BLOCKS_PER_SM[route] * sms // max(rows, 1))
     splits = max(1, min(want, tiles // max(min_tiles, 1), MAX_SPLITS))
     per = -(-tiles // splits)
     return -(-tiles // per), per
@@ -91,7 +92,8 @@ def plan(seq_len: int, rows: int, sms: int, group: int, dtype: torch.dtype,
     the route."""
     mma = tensor_cores(dtype, next(x for x in HEAD_DIM_INSTANCES if x >= head_dim), group)
     splits, per = split_plan(-(-seq_len // TILE), rows, sms,
-                             min_split_tiles(group, dtype.itemsize, TILE), mma)
+                             min_split_tiles(group, dtype.itemsize, TILE),
+                             "tensor cores" if mma else "CUDA cores")
     return splits, per * TILE, mma
 
 

@@ -23,10 +23,13 @@ lengths, so the wrapper never waits for the device.  The last block of each
 (sequence, KV head) to finish merges the fp32 partials in the same launch.
 Inside a block, tiles of whole pages (32 keys at page 16) stay in their
 storage type in a ``cp.async`` ring (int8 codes with their scales, so an
-int8 pool reads about half the bytes of a bf16 one), each lane scores one
-key, and the G query heads of a KV head share every tile.  A row with no
-live key keeps the reference's uniform average over all P entries; the
-splits spread it too.
+int8 pool reads about half the bytes of a bf16 one), and the G query heads
+of a KV head share every tile.  bf16 q with up to 16 query heads per KV
+head runs on the tensor cores (``mma.sync``), with a bf16 pool or an int8
+one: int8 codes are exact in bf16 (K's widened once a tile into shared
+memory, V's in registers), and each key's scales fold into S (k) and P
+(v).  fp32 q and larger groups run on the CUDA cores, one key per lane.  A row with no live key keeps the reference's uniform average over
+all P entries; the splits spread it too.
 
 The combine's counters and the partials' workspace are shared with the
 dense kernel: one of each per device and stream (``split_scratch``), the
@@ -69,31 +72,40 @@ def plan(pages_per_seq: int, page_size: int, rows: int, sms: int, group: int,
     """(splits, chunk entries, pages per tile, tensor cores) for block
     tables of ``pages_per_seq`` entries: tiles of whole pages, ``TILE`` keys
     where the page divides it (one page where it is larger); the tensor
-    cores take bf16 q and pool in 32-key tiles; then the split of
-    ``split_plan`` over the tiles."""
+    cores take bf16 q with a bf16 or an int8 pool in 32-key tiles; then the
+    split of ``split_plan`` over the tiles.  On the tensor cores an int8
+    tile is widened to bf16 and costs about what a bf16 tile does, so its
+    split's least length is a bf16 split's (half the bytes; measured faster
+    at G = 16, PERF.md)."""
     tp = max(1, TILE // page_size)
     dp = next(x for x in HEAD_DIM_INSTANCES if x >= head_dim)
-    mma = (pool_dtype == q_dtype and tp * page_size == TILE
+    mma = (pool_dtype in (q_dtype, torch.int8) and tp * page_size == TILE
            and tensor_cores(q_dtype, dp, group))
+    int8 = pool_dtype == torch.int8
+    route = ("CUDA cores" if not mma else "tensor cores, int8" if int8 else "tensor cores")
+    element = 2 if mma else pool_dtype.itemsize
     splits, per = split_plan(-(-pages_per_seq // tp), rows, sms,
-                             min_split_tiles(group, pool_dtype.itemsize, tp * page_size),
-                             mma)
+                             min_split_tiles(group, element, tp * page_size), route)
     return splits, per * tp, tp, mma
 
 
 def _smem_bytes(page_size, head_dim, element_size, quantized, group, splits=MAX_SPLITS):
-    """Shared memory of one CUDA-core block, as the kernel lays it out (by
-    default for the most splits; a tensor-core block needs no more): two
-    ring stages, each a tile's K and V rows (padded), for int8 pools the k
-    and v scales, and a live flag per key; q (fp32 G x Dp, or bf16
-    16 x (Dp + 8), room for the larger); each warp's scores; with splits
-    the combine's weights (G x (splits + 1))."""
+    """Shared memory of one block, as the kernel lays it out (by default for
+    the most splits): two ring stages, each a tile's K and V rows (padded),
+    for int8 pools the k and v scales, and a live flag per key; q (fp32
+    G x Dp, or bf16 16 x (Dp + 8), room for the larger); each warp's
+    scores; with splits the combine's weights (G x (splits + 1)); and for an
+    int8 pool that may take the tensor cores, the tile's K widened to bf16
+    (TILE x (Dp + 8), 16-byte aligned)."""
     tk = max(1, TILE // page_size) * page_size
     dp = next(x for x in HEAD_DIM_INSTANCES if x >= head_dim)
     stage = 2 * tk * (dp * element_size + _K_PAD) + (8 * tk if quantized else 0) + tk
     nwarps = max(-(-group // _HEADS_PER_WARP), _MIN_WARPS)
+    widened = (16 + 2 * tk * (dp + 8)
+               if quantized and tk == TILE and tensor_cores(torch.bfloat16, dp, group) else 0)
     return (_STAGES * (-(-stage // 16) * 16) + max(4 * group * dp, 2 * MMA_ROWS * (dp + 8))
-            + 4 * (nwarps * _HEADS_PER_WARP * tk + (group * (splits + 1) if splits > 1 else 0)))
+            + 4 * (nwarps * _HEADS_PER_WARP * tk + (group * (splits + 1) if splits > 1 else 0))
+            + widened)
 
 
 def _bind(lib: ctypes.CDLL):

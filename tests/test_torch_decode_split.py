@@ -7,7 +7,8 @@ Pallas kernels in interpret mode at the edges the kernels must keep: empty
 splits, rows with no valid key, lengths above S, windows across a chunk
 boundary, -1 entries in and after the live range, a softcap and int8
 pools.  Tolerance 1e-5 in fp32: the splits change only the order of fp32
-sums.  The kernels themselves meet the same cases on the card
+sums.  The int8 pool's tensor-core route (bf16 q) is modelled step by step,
+and its fragment layouts lane by lane (``tools/paged_int8_model.py``).  The kernels themselves meet the same cases on the card
 (``tests/test_torch_kernels.py``, ``cuda``-marked, and ``chip_smoke.py``)."""
 import jax.numpy as jnp
 import numpy as np
@@ -63,7 +64,8 @@ def test_paged_plan_covers_each_entry_once(pages_per_seq, page_size):
                     assert 1 <= splits <= da.MAX_SPLITS and chunk % tp == 0
                     assert tp == max(1, da.TILE // page_size)
                     assert _covered_once(pages_per_seq, splits, chunk)
-                    assert mma == (pool_dtype == torch.bfloat16
+                    # the tensor cores: bf16 q with a bf16 or an int8 pool
+                    assert mma == (q_dtype == torch.bfloat16
                                    and tp * page_size == da.TILE and group <= 16)
 
 
@@ -81,7 +83,17 @@ def test_plans_at_the_slice_shapes():
         assert (splits, chunk, mma) == want
         assert 8 * 4 * 16 * 256 <= chunk * 2 * 256 * dtype.itemsize
     assert pda.plan(64, 16, 128, 132, 4, torch.bfloat16, torch.bfloat16, 128) == (5, 14, 2, True)
-    assert pda.plan(64, 16, 128, 132, 4, torch.bfloat16, torch.int8, 128) == (8, 8, 2, False)
+    # an int8 pool with bf16 q on the tensor cores aims at 6 blocks per SM
+    # (7 splits of 10 entries); with fp32 q on the CUDA cores at 8
+    assert pda.plan(64, 16, 128, 132, 4, torch.bfloat16, torch.int8, 128) == (7, 10, 2, True)
+    assert pda.plan(64, 16, 128, 132, 4, torch.float32, torch.int8, 128) == (8, 8, 2, False)
+    # DBRX-132B (48 heads over 8: G=6, rows 16 x 8) and Qwen3-MoE-235B-A22B
+    # (64 over 4: G=16, rows 16 x 4): on the tensor cores an int8 split's
+    # least length is a bf16 split's, ceil(16 G / 64) tiles
+    assert pda.plan(64, 16, 128, 132, 6, torch.bfloat16, torch.int8, 128) == (7, 10, 2, True)
+    assert pda.plan(64, 16, 128, 132, 6, torch.bfloat16, torch.bfloat16, 128) == (5, 14, 2, True)
+    assert pda.plan(64, 16, 64, 132, 16, torch.bfloat16, torch.int8, 128) == (8, 8, 2, True)
+    assert pda.plan(64, 16, 64, 132, 16, torch.bfloat16, torch.bfloat16, 128) == (8, 8, 2, True)
 
 
 # ---------------------------------------------------------------------------
@@ -137,12 +149,48 @@ def dense_split_model(q, k, v, lengths, window, splits, chunk):
     return out
 
 
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _partial_int8_mma(qg, k_codes, k_scale, v_codes, v_scale, weighted, uniform, softcap,
+                      d):
+    """(m, l, acc) of one split on the int8 pool's tensor-core route, tile
+    by tile (32 keys from the split's first entry): S = q C_k^T (q bf16 and
+    the codes exact, fp32 sums), column t times s_k[t] d^-0.5 in fp32, the
+    softcap, the mask; the online softmax in fp32; P' = P s_v in fp32, split
+    into bf16 hi + lo terms; acc += hi C_v + lo C_v in fp32.  A uniform
+    row's S is 0."""
+    g = qg.shape[0]
+    m, l, acc = torch.full((g,), NEG), torch.zeros(g), torch.zeros(g, v_codes.shape[1])
+    for t0 in range(0, len(weighted), da.TILE):
+        t = slice(t0, t0 + da.TILE)
+        live = weighted[t]
+        s = (torch.zeros(g, live.shape[0]) if uniform
+             else (qg @ k_codes[t].T) * (k_scale[t] * d ** -0.5))
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(live[None, :], s, torch.tensor(NEG))
+        m_new = torch.maximum(m, s.max(-1).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.where(live[None, :], torch.exp(s - m_new[:, None]), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1)
+        pv = p * v_scale[t]
+        hi = _bf16(pv)
+        lo = _bf16(pv - hi)
+        acc = acc * alpha[:, None] + hi @ v_codes[t] + lo @ v_codes[t]
+        m = m_new
+    return m, l, acc
+
+
 def paged_split_model(q, k_pages, v_pages, tables, lengths, splits, chunk, *,
-                      k_scales=None, v_scales=None, softcap=None):
+                      k_scales=None, v_scales=None, softcap=None, mma=False):
     """The paged kernel's algorithm: a row with a live key (an assigned
     entry below its length) walks entries j < ceil(min(len, P * page) /
     page), its -1 entries weighted 0; a row without one averages V over all
-    P entries (-1 reading page 0) with score 0."""
+    P entries (-1 reading page 0) with score 0.  ``mma``: an int8 pool on
+    the tensor cores (``_partial_int8_mma``), q bf16; else fp32 throughout,
+    the codes dequantized first."""
     b, h, d = q.shape
     page, kv = k_pages.shape[1], k_pages.shape[2]
     p_seq = tables.shape[1]
@@ -157,7 +205,7 @@ def paged_split_model(q, k_pages, v_pages, tables, lengths, splits, chunk, *,
             qg = q[bi, kh * g:(kh + 1) * g].float() * d ** -0.5
             parts = []
             for sp in range(splits):
-                keys, vals, weighted = [], [], []
+                keys, vals, weighted, ks, vs = [], [], [], [], []
                 for j in range(sp * chunk, min((sp + 1) * chunk, nlive)):
                     phys = max(row[j], 0)
                     for u in range(page):
@@ -165,12 +213,21 @@ def paged_split_model(q, k_pages, v_pages, tables, lengths, splits, chunk, *,
                             break
                         kr, vr = k_pages[phys, u, kh].float(), v_pages[phys, u, kh].float()
                         if k_scales is not None:
-                            kr, vr = kr * k_scales[phys, u, kh], vr * v_scales[phys, u, kh]
+                            ks.append(k_scales[phys, u, kh])
+                            vs.append(v_scales[phys, u, kh])
+                            if not mma:
+                                kr, vr = kr * ks[-1], vr * vs[-1]
                         keys.append(kr)
                         vals.append(vr)
                         weighted.append(uniform or row[j] >= 0)
                 keys = torch.stack(keys) if keys else torch.zeros(0, d)
                 vals = torch.stack(vals) if vals else torch.zeros(0, d)
+                if mma:
+                    ks, vs = (torch.stack(x) if x else torch.zeros(0) for x in (ks, vs))
+                    parts.append(_partial_int8_mma(
+                        q[bi, kh * g:(kh + 1) * g].float(), keys, ks, vals, vs,
+                        torch.tensor(weighted, dtype=torch.bool), uniform, softcap, d))
+                    continue
                 scores = qg @ keys.T
                 if softcap is not None:
                     scores = softcap * torch.tanh(scores / softcap)
@@ -214,23 +271,27 @@ def test_dense_split_model_matches_the_pallas_kernel(case):
                                window=window), got)
 
 
-def _paged_case(seed, int8):
-    """P = 24 entries of page 8, split by the plan (several chunks): row 0
-    all -1 with a length; row 1 length 0 with every entry assigned; row 2 a
-    -1 entry inside its live range and -1 tails; row 3 live in chunks 0 and
-    2 with chunk 1 all -1 (an empty split between live ones); row 4 a
-    length above P * page; row 5 one key."""
+def _paged_case(seed, int8, h=8, kv=2, d=32, page=8, p_seq=24, q_dtype=torch.float32):
+    """P = 24 entries of page 8 by default, split by the plan (several
+    chunks): row 0 all -1 with a length; row 1 length 0 with every entry
+    assigned; row 2 a -1 entry inside its live range and -1 tails; row 3
+    live in chunks 0 and 2 with chunk 1 all -1 (an empty split between live
+    ones); row 4 a length above P * page; row 5 one key (its later splits
+    hold no entry).  ``q_dtype`` bf16: q's values rounded to bf16."""
     rng = np.random.default_rng(seed)
-    b, h, kv, d, page, p_seq = 6, 8, 2, 32, 8, 24
-    splits, chunk, tp, _ = pda.plan(p_seq, page, b * kv, 132, h // kv, torch.float32,
-                                    torch.int8 if int8 else torch.float32, d)
-    assert splits >= 3 and tp == 4
+    b = 6
+    splits, chunk, tp, mma = pda.plan(p_seq, page, b * kv, 132, h // kv, q_dtype,
+                                      torch.int8 if int8 else q_dtype, d)
+    assert splits >= 3 and tp == da.TILE // page
     n = 1 + b * p_seq
     q = rng.normal(size=(b, h, d)).astype(np.float32)
+    if q_dtype == torch.bfloat16:
+        q = torch.from_numpy(q).to(torch.bfloat16).float().numpy()
     kp = rng.normal(size=(n, page, kv, d)).astype(np.float32)
     vp = rng.normal(size=(n, page, kv, d)).astype(np.float32)
     tables = (rng.permutation(np.arange(1, n))[:b * p_seq].reshape(b, p_seq)).astype(np.int32)
-    lengths = np.asarray([20, 0, 70, 2 * chunk * page + 5, 250, 1], np.int32)
+    lengths = np.asarray([20, 0, 70, 2 * chunk * page + 5, max(250, p_seq * page + 10), 1],
+                         np.int32)
     for i, length in enumerate(lengths):
         if i != 1:
             tables[i, max(0, -(-length // page)):] = -1
@@ -243,13 +304,13 @@ def _paged_case(seed, int8):
         vp = rng.integers(-127, 128, vp.shape).astype(np.int8)
         scales = {"k_scales": (rng.random(kp.shape[:3]) * 0.02).astype(np.float32),
                   "v_scales": (rng.random(vp.shape[:3]) * 0.02).astype(np.float32)}
-    return (q, kp, vp, tables, lengths, scales), (splits, chunk)
+    return (q, kp, vp, tables, lengths, scales), (splits, chunk, mma)
 
 
 @pytest.mark.parametrize("softcap,int8", [(None, False), (30.0, False), (None, True),
                                           (30.0, True)])
 def test_paged_split_model_matches_the_pallas_kernel(softcap, int8):
-    (q, kp, vp, tables, lengths, scales), (splits, chunk) = _paged_case(22, int8)
+    (q, kp, vp, tables, lengths, scales), (splits, chunk, _) = _paged_case(22, int8)
     t_scales = {n: torch.from_numpy(x) for n, x in scales.items()}
     got = paged_split_model(*(torch.from_numpy(x) for x in (q, kp, vp, tables, lengths)),
                             splits, chunk, softcap=softcap, **t_scales)
@@ -260,6 +321,95 @@ def test_paged_split_model_matches_the_pallas_kernel(softcap, int8):
     _close(pda.paged_decode_attention(*(torch.from_numpy(x) for x in (q, kp, vp, tables,
                                                                        lengths)),
                                       softcap=softcap, **t_scales), got)
+
+
+def _paged_f64(q, kp, vp, tables, lengths, k_scales, v_scales, softcap):
+    """The reference's formula in float64: the gathered view dequantized,
+    logits (q d^-0.5) (c s_k), the softcap, the mask (-1e30), softmax, P
+    (c s_v); -1 entries read page 0."""
+    b, h, d = q.shape
+    page, kv = kp.shape[1], kp.shape[2]
+    idx = np.maximum(tables, 0)
+    k = (kp[idx].astype(np.float64) * k_scales[idx][..., None]).reshape(b, -1, kv, d)
+    v = (vp[idx].astype(np.float64) * v_scales[idx][..., None]).reshape(b, -1, kv, d)
+    qf = q.astype(np.float64).reshape(b, kv, h // kv, d) * d ** -0.5
+    logits = np.einsum("bkgd,btkd->bkgt", qf, k)
+    if softcap is not None:
+        logits = softcap * np.tanh(logits / softcap)
+    pos = np.arange(k.shape[1])[None, :]
+    mask = (pos < lengths[:, None]) & np.repeat(tables >= 0, page, axis=1)
+    logits = np.where(mask[:, None, None, :], logits, -1e30)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bkgt,btkd->bkgd", p, v).reshape(b, h, d)
+
+
+# the int8 pool on the tensor cores (bf16 q): G = 4, 6, 16 (Qwen3-4B's,
+# DBRX-132B's, Qwen3-MoE-235B-A22B's groups) at head_dim 64, 120 and 128,
+# a softcap of 30 at each G; pages of 16 (two a tile), P long enough for
+# three splits of the least length, ceil(16 G / 64) tiles
+@pytest.mark.parametrize("g,d,softcap", [(4, 64, None), (4, 120, 30.0), (4, 128, None),
+                                         (6, 64, 30.0), (6, 120, None), (6, 128, 30.0),
+                                         (16, 64, None), (16, 120, 30.0), (16, 128, None)])
+def test_int8_tensor_core_model_matches_the_pallas_kernel(g, d, softcap):
+    """The route's arithmetic (``_partial_int8_mma``) against a float64
+    evaluation of the reference's formula, within 5e-5 x max |out| (so the
+    hi + lo split keeps P' to ~16 bits and the codes lose nothing), and
+    against the JAX package's Pallas kernel in interpret mode and the
+    wrapper's plain version at the bf16 tolerance, 2e-2."""
+    p_seq = 6 * -(-g // 4)
+    (q, kp, vp, tables, lengths, scales), (splits, chunk, mma) = _paged_case(
+        29, True, h=g, kv=1, d=d, page=16, p_seq=p_seq, q_dtype=torch.bfloat16)
+    assert mma and splits == 3
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    t = [torch.from_numpy(x) for x in (kp, vp, tables, lengths)]
+    t_scales = {n: torch.from_numpy(x) for n, x in scales.items()}
+    got = paged_split_model(tq, *t, splits, chunk, softcap=softcap, mma=True, **t_scales)
+    exact = _paged_f64(q, kp, vp, tables, lengths, scales["k_scales"], scales["v_scales"],
+                       softcap)
+    scale = float(np.abs(exact).max())
+    np.testing.assert_allclose(got.numpy(), exact, rtol=0, atol=5e-5 * scale)
+    want = jax_paged_decode_attention(
+        jnp.asarray(q, jnp.bfloat16), *(jnp.asarray(x) for x in (kp, vp, tables, lengths)),
+        softcap=softcap, interpret=True, **{n: jnp.asarray(x) for n, x in scales.items()})
+    np.testing.assert_allclose(np.asarray(want, np.float32), got.numpy(), rtol=2e-2, atol=2e-2)
+    plain = pda.paged_decode_attention(tq, *t, softcap=softcap, **t_scales)
+    np.testing.assert_allclose(plain.float().numpy(), got.numpy(), rtol=2e-2, atol=2e-2)
+
+
+def _fragment_model():
+    """``tools/paged_int8_model.py``: the kernel's fragment layouts, lane by
+    lane, in numpy."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "paged_int8_model.py"
+    spec = importlib.util.spec_from_file_location("paged_int8_model", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_int8_codes_widen_to_bf16_exactly():
+    """Every pair of int8 codes through the kernel's bit arithmetic
+    (two LOP3s and one bf16x2 subtraction) comes out as the codes."""
+    _fragment_model().check_widening()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_int8_v_loads_hit_no_bank_twice(d):
+    """The V loads of the permuted columns (NT = D / 32 bytes from each of
+    four key rows per lane) are free of shared-memory bank conflicts."""
+    assert _fragment_model().v_conflicts(d) == 1
+
+
+@pytest.mark.parametrize("d,head_dim", [(64, 64), (64, 56), (128, 128), (128, 120),
+                                        (256, 256)])
+def test_int8_fragments_multiply_to_the_exact_products(d, head_dim):
+    """The K tile widened to bf16 holds the codes, and the lane model of
+    P' C_v (with V's and O's column permutation and the partial's stores)
+    gives the float64 product exactly, zeros past head_dim included."""
+    _fragment_model().check_products(d, head_dim)
 
 
 def test_rows_without_a_valid_key_average_v_uniformly():

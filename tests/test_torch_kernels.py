@@ -412,25 +412,58 @@ def test_cuda_kernel_matches_plain_version(cuda_device, b, h, kv, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 120])
+@pytest.mark.parametrize("h,kv", [(32, 8), (48, 8), (64, 4)])   # G = 4, 6, 16
+@pytest.mark.parametrize("d", [64, 120, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_int8_pool_matches_plain_version(cuda_device, d, dtype):
-    """int8 pools with scales, as the port's ``quantize_kv`` makes them; at
-    head_dim 120 a row is 120 bytes, 8-byte aligned."""
+def test_cuda_int8_pool_matches_plain_version(cuda_device, h, kv, d, dtype):
+    """int8 pools with scales, as the port's ``quantize_kv`` makes them, at
+    Qwen3-4B's, DBRX-132B's and Qwen3-MoE-235B-A22B's groups: bf16 q on the
+    tensor cores, fp32 q on the CUDA cores; a fully masked row, a -1 entry
+    inside a live range, -1 tails, a softcap; at head_dim 120 a row is 120
+    bytes, 8-byte aligned."""
     from repro_torch.models.paged import quantize_kv
 
-    _, tx = _both(_inputs(12, 4, 32, 8, d, 16, 8, masked_row=True), dtype)
+    _, tx = _both(_inputs(12, 4, h, kv, d, 16, 8, masked_row=True), dtype)
     q, kp, vp, bt, lengths = [t.to(cuda_device) for t in tx]
+    bt[1, 0] = -1
     (kc, ks), (vc, vs) = quantize_kv(kp.float()), quantize_kv(vp.float())
+    mma = pda.plan(bt.shape[1], 16, 4 * kv, da.sm_count(cuda_device), h // kv, q.dtype,
+                   torch.int8, d)[3]
+    assert mma == (dtype == "bfloat16")
     before = (pda.paged_decode_attention.launches, pda.paged_decode_attention.launches_int8)
-    got = pda.paged_decode_attention(q, kc, vc, bt, lengths, k_scales=ks, v_scales=vs)
+    got = pda.paged_decode_attention(q, kc, vc, bt, lengths, k_scales=ks, v_scales=vs,
+                                     softcap=30.0)
     torch.cuda.synchronize()
     assert (pda.paged_decode_attention.launches,
             pda.paged_decode_attention.launches_int8) == (before[0] + 1, before[1] + 1)
     want = ref.paged_decode_attention_ref(q, kc, vc, bt, lengths, k_scales=ks,
-                                          v_scales=vs)
+                                          v_scales=vs, softcap=30.0)
     tol = DTYPES[dtype][2]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_pool_tensor_core_instances_run_hmma(cuda_device):
+    """The paged kernel's int8-pool instances for bf16 q at head_dim 64,
+    128 and 256 (16- and 8-byte copies) compute with mma.sync: HMMA in each
+    one's SASS, counted by ``chip_smoke._sass_hmma``."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    build.library("paged_decode_attention")
+    hmma = {m.groups(): n["hmma"]
+            for fn, n in smoke._sass_hmma("paged_decode_attention").items()
+            for m in [re.search(smoke.PAGED_INT8_MMA, fn)] if m}
+    assert sorted(hmma) == sorted((str(d), str(vb)) for d in (64, 128, 256)
+                                  for vb in (8, 16)), hmma
+    assert all(hmma.values()), hmma
 
 
 def _flash_against_plain(device, b, h, kv, s, d, window, softcap, dtype, causal=True):
@@ -689,6 +722,7 @@ def test_cuda_split_decode_kernel_at_chunk_boundaries(cuda_device, h, kv, d, win
 @pytest.mark.parametrize("q_dtype,pool,softcap", [("bfloat16", "bfloat16", None),
                                                   ("float32", "float32", 30.0),
                                                   ("bfloat16", "int8", None),
+                                                  ("bfloat16", "int8", 30.0),
                                                   ("float32", "int8", 30.0)])
 def test_cuda_split_paged_kernel_at_chunk_boundaries(cuda_device, q_dtype, pool, softcap):
     """The split paged kernel (both routes) at the serving shape: a row of
